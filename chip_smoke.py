@@ -7,21 +7,44 @@ Phases, in order; any failure raises and exits non-zero:
 
   1. device   the torch version, the card, and its name and power limit as
               nvidia-smi reports them; fails without a CUDA device
-  2. build    nvcc builds every kernel of the main path from csrc/ (the
-              seconds and the -Xptxas -v report are printed)
-  3. check    every kernel against its plain PyTorch version on the card,
-              at the main path's shapes and at edge cases, plus the
-              float64 oracle and bitwise population-size invariance
+  2. build    nvcc builds every kernel from csrc/, one nvcc per source, all
+              started together (the seconds and the -Xptxas -v reports
+              are printed)
+  3. check    every kernel against its plain PyTorch version on the card:
+              the makespan kernel at the main path's shapes and at edge
+              cases, plus the float64 oracle and bitwise population-size
+              invariance; the selective-scan kernel at the reference
+              tests' shapes (float32 and bf16 inputs) and at the two
+              serving shapes, plus bitwise batch-row independence
   4. main     the M3E mapper end to end: S4 with a Mix group of 100 jobs,
               bw_sys = 256 GB/s, MAGMA with the paper's 10K-sample budget
               (P=100, 100 generations), four seeds; each search must
               launch the makespan kernel once per generation, and its best
               individual, re-evaluated by the plain version on the CPU,
               must reproduce its best fitness
-  5. timing   CUDA-event times of each kernel and its plain version,
-              beside the least time the card could take for the same work,
-              and one more search under torch.profiler: the device's busy
-              share of the search and the makespan kernel's part of it
+  5. timing   CUDA-event times of the makespan kernel and its plain
+              version, beside the least time the card could take for the
+              same work, and one more search under torch.profiler: the
+              device's busy share of the search and the kernel's part
+  6. serve    the serving engine end to end: falcon-mamba-7b and
+              zamba2-1.2b at full published width and depth, bf16, random
+              weights from a seeded generator, use_flash=True;
+              MultiTenantEngine(...).schedule(jobs, method="magma",
+              execute=True) for two requests per tenant (512-token
+              prompts, 32 generated tokens, decode windows of 8); every job
+              scheduled once, every decode window answered, the scan kernel
+              launched once per SSM layer of every prefill and the makespan
+              kernel once per MAGMA generation; walls of the scheduling, of
+              each prefill and per decoded token
+  7. model    kernel path against plain path (use_flash=False, the same
+              weights): falcon-mamba-7b at full width, 4 layers, float32,
+              must give prefill logits within MODEL_F32_ATOL and the same
+              greedy tokens over the whole decode; at full depth in bf16
+              the difference and the token agreement are reported
+  8. timing   CUDA-event times of the scan kernel and its plain version at
+              both serving shapes beside their bounds, and one served
+              request under torch.profiler: the device's busy share and
+              the scan kernel's part of it
 
 It prints a JSON line with one entry per kernel, the card's name and power
 limit, and last the line ``{"ok": true, "device": {...}}``.
@@ -37,9 +60,17 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RTOL, ATOL = 1e-4, 1e-5          # tests/test_makespan_parity.py:29
 ORACLE_REL = 2e-3                # float32 simulators vs the float64 oracle
+SSM_TOL_F32, SSM_TOL_BF16 = 1e-4, 5e-2   # tests/test_kernels.py:112-127
+MODEL_F32_ATOL = 1e-3            # 4-layer f32 logits, kernel vs plain scan
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+# expf results on the SFU: 16 per clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0), 132 SMs at
+# the 1,980 MHz boost clock
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 GB = 1024 ** 3
+SERVE_ARCHS = ("falcon-mamba-7b", "zamba2-1.2b")
+PROMPT, GENERATE, WINDOW = 512, 32, 8
 
 
 def check(cond, msg):
@@ -99,6 +130,52 @@ def makespan_bound_ms(P, A, G):
                                          else "operations")
 
 
+def ssm_bound_ms(Bt, L, D, N, x_bytes, bc_bytes):
+    """Least time for one selective scan: x (x_bytes each), dt (f32) and
+    y (f32) once per (b, t, d), A (f32) once, B and C (bc_bytes each) once
+    per (b, t, n) and the final state h (f32) once, against its operations:
+    Bt*L*D*N expf on the SFU and Bt*L*D*(6N + 1) other f32 operations
+    (per state dt*A, decay*h, u*B, their sum, h*C and its sum into y; per
+    channel u = dt*x).  The larger of the three times."""
+    nbytes = (Bt * L * D * (x_bytes + 8) + D * N * 4
+              + 2 * Bt * L * N * bc_bytes + Bt * D * N * 4)
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = max(Bt * L * D * N / SFU_EXP_PER_S,
+                 Bt * L * D * (6 * N + 1) / F32_OPS_PER_S)
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def ssm_inputs(dev, seed, Bt, L, D, N, low):
+    """x, B, C in ``low``, dt = softplus(normal) / 10 and A = -exp(normal/2)
+    in f32, as tests/test_kernels.py:104-108 draws them."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = normal(Bt, L, D).to(low)
+    dt = torch.nn.functional.softplus(normal(Bt, L, D)) * 0.1
+    A = -torch.exp(normal(D, N) * 0.5)
+    return x, dt, A, normal(Bt, L, N).to(low), normal(Bt, L, N).to(low)
+
+
+def compare_tol(got, want, tol, what):
+    """Max abs / rel error; fails outside atol = rtol = ``tol`` (the
+    reference's np.testing.assert_allclose(atol=tol, rtol=tol))."""
+    import torch
+    got, want = got.double().cpu(), want.double().cpu()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    err = (got - want).abs()
+    rel = err / want.abs().clamp_min(1e-30)
+    check(bool((err <= tol + tol * want.abs()).all()),
+          f"{what}: kernel disagrees with the plain version (max abs "
+          f"{float(err.max())}, max rel {float(rel.max())}, tol {tol})")
+    return float(err.max()), float(rel.max())
+
+
 def main():
     import torch
 
@@ -123,17 +200,29 @@ def main():
     from repro_torch.costmodel import get_setting
     from repro_torch.kernels import _build
     from repro_torch.kernels import makespan as mk
+    from repro_torch.kernels import ssm_scan as ssm
+    from repro_torch.kernels.ref import ssm_scan_ref
     from repro_torch.workloads import build_task_groups
+    from concurrent.futures import ThreadPoolExecutor
+
+    def reset_counts():
+        mk.reset_launches()
+        ssm.reset_launches()
 
     # -- 2. build ---------------------------------------------------------
+    names = ("makespan", "ssm_scan")
     t0 = time.perf_counter()
-    built = _build.load("makespan")
-    print(f"[build] makespan: {built.path.name} in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {built.build_seconds:.2f} s"
-          f"{'' if built.build_seconds else ', reused'})")
-    for line in built.ptxas_log.splitlines():
-        if line.strip():
-            print(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor(len(names)) as pool:
+        builds = list(pool.map(_build.load, names))
+    print(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.2f} s "
+          "wall, built together")
+    for kname, built in zip(names, builds):
+        print(f"[build] {kname}: {built.path.name} (nvcc "
+              f"{built.build_seconds:.2f} s"
+              f"{'' if built.build_seconds else ', reused'})")
+        for line in built.ptxas_log.splitlines():
+            if line.strip():
+                print(f"[build]   {line.strip()}")
 
     # -- 3. kernel check --------------------------------------------------
     group = build_task_groups("Mix", group_size=100, seed=0)[0]
@@ -223,12 +312,47 @@ def main():
     print(f"[check] 8 individuals vs the float64 oracle: max rel "
           f"{oracle_rel:.3e} (limit {ORACLE_REL})")
 
+    # the selective scan: the reference tests' shapes, then the two serving
+    # shapes (bf16 x/B/C and f32 dt/A, as the model path gives them)
+    ssm_errs, ssm_main = [], {}
+    ssm_cases = [(2, 40, 64, 4, torch.float32), (1, 129, 256, 16, torch.float32),
+                 (2, 16, 128, 8, torch.float32), (1, 64, 384, 64, torch.float32),
+                 (1, 32, 128, 16, torch.bfloat16),
+                 (1, PROMPT, 8192, 16, torch.bfloat16),
+                 (1, PROMPT, 4096, 64, torch.bfloat16)]
+    for i, (Bt, L, D, N, low) in enumerate(ssm_cases):
+        args = ssm_inputs(dev, 100 + i, Bt, L, D, N, low)
+        y, h = ssm.ssm_scan(*args)
+        torch.cuda.synchronize()
+        yr, hr = ssm_scan_ref(*args)
+        tol = SSM_TOL_F32 if low == torch.float32 else SSM_TOL_BF16
+        what = (f"ssm_scan Bt={Bt} L={L} D={D} N={N} "
+                f"{str(low).split('.')[-1]} x/B/C")
+        ey, eh = compare_tol(y, yr, tol, what + " y"), \
+            compare_tol(h, hr, tol, what + " h")
+        ssm_errs += [ey, eh]
+        print(f"[check] {what}: y max abs {ey[0]:.3e} rel {ey[1]:.3e}; "
+              f"h max abs {eh[0]:.3e} rel {eh[1]:.3e} (tol {tol})")
+        if L == PROMPT:
+            ssm_main["falcon" if N == 16 else "zamba2"] = args
+    args2 = ssm_inputs(dev, 200, 2, 96, 512, 64, torch.bfloat16)
+    y2, h2 = ssm.ssm_scan(*args2)
+    for b in range(2):
+        x, dt, A, B, C = args2
+        y1, h1 = ssm.ssm_scan(x[b:b + 1].contiguous(), dt[b:b + 1].contiguous(),
+                              A, B[b:b + 1].contiguous(),
+                              C[b:b + 1].contiguous())
+        check(torch.equal(y2[b:b + 1], y1) and torch.equal(h2[b:b + 1], h1),
+              f"ssm_scan: row {b} of a Bt=2 launch differs bitwise from its "
+              "Bt=1 launch")
+    print("[check] ssm_scan Bt=2 rows == two Bt=1 launches, bitwise")
+
     # -- 4. main path -----------------------------------------------------
     setting, budget, bw_sys_main = "S4", 10_000, 256 * GB
     m3e = M3E(get_setting(setting), bw_sys=bw_sys_main, device=dev)
     cpu_fit = FitnessFn(table, bw_sys=bw_sys_main, device="cpu")
     walls = []
-    mk.reset_launches()
+    reset_counts()
     for seed in range(4):
         before = mk.LAUNCHES["makespan"]
         res = m3e.search(group, method="magma", budget=budget, seed=seed)
@@ -252,6 +376,8 @@ def main():
         check(sorted(sum(mapping, [])) == list(range(100)),
               f"seed {seed}: the best mapping does not place every job once")
     launches = mk.LAUNCHES["makespan"]
+    check(ssm.LAUNCHES["ssm_scan"] == 0, "the M3E searches launched the "
+                                         "scan kernel")
     print(f"[main] makespan kernel launches over 4 searches: {launches}")
 
     # -- 5. timing --------------------------------------------------------
@@ -296,13 +422,230 @@ def main():
         print("[profile] the profiler saw no device time: device busy share "
               "not measured")
 
+    # -- 6. serve ----------------------------------------------------------
+    from repro_torch.configs import get_config
+    from repro_torch.core.strategies import plan_generations
+    from repro_torch.models.registry import count_params, get_model
+    from repro_torch.serve import MultiTenantEngine, Tenant, default_submeshes
+
+    weights = torch.Generator(device=dev)
+    weights.manual_seed(0)
+    tenants = []
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch).replace(use_flash=True)
+        t0 = time.perf_counter()
+        model = get_model(cfg, device=dev, generator=weights)
+        torch.cuda.synchronize()
+        n = count_params(cfg)
+        check(sum(p.numel() for p in model.parameters()) == n,
+              f"{arch}: parameter count")
+        print(f"[serve] {arch}: {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, d_inner {cfg.inner}, N {cfg.ssm_state}, "
+              f"{n:,} params in {cfg.dtype} ({n * 2 / 1e9:.2f} GB), random "
+              f"init {time.perf_counter() - t0:.2f} s")
+        tenants.append(Tenant(arch, cfg, model))
+    layers = {t.name: t.cfg.num_layers for t in tenants}
+    engine = MultiTenantEngine(tenants, default_submeshes(),
+                               decode_window=WINDOW, seed=0, device=dev)
+    generations = plan_generations(engine.budget, 100)[0]
+
+    def serve(requests, what, seed=0):
+        """One schedule(..., execute=True) of ``requests`` with prompts
+        drawn from ``seed``; checks its coverage and launch counts, returns
+        (jobs, out, wall s, (ssm_scan, makespan) launches)."""
+        jobs = engine.jobs_for_requests(requests)
+        draw = np.random.default_rng(seed)
+        prompts = {j.uid: draw.integers(0, engine.tenants[j.tenant].cfg.vocab,
+                                        (1, j.seq))
+                   for j in jobs if j.phase == "prefill"}
+        reset_counts()
+        t0 = time.perf_counter()
+        out = engine.schedule(jobs, method="magma", execute=True,
+                              prompts=prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (ssm.LAUNCHES["ssm_scan"], mk.LAUNCHES["makespan"])
+        check(sorted(u for q in out["queues"] for u in q)
+              == sorted(j.uid for j in jobs),
+              f"{what}: a job is not scheduled exactly once")
+        decodes = {j.uid: j for j in jobs if j.phase == "decode"}
+        check(sorted(out["outputs"]) == sorted(decodes),
+              f"{what}: the outputs do not cover every decode window")
+        for uid, toks in out["outputs"].items():
+            vocab = engine.tenants[decodes[uid].tenant].cfg.vocab
+            check(toks.shape == (1, decodes[uid].tokens)
+                  and bool(((toks >= 0) & (toks < vocab)).all()),
+                  f"{what}: decode job {uid} gave {toks.shape} tokens")
+        want = sum(layers[j.tenant] for j in jobs if j.phase == "prefill")
+        check(counts == (want, generations),
+              f"{what}: launches (ssm_scan, makespan) = {counts}, want "
+              f"({want}, {generations})")
+        print(f"[serve] {what}: {len(jobs)} jobs on {len(engine.submeshes)} "
+              f"submeshes, schedule+execute wall {wall:.3f} s (search "
+              f"{out['result'].wall_time_s:.3f} s), launches ssm_scan "
+              f"{counts[0]} makespan {counts[1]}")
+        return jobs, out, wall, counts
+
+    requests = [(arch, PROMPT, GENERATE) for arch in SERVE_ARCHS
+                for _ in range(2)]
+    jobs, served, serve_wall, serve_counts = serve(requests, "main")
+    # the same requests again, each prefill and decode step timed alone
+    phase_walls = {"prefill": [], "decode": []}
+
+    def timed(fn, phase, arch):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            phase_walls[phase].append((arch, time.perf_counter() - t0))
+            return out
+        return run
+
+    for t in tenants:
+        t.model.prefill = timed(t.model.prefill, "prefill", t.name)
+        t.model.decode_step = timed(t.model.decode_step, "decode", t.name)
+    _, again, timed_wall, _ = serve(requests, "timed")
+    for t in tenants:
+        del t.model.prefill, t.model.decode_step
+    check(all(np.array_equal(a, b) for a, b in
+              zip(served["outputs"].values(), again["outputs"].values())),
+          "serving the same requests twice gave other tokens")
+    serve_out = {"schedule_wall_s": serve_wall, "timed_wall_s": timed_wall,
+                 "makespan_s": served["makespan_s"],
+                 "search_wall_s": served["result"].wall_time_s}
+    for arch in SERVE_ARCHS:
+        pre = [w for a, w in phase_walls["prefill"] if a == arch]
+        dec = [w for a, w in phase_walls["decode"] if a == arch]
+        serve_out[arch] = {"prefill_s": pre,
+                           "decode_s_per_token_median": float(np.median(dec)),
+                           "decode_s_per_token_mean": float(np.mean(dec))}
+        print(f"[serve] {arch}: prefill of {PROMPT} tokens "
+              f"{', '.join(f'{w * 1e3:.3f}' for w in pre)} ms; decode "
+              f"{np.median(dec) * 1e3:.3f} ms per token (median of "
+              f"{len(dec)}, mean {np.mean(dec) * 1e3:.3f})")
+
+    # -- 7. whole model: kernel path against plain path -------------------
+    def greedy(model, cfg, prompt):
+        """Prefill logits and GENERATE greedy tokens of ``model`` run with
+        ``cfg`` (the same weights; cfg.use_flash picks the scan)."""
+        model.cfg = cfg
+        logits, cache = model.prefill({"tokens": prompt},
+                                      PROMPT + GENERATE)
+        first = logits.clone()
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        toks = []
+        for pos in range(PROMPT, PROMPT + GENERATE):
+            logits, cache = model.decode_step(cache, cur, pos)
+            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            toks.append(cur)
+        return first, torch.cat(toks, dim=1).cpu()
+
+    rng = np.random.default_rng(1)
+    cfg32 = get_config("falcon-mamba-7b").replace(
+        num_layers=4, dtype="float32", use_flash=True)
+    m32 = get_model(cfg32, device=dev, generator=weights)
+    prompt = torch.as_tensor(rng.integers(0, cfg32.vocab, (1, PROMPT)),
+                             device=dev)
+    reset_counts()
+    lk, tk = greedy(m32, cfg32, prompt)
+    check(ssm.LAUNCHES["ssm_scan"] == 4, "f32 model: the kernel path did "
+                                         "not launch the scan kernel")
+    lp, tp = greedy(m32, cfg32.replace(use_flash=False), prompt)
+    check(ssm.LAUNCHES["ssm_scan"] == 4, "f32 model: the plain path "
+                                         "launched the scan kernel")
+    check(bool(torch.isfinite(lk).all()), "f32 model: non-finite logits")
+    model_diff = float((lk - lp).abs().max())
+    check(model_diff <= MODEL_F32_ATOL,
+          f"f32 model: prefill logits differ by {model_diff} "
+          f"(tol {MODEL_F32_ATOL})")
+    check(torch.equal(tk, tp), f"f32 model: greedy tokens differ: "
+                              f"{tk.tolist()} vs {tp.tolist()}")
+    print(f"[model] falcon-mamba-7b full width, 4 layers, f32: prefill "
+          f"logits max abs diff {model_diff:.3e} (tol {MODEL_F32_ATOL}, "
+          f"logits max abs {float(lk.abs().max()):.3f}); {GENERATE} greedy "
+          "tokens equal")
+    del m32
+    full_depth = {}
+    for t in tenants:
+        prompt = torch.as_tensor(rng.integers(0, t.cfg.vocab, (1, PROMPT)),
+                                 device=dev)
+        lk, tk = greedy(t.model, t.cfg, prompt)
+        lp, tp = greedy(t.model, t.cfg.replace(use_flash=False), prompt)
+        t.model.cfg = t.cfg
+        agree = int((tk == tp).sum())
+        same = (tk == tp)[0].tolist() + [False]
+        full_depth[t.name] = {"logits_max_abs_diff": float((lk - lp).abs()
+                                                           .max()),
+                              "logits_max_abs": float(lk.abs().max()),
+                              "tokens_equal": agree, "tokens": GENERATE,
+                              "first_difference": same.index(False)}
+        print(f"[model] {t.name} full depth, bf16 (reported, not "
+              f"required): prefill logits max abs diff "
+              f"{full_depth[t.name]['logits_max_abs_diff']:.3e} (logits "
+              f"max abs {full_depth[t.name]['logits_max_abs']:.3f}), "
+              f"{agree}/{GENERATE} greedy tokens equal, first difference "
+              f"at token {same.index(False)}")
+
+    # -- 8. timing: the scan kernel, and where a served request's time goes
+    ssm_times = {}
+    for key, args in ssm_main.items():
+        Bt, L, D = args[0].shape
+        N = args[2].shape[1]
+        k_ms = time_cuda(lambda: ssm.ssm_scan(*args), 100, 10)
+        p_ms = time_cuda(lambda: ssm_scan_ref(*args), 3, 1)
+        b_ms, b_by = ssm_bound_ms(Bt, L, D, N, args[0].element_size(),
+                                  args[3].element_size())
+        ssm_times[key] = (k_ms, p_ms, b_ms, b_by, (Bt, L, D, N))
+        print(f"[timing] ssm_scan {key} Bt={Bt} L={L} D={D} N={N} bf16 "
+              f"x/B/C: kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by}); library call: none")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        traced_jobs, traced_out, _, _ = serve(
+            [(SERVE_ARCHS[0], PROMPT, GENERATE)], "profiled")
+        traced_wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    serve_profile = None
+    if on_card:
+        busy_ms = sum(e.device_time_total for e in on_card) / 1e3
+        by_name = {}
+        for e in on_card:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.device_time_total / 1e3
+        ssm_ms = sum(v for k, v in by_name.items() if "ssm_scan_kernel" in k)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        serve_profile = {"wall_ms": traced_wall_ms, "device_busy_ms": busy_ms,
+                         "device_busy_share": busy_ms / traced_wall_ms,
+                         "ssm_kernel_ms": ssm_ms,
+                         "ssm_share_of_busy": ssm_ms / busy_ms,
+                         "device_ops": len(on_card),
+                         "top_kernels_ms": [[k[:80], v] for k, v in top]}
+        print(f"[profile] one served {SERVE_ARCHS[0]} request ({PROMPT} + "
+              f"{GENERATE} tokens): wall {traced_wall_ms:.3f} ms, device "
+              f"busy {busy_ms:.3f} ms ({busy_ms / traced_wall_ms:.1%}) over "
+              f"{len(on_card)} device ops, ssm_scan kernel {ssm_ms:.3f} ms "
+              f"({ssm_ms / busy_ms:.1%} of busy)")
+        for k, v in top:
+            print(f"[profile]   {v:10.3f} ms  {k[:100]}")
+    else:
+        print("[profile] the profiler saw no device time: device busy share "
+              "not measured")
+
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
+    k_ms, p_ms, b_ms, b_by, shape = ssm_times["falcon"]
+    z_ms, zp_ms, zb_ms, _, z_shape = ssm_times["zamba2"]
     kernels = [{
         "name": "makespan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/makespan.cu",
         "replaces": "src/repro/kernels/makespan.py:36",
-        "launches": launches, "launches_per_search": launches // 4,
+        "launches": launches + serve_counts[1],
+        "launches_by_path": {"m3e_search": launches,
+                             "serve": serve_counts[1]},
+        "launches_per_search": launches // 4,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
@@ -310,6 +653,21 @@ def main():
         "ms_p4096": ms_big, "plain_ms_p4096": plain_big,
         "bound_ms_p4096": bound_big,
         "search_wall_s": walls, "profile": profile_out, "ok": True,
+    }, {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:28",
+        "launches": serve_counts[0],
+        "launches_by_path": {"m3e_search": 0, "serve": serve_counts[0]},
+        "max_abs_err": max(e[0] for e in ssm_errs),
+        "max_rel_err": max(e[1] for e in ssm_errs),
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "shape": dict(zip(("Bt", "L", "D", "N"), shape)),
+        "ms_zamba2": z_ms, "plain_ms_zamba2": zp_ms, "bound_ms_zamba2": zb_ms,
+        "shape_zamba2": dict(zip(("Bt", "L", "D", "N"), z_shape)),
+        "serve": serve_out, "model_f32_logits_max_abs_diff": model_diff,
+        "full_depth_bf16": full_depth, "profile": serve_profile, "ok": True,
     }]
     print(f"[device] {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,11 @@
 """Carry state across from ``repro``: its scenario tables and populations,
-handed over as numpy arrays, become this package's tensors on ``device``.
+and its language models' weights, handed over as numpy arrays, become this
+package's tensors on ``device``.
 
-In this system the "weights" are the scenario tables (``FitnessParams``)
-and the GA population, so these two functions are what lets both packages
-compute on the same inputs.
+For the mapper the "weights" are the scenario tables (``FitnessParams``)
+and the GA population; for the serving engine they are the tenants' model
+weights.  These functions are what lets both packages compute on the same
+inputs.
 """
 from __future__ import annotations
 
@@ -37,3 +39,44 @@ def population_from_numpy(accel, prio, device) -> Population:
                               device=device),
         prio=torch.as_tensor(np.array(prio, dtype=np.float32),
                              device=device))
+
+
+def _field(tree, name):
+    """``name`` of a JAX value-tree node: a dict key or a NamedTuple field."""
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def _fill(module: torch.nn.Module, tree, index=None) -> None:
+    """Copy every parameter of ``module`` from the same-named leaf of
+    ``tree``, taking ``leaf[index]`` of a stacked leaf when ``index`` is
+    given.  Leaves go through float32, which holds bf16 exactly."""
+    for name, p in module.named_parameters(recurse=False):
+        leaf = np.asarray(_field(tree, name))
+        if index is not None:
+            leaf = leaf[index]
+        if tuple(leaf.shape) != tuple(p.shape):
+            raise ValueError(f"{type(module).__name__}.{name}: JAX leaf "
+                             f"{leaf.shape} vs port {tuple(p.shape)}")
+        p.data.copy_(torch.as_tensor(leaf.astype(np.float32)).to(p.dtype))
+
+
+def model_from_numpy(cfg, values, device):
+    """The port's ``MambaLM`` / ``HybridLM`` for ``cfg`` holding the weights
+    of a JAX model's value tree (``module.split(model.init(key))[0]`` with
+    numpy leaves).  The stacked ``(L, ...)`` layer leaves are sliced into
+    the per-layer modules; the hybrid's shared attention and MLP leaves,
+    stacked ``(1, ...)``, give their one block."""
+    from repro_torch.models.registry import get_model
+
+    model = get_model(cfg, device="meta").to_empty(device=device)
+    model.device = torch.device(device)
+    _fill(model, values)                    # embed, final_norm
+    for i, lp in enumerate(model.layers):
+        _fill(lp, values["layers"], index=i)
+    if cfg.family == "hybrid":
+        shared = values["shared"]
+        sh = model.shared
+        _fill(sh, shared)
+        _fill(sh.attn, _field(shared, "attn"), index=0)
+        _fill(sh.mlp, _field(shared, "mlp"), index=0)
+    return model

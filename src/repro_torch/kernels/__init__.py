@@ -3,6 +3,8 @@
   makespan   the paper's M3E fitness evaluation (BW-allocator event
              simulation over whole populations), CUDA C++ in
              ``csrc/makespan.cu``
+  ssm_scan   the Mamba-1/2 selective scan that every SSM and hybrid
+             prefill layer runs, CUDA C++ in ``csrc/ssm_scan.cu``
 
 Each kernel has a wrapper (``ops``) and a plain PyTorch version (``ref``);
 the kernels are built with ``nvcc`` at first use (``_build``), never at

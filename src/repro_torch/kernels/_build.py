@@ -36,6 +36,7 @@ class BuiltLibrary:
 
 _lock = threading.Lock()
 _loaded: Dict[str, BuiltLibrary] = {}   # @locked:_lock
+_name_locks: Dict[str, threading.Lock] = {}   # @locked:_lock
 
 
 def _nvcc() -> str:
@@ -75,8 +76,19 @@ def _compile(name: str) -> BuiltLibrary:
 
 
 def load(name: str) -> BuiltLibrary:
-    """The library built from ``csrc/<name>.cu``, building it if needed."""
+    """The library built from ``csrc/<name>.cu``, building it if needed.
+
+    Each source has its own lock, so threads that load different kernels
+    run their ``nvcc`` builds at the same time."""
     with _lock:
-        if name not in _loaded:
-            _loaded[name] = _compile(name)
-        return _loaded[name]
+        if name in _loaded:
+            return _loaded[name]
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
+        with _lock:
+            if name in _loaded:
+                return _loaded[name]
+        built = _compile(name)
+        with _lock:
+            _loaded[name] = built
+        return built

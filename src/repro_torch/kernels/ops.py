@@ -2,8 +2,10 @@
 
 ``population_makespan`` is the M3E fitness hot loop: genome decode and the
 table gather run in PyTorch, and the event simulation in the makespan
-kernel (``repro_torch.kernels.makespan``), which takes CUDA tensors to the
-hand-written kernel and CPU tensors to the plain PyTorch version.
+kernel (``repro_torch.kernels.makespan``).  ``ssm_scan`` is the Mamba
+selective scan (``repro_torch.kernels.ssm_scan``).  Each takes CUDA
+tensors to its hand-written kernel and CPU tensors to its plain PyTorch
+version.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 
 from repro_torch.core.bw_allocator import queue_tables
 from repro_torch.core.encoding import decode
+from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels.makespan import makespan
 
 
@@ -24,3 +27,25 @@ def population_makespan(accel: torch.Tensor, prio: torch.Tensor,
     sched = decode(accel, prio, num_accels)
     qlat, qbw = queue_tables(sched, lat.float(), bw.float())
     return makespan(qlat.contiguous(), qbw.contiguous(), sched.count, bw_sys)
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor):
+    """Same contract as ``repro_torch.models.mamba.selective_scan``:
+    x, dt (Bt, L, D); A (D, N); B, C (Bt, L, N) -> (y (Bt, L, D) f32,
+    h_final (Bt, D, N) f32).
+
+    On the card, x, B and C go to the kernel in float32 or bfloat16 (any
+    other type is widened to float32, and B and C to one type), dt and A
+    in float32; on the serving path they already are, so nothing is cast
+    there.  The kernel wants contiguous rows: the B and C that the blocks
+    split off one projection are copied once here."""
+    if x.device.type == "cuda":
+        if x.dtype not in _ssm.INPUT_TYPES:
+            x = x.float()
+        if B.dtype != C.dtype or B.dtype not in _ssm.INPUT_TYPES:
+            B, C = B.float(), C.float()
+        x, dt, A = x.contiguous(), dt.float().contiguous(), \
+            A.float().contiguous()
+        B, C = B.contiguous(), C.contiguous()
+    return _ssm.ssm_scan(x, dt, A, B, C)

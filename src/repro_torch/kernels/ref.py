@@ -17,3 +17,10 @@ def population_makespan_ref(accel, prio, lat, bw, bw_sys,
     return simulate_population(accel, prio, torch.as_tensor(lat).float(),
                                torch.as_tensor(bw).float(), bw_sys,
                                num_accels)
+
+
+def ssm_scan_ref(x, dt, A, B, C):
+    """Time loop in plain PyTorch == ``repro_torch.models.mamba.
+    selective_scan`` == ``ops.ssm_scan`` on any device."""
+    from repro_torch.models.mamba import selective_scan
+    return selective_scan(x, dt, A, B, C)

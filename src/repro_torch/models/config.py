@@ -1,0 +1,90 @@
+"""Unified model configuration for the 10 assigned architectures.
+
+The same fields as ``repro.models.config.ModelConfig``, so that one config
+means the same model in both packages.  ``dtype_torch`` takes the place of
+``dtype_jnp``.  Some fields steer only the JAX package's lowering or its
+sharding (``remat``, ``scan_layers``, ``fsdp``, ``attn_batch_shard``,
+``ssm_time_chunk``, ``moe_group_decode``, ``ce_seq_chunk``): they are kept
+for parity and mean nothing to the port yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # 'dense' | 'moe' | 'ssm' | 'hybrid' | 'encdec' | 'vlm'
+    num_layers: int
+    d_model: int
+    vocab: int
+    # attention
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0            # 0 -> d_model // n_heads
+    d_ff: int = 0
+    sliding_window: int = 0      # 0 = full attention
+    rope_theta: float = 10_000.0
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    expert_ff: int = 0           # routed expert hidden dim
+    capacity_factor: float = 1.25
+    # SSM (mamba1/mamba2)
+    ssm_state: int = 0
+    d_inner: int = 0             # 0 -> 2 * d_model
+    conv_width: int = 4
+    dt_rank: int = 0             # mamba1; 0 -> ceil(d_model / 16)
+    ssm_head_dim: int = 64       # mamba2
+    ssm_chunk: int = 128
+    # XLA time-scan chunking in the JAX package; the port has no chunked
+    # scan yet (use_flash selects the CUDA kernel, else the plain scan)
+    ssm_time_chunk: int = 0
+    # hybrid (zamba2): one weight-tied attention block applied every k layers
+    shared_attn_every: int = 0
+    # enc-dec
+    encoder_layers: int = 0
+    # modality frontend stubs ([audio]/[vlm]): prepended precomputed embeds
+    num_prefix_embeds: int = 0
+    # attention memory control: process queries in chunks of this size when
+    # S > 2*chunk (exact, O(S*chunk) memory; SWA also slices the KV range)
+    attn_q_chunk: int = 1024
+    # decode MoE grouping, fused cross-entropy, attention batch
+    # re-sharding and FSDP: JAX-package options, kept for parity
+    moe_group_decode: bool = False
+    ce_seq_chunk: int = 0
+    attn_batch_shard: bool = False
+    fsdp: bool = True
+    # numerics / lowering
+    dtype: str = "bfloat16"
+    scan_layers: bool = True     # JAX layer scan; kept for parity only
+    use_flash: bool = False      # route the SSM scan through the CUDA kernel
+    remat: bool = True           # JAX rematerialisation; kept for parity only
+
+    # ---- derived -----------------------------------------------------------
+    @property
+    def dtype_torch(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def inner(self) -> int:
+        return self.d_inner or 2 * self.d_model
+
+    @property
+    def dtr(self) -> int:
+        return self.dt_rank or -(-self.d_model // 16)
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.inner // self.ssm_head_dim
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

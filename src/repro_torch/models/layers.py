@@ -1,0 +1,291 @@
+"""The building blocks that serving the SSM and hybrid families needs.
+
+Plain functions on tensors, as in ``repro.models.layers``, with the same
+layouts (activations ``(B, S, d)``, heads ``(B, S, H, hd)``, weights
+``(in, out)``), so that the tests hold each against its JAX counterpart.
+The parameters live in small ``nn.Module``s (``AttnParams``,
+``MlpParams``) whose fields are the JAX package's ``NamedTuple`` fields
+without the leading layer axis.  These are plain matrix products that the
+JAX package computes outside any Pallas kernel, so ``torch.matmul`` and
+``einsum`` compute them here too.
+
+Attention: GQA, RoPE, causal masking, sliding windows and a ring-buffer
+KV cache for decode (capacity ``seq_len`` for full attention).
+``decode_attention`` writes the new slot into the cache it is given, in
+place, where the JAX package returns a new cache: the caller never reads
+the old one, and a copy per token would move the whole cache.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.module import ones_init, param
+
+
+# ---------------------------------------------------------------------------
+# norms / rotary
+# ---------------------------------------------------------------------------
+def init_rmsnorm(gen, dim: int, dtype, device) -> nn.Parameter:
+    return param(gen, (dim,), dtype, device, init=ones_init)
+
+
+def rms_norm(scale: torch.Tensor, x: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
+    angles = positions[..., None].float() * freqs           # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                   # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+class AttnParams(nn.Module):
+    """wq (d, H*hd), wk and wv (d, Kh*hd), wo (H*hd, d)."""
+
+    def __init__(self, gen, d_model: int, n_heads: int, n_kv: int,
+                 head_dim: int, dtype, device):
+        super().__init__()
+        std = d_model ** -0.5
+        self.wq = param(gen, (d_model, n_heads * head_dim), dtype, device,
+                        stddev=std)
+        self.wk = param(gen, (d_model, n_kv * head_dim), dtype, device,
+                        stddev=std)
+        self.wv = param(gen, (d_model, n_kv * head_dim), dtype, device,
+                        stddev=std)
+        self.wo = param(gen, (n_heads * head_dim, d_model), dtype, device,
+                        stddev=std)
+
+
+class KVCache(NamedTuple):
+    """Unified ring-buffer cache: capacity C = seq_len (full attention)
+    or window (SWA).  ``pos`` holds the absolute position stored in each
+    slot (-1 = empty); masking uses positions, so full and windowed caches
+    share one code path."""
+    k: torch.Tensor        # (B, C, Kh, hd)
+    v: torch.Tensor        # (B, C, Kh, hd)
+    pos: torch.Tensor      # (B, C) int32
+
+
+def init_kv_cache(batch: int, capacity: int, n_kv: int, head_dim: int,
+                  dtype, device) -> KVCache:
+    return KVCache(
+        k=torch.zeros((batch, capacity, n_kv, head_dim), dtype=dtype,
+                      device=device),
+        v=torch.zeros((batch, capacity, n_kv, head_dim), dtype=dtype,
+                      device=device),
+        pos=torch.full((batch, capacity), -1, dtype=torch.int32,
+                       device=device),
+    )
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def _additive(ok: torch.Tensor) -> torch.Tensor:
+    """0 where ``ok``, -1e30 elsewhere, in float32."""
+    return torch.zeros(ok.shape, dtype=torch.float32,
+                       device=ok.device).masked_fill(~ok, -1e30)
+
+
+def attention_scores(q, k, mask, dtype) -> torch.Tensor:
+    """q: (B,Sq,H,hd), k: (B,Sk,Kh,hd) -> weights (B,H,Sq,Sk) given the
+    additive ``mask`` broadcastable to (B, 1|H, Sq, Sk)."""
+    B, Sq, H, hd = q.shape
+    Kh = k.shape[2]
+    group = H // Kh
+    qg = q.reshape(B, Sq, Kh, group, hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                          k.float()) / math.sqrt(hd)
+    logits = logits.reshape(B, Kh * group, Sq, -1) + mask
+    return torch.softmax(logits, dim=-1).to(dtype)
+
+
+def attention_context(w, v) -> torch.Tensor:
+    """w: (B,H,Sq,Sk), v: (B,Sk,Kh,hd) -> (B,Sq,H,hd) float32."""
+    B, H, Sq, Sk = w.shape
+    Kh = v.shape[2]
+    group = H // Kh
+    wg = w.reshape(B, Kh, group, Sq, Sk)
+    ctx = torch.einsum("bkgqs,bskd->bqkgd", wg.float(), v.float())
+    return ctx.reshape(B, Sq, H, -1)
+
+
+def causal_mask(sq: int, sk: int, window: int = 0, q_offset: int = 0,
+                device=None) -> torch.Tensor:
+    """Additive (1, 1, Sq, Sk) mask.  window=0 -> plain causal."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    ok = kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    return _additive(ok)[None, None]
+
+
+def _chunked_attention(q, k, v, *, causal, window, q_chunk, dtype):
+    """Exact attention with the query axis processed in chunks of
+    ``q_chunk``: a row's softmax does not depend on other rows, so the
+    score buffer is (B, H, q_chunk, Sk).  With a sliding window each
+    chunk attends only to its q_chunk + window columns."""
+    B, S, H, D = q.shape
+    use_kv_slice = bool(window) and window + q_chunk < S
+    chunks = []
+    for i in range(S // q_chunk):
+        q_i = q[:, i * q_chunk:(i + 1) * q_chunk]
+        if use_kv_slice:
+            kv_len = q_chunk + window
+            start = min(max(i * q_chunk - window, 0), S - kv_len)
+            k_i = k[:, start:start + kv_len]
+            v_i = v[:, start:start + kv_len]
+            kpos = start + torch.arange(kv_len, device=q.device)[None, :]
+        else:
+            k_i, v_i = k, v
+            kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        qpos = i * q_chunk + torch.arange(q_chunk, device=q.device)[:, None]
+        ok = torch.ones((q_chunk, kpos.shape[1]), dtype=torch.bool,
+                        device=q.device)
+        if causal:
+            ok &= kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        w = attention_scores(q_i, k_i, _additive(ok)[None, None], dtype)
+        chunks.append(attention_context(w, v_i).to(dtype))
+    return torch.cat(chunks, dim=1)
+
+
+def prefill_attention(p: AttnParams, x, capacity: int, *, n_heads, n_kv,
+                      head_dim, rope_theta, window=0, q_chunk=0):
+    """Full-sequence attention that also fills a fresh KV cache (ring
+    layout, capacity ``capacity``)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q = _split_heads(x @ p.wq, n_heads, head_dim)
+    k = _split_heads(x @ p.wk, n_kv, head_dim)
+    v = _split_heads(x @ p.wv, n_kv, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    if q_chunk and S > 2 * q_chunk and S % q_chunk == 0:
+        ctx = _chunked_attention(q, k, v, causal=True, window=window,
+                                 q_chunk=q_chunk, dtype=x.dtype)
+    else:
+        mask = causal_mask(S, S, window, device=x.device)
+        w = attention_scores(q, k, mask, x.dtype)
+        ctx = attention_context(w, v).to(x.dtype)
+    out = ctx.reshape(B, S, n_heads * head_dim) @ p.wo
+
+    C = capacity
+    if S >= C:
+        # keep the last C entries, each at ring slot (pos % C)
+        pc = torch.arange(S - C, S, dtype=torch.int32, device=x.device)
+        order = torch.argsort(pc % C)
+        new = KVCache(k[:, S - C:][:, order].contiguous(),
+                      v[:, S - C:][:, order].contiguous(),
+                      pc[order][None].expand(B, C).contiguous())
+    else:
+        pad = C - S
+        kc = F.pad(k, (0, 0, 0, 0, 0, pad))
+        vc = F.pad(v, (0, 0, 0, 0, 0, pad))
+        pc = torch.cat([
+            torch.arange(S, dtype=torch.int32, device=x.device)[None]
+            .expand(B, S),
+            torch.full((B, pad), -1, dtype=torch.int32, device=x.device)],
+            dim=1)
+        new = KVCache(kc, vc, pc)
+    return out, new
+
+
+def decode_attention(p: AttnParams, x, cache: KVCache, cur_pos: int, *,
+                     n_heads, n_kv, head_dim, rope_theta, window=0):
+    """One-token decode: write (k, v) at slot cur_pos % C of ``cache`` (in
+    place) and attend over the cache.
+
+    x: (B, 1, d); cur_pos: int, the same position across the batch."""
+    B = x.shape[0]
+    C = cache.k.shape[1]
+    pos_b = torch.full((B, 1), cur_pos, dtype=torch.int32, device=x.device)
+    q = _split_heads(x @ p.wq, n_heads, head_dim)
+    k = _split_heads(x @ p.wk, n_kv, head_dim)
+    v = _split_heads(x @ p.wv, n_kv, head_dim)
+    q = apply_rope(q, pos_b, rope_theta)
+    k = apply_rope(k, pos_b, rope_theta)
+
+    slot = cur_pos % C
+    cache.k[:, slot] = k[:, 0]
+    cache.v[:, slot] = v[:, 0]
+    cache.pos[:, slot] = cur_pos
+    cp = cache.pos
+
+    valid = (cp >= 0) & (cp <= cur_pos)
+    if window:
+        valid &= cp > cur_pos - window
+    mask = _additive(valid)[:, None, None, :]                # (B,1,1,C)
+    w = attention_scores(q, cache.k, mask, x.dtype)
+    ctx = attention_context(w, cache.v).to(x.dtype)
+    out = ctx.reshape(B, 1, n_heads * head_dim) @ p.wo
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# dense MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+class MlpParams(nn.Module):
+    """w_gate and w_up (d, ff), w_down (ff, d)."""
+
+    def __init__(self, gen, d_model: int, d_ff: int, dtype, device):
+        super().__init__()
+        self.w_gate = param(gen, (d_model, d_ff), dtype, device,
+                            stddev=d_model ** -0.5)
+        self.w_up = param(gen, (d_model, d_ff), dtype, device,
+                          stddev=d_model ** -0.5)
+        self.w_down = param(gen, (d_ff, d_model), dtype, device,
+                            stddev=d_ff ** -0.5)
+
+
+def mlp(p: MlpParams, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu((x @ p.w_gate).float()).to(x.dtype) * (x @ p.w_up)
+    return h @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# embeddings / head
+# ---------------------------------------------------------------------------
+def init_embedding(gen, vocab: int, d_model: int, dtype,
+                   device) -> nn.Parameter:
+    return param(gen, (vocab, d_model), dtype, device)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def logits_head(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Tied LM head: (B, S, d) @ (V, d)^T -> (B, S, V)."""
+    return x @ table.t()
+
+
+def pad_vocab(vocab: int, multiple: int = 128) -> int:
+    return int(math.ceil(vocab / multiple) * multiple)

@@ -1,0 +1,428 @@
+"""Mamba-1 (falcon-mamba), Mamba-2 blocks, and the Zamba2 hybrid
+(Mamba-2 backbone + one weight-tied shared attention block applied every
+``shared_attn_every`` layers), ported from ``repro.models.mamba``.
+
+The selective scan has two full-sequence implementations, chosen by
+``cfg.use_flash`` exactly as in the JAX package:
+  - ``selective_scan``          a Python loop over time (the plain
+                                version; any device),
+  - ``kernels.ops.ssm_scan``    the hand-written CUDA kernel on the card
+                                (the plain version for CPU tensors),
+and a single-step update for decode (state carried in the cache).
+
+State convention: h (B, d_inner, N) float32;
+  h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) outer B_t ;  y_t = <h_t, C_t>.
+Mamba-2 reuses the same recurrence with per-head scalar A broadcast over
+channels and head-shared dt.
+
+Per-layer parameters live in ``Mamba1Params`` / ``Mamba2Params`` modules
+(the JAX ``NamedTuple`` fields without the leading layer axis), held by
+the models in a ``ModuleList``.  Caches keep the JAX layout, stacked over
+layers: ``conv (L, B, W-1, Di)``, ``ssm (L, B, Di, N)`` and, for the
+hybrid, ``kv`` as a ``KVCache`` of ``(n_apps, ...)`` tensors.
+``decode_step`` updates the cache it is given in place and returns it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.module import ones_init, param, zeros_init
+
+
+# ---------------------------------------------------------------------------
+# selective scan (shared by mamba1/mamba2)
+# ---------------------------------------------------------------------------
+def selective_scan(x, dt, A, B, C, h0=None):
+    """x, dt: (Bt, S, Di); A: (Di, N); B, C: (Bt, S, N) -> (y, h_final),
+    y (Bt, S, Di) and h_final (Bt, Di, N), both float32."""
+    Bt, S, Di = x.shape
+    N = A.shape[1]
+    h = (torch.zeros((Bt, Di, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0)
+    Af = A.float()
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t, :, None] * Af[None])          # (Bt, Di, N)
+        h = decay * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        ys.append(torch.sum(h * Cf[:, t, None, :], dim=-1))       # (Bt, Di)
+    if not ys:
+        return torch.zeros((Bt, 0, Di), dtype=torch.float32,
+                           device=x.device), h
+    return torch.stack(ys, dim=1), h
+
+
+def selective_step(h, x_t, dt_t, A, B_t, C_t):
+    """One decode step: x_t, dt_t (Bt, Di); B_t, C_t (Bt, N)."""
+    decay = torch.exp(dt_t[..., None].float() * A.float()[None])
+    h = decay * h + (dt_t * x_t)[..., None].float() * B_t[:, None, :].float()
+    y = torch.sum(h * C_t[:, None, :].float(), dim=-1)
+    return h, y
+
+
+def causal_conv1d(x, w, b):
+    """Depthwise causal conv: x (Bt,S,Di), w (Di,W), b (Di,)."""
+    W = w.shape[1]
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0))
+    out = sum(xp[:, i:i + S, :] * w[:, i] for i in range(W))
+    return out + b
+
+
+def conv1d_step(conv_state, x_t, w, b):
+    """conv_state: (Bt, W-1, Di) trailing inputs; x_t: (Bt, Di)."""
+    full = torch.cat([conv_state, x_t[:, None]], dim=1)          # (Bt, W, Di)
+    out = torch.einsum("bwd,dw->bd", full, w) + b
+    return full[:, 1:], out
+
+
+def _ssm_full(cfg: ModelConfig, x_c, dt, A, B_ssm, C_ssm):
+    """The full-sequence scan: the kernel with ``use_flash``, else the
+    plain loop (``ssm_time_chunk`` selects the JAX package's chunked
+    scan, which is numerically the plain one; the port has no chunked
+    scan yet)."""
+    if cfg.use_flash:
+        from repro_torch.kernels import ops as kops
+        return kops.ssm_scan(x_c, dt, A, B_ssm, C_ssm)
+    return selective_scan(x_c, dt, A, B_ssm, C_ssm)
+
+
+def _a_log_mamba1(N: int):
+    def init(gen, shape, dtype, device):
+        a = torch.arange(1, N + 1, dtype=torch.float32, device=device)
+        return torch.log(a).expand(tuple(shape)).to(dtype).clone()
+    return init
+
+
+def _dt_bias(gen, shape, dtype, device):
+    return torch.log(torch.expm1(torch.full(tuple(shape), 1e-2,
+                                            dtype=torch.float32,
+                                            device=device))).to(dtype)
+
+
+def _a_log_mamba2(gen, shape, dtype, device):
+    return torch.log(torch.linspace(1.0, 16.0, shape[-1],
+                                    dtype=torch.float32,
+                                    device=device)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 block (falcon-mamba)
+# ---------------------------------------------------------------------------
+class Mamba1Params(nn.Module):
+    """One Mamba-1 layer: norm (d), in_proj (d, 2Di), conv_w (Di, W),
+    conv_b (Di), x_proj (Di, dt_rank + 2N), dt_w (dt_rank, Di),
+    dt_b (Di) f32, A_log (Di, N) f32, D (Di) f32, out_proj (Di, d)."""
+
+    def __init__(self, gen, cfg: ModelConfig, device):
+        super().__init__()
+        d, Di, N = cfg.d_model, cfg.inner, cfg.ssm_state
+        dtr, W, dt = cfg.dtr, cfg.conv_width, cfg.dtype_torch
+        f32 = torch.float32
+        self.norm = L.init_rmsnorm(gen, d, dt, device)
+        self.in_proj = param(gen, (d, 2 * Di), dt, device, stddev=d ** -0.5)
+        self.conv_w = param(gen, (Di, W), dt, device, stddev=W ** -0.5)
+        self.conv_b = param(gen, (Di,), dt, device, init=zeros_init)
+        self.x_proj = param(gen, (Di, dtr + 2 * N), dt, device,
+                            stddev=Di ** -0.5)
+        self.dt_w = param(gen, (dtr, Di), dt, device, stddev=dtr ** -0.5)
+        self.dt_b = param(gen, (Di,), f32, device, init=_dt_bias)
+        self.A_log = param(gen, (Di, N), f32, device, init=_a_log_mamba1(N))
+        self.D = param(gen, (Di,), f32, device, init=ones_init)
+        self.out_proj = param(gen, (Di, d), dt, device, stddev=Di ** -0.5)
+
+
+def mamba1_block(lp: Mamba1Params, x, cfg: ModelConfig, state=None):
+    """x: (Bt, S, d).  state=None: full scan (returns y, final_state);
+    state=(conv_state, h): single-step decode (S==1)."""
+    N, dtr = cfg.ssm_state, cfg.dtr
+    h_in = L.rms_norm(lp.norm, x)
+    x_in, z = torch.chunk(h_in @ lp.in_proj, 2, dim=-1)
+
+    if state is None:
+        x_c = causal_conv1d(x_in, lp.conv_w, lp.conv_b)
+        x_c = F.silu(x_c.float()).to(x.dtype)
+        dt_r, B_ssm, C_ssm = torch.split(x_c @ lp.x_proj, [dtr, N, N],
+                                         dim=-1)
+        dt = F.softplus((dt_r @ lp.dt_w).float() + lp.dt_b)
+        A = -torch.exp(lp.A_log)
+        y, h_fin = _ssm_full(cfg, x_c, dt, A, B_ssm, C_ssm)
+        y = y + lp.D * x_c.float()
+        y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
+        out = y @ lp.out_proj
+        W = cfg.conv_width
+        conv_tail = F.pad(x_in, (0, 0, W - 1, 0))[:, -(W - 1):, :]
+        return x + out, (conv_tail, h_fin)
+
+    conv_state, h = state
+    x_t, z_t = x_in[:, 0], z[:, 0]
+    conv_state, x_c = conv1d_step(conv_state, x_t, lp.conv_w, lp.conv_b)
+    x_c = F.silu(x_c.float()).to(x.dtype)
+    dt_r, B_t, C_t = torch.split(x_c @ lp.x_proj, [dtr, N, N], dim=-1)
+    dt = F.softplus((dt_r @ lp.dt_w).float() + lp.dt_b)
+    A = -torch.exp(lp.A_log)
+    h, y = selective_step(h, x_c, dt, A, B_t, C_t)
+    y = y + lp.D * x_c.float()
+    y = y.to(x.dtype) * F.silu(z_t.float()).to(x.dtype)
+    out = y[:, None] @ lp.out_proj
+    return x + out, (conv_state, h)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 block (zamba2 backbone)
+# ---------------------------------------------------------------------------
+class Mamba2Params(nn.Module):
+    """One Mamba-2 layer: norm (d), in_proj (d, 2Di), conv_w (Di, W),
+    conv_b (Di), bc_proj (d, 2N), dt_w (d, H), dt_b (H) f32,
+    A_log (H) f32, D (Di) f32, gate_norm (Di), out_proj (Di, d)."""
+
+    def __init__(self, gen, cfg: ModelConfig, device):
+        super().__init__()
+        d, Di, N = cfg.d_model, cfg.inner, cfg.ssm_state
+        H, W, dt = cfg.n_ssm_heads, cfg.conv_width, cfg.dtype_torch
+        f32 = torch.float32
+        self.norm = L.init_rmsnorm(gen, d, dt, device)
+        self.in_proj = param(gen, (d, 2 * Di), dt, device, stddev=d ** -0.5)
+        self.conv_w = param(gen, (Di, W), dt, device, stddev=W ** -0.5)
+        self.conv_b = param(gen, (Di,), dt, device, init=zeros_init)
+        self.bc_proj = param(gen, (d, 2 * N), dt, device, stddev=d ** -0.5)
+        self.dt_w = param(gen, (d, H), dt, device, stddev=d ** -0.5)
+        self.dt_b = param(gen, (H,), f32, device, init=_dt_bias)
+        self.A_log = param(gen, (H,), f32, device, init=_a_log_mamba2)
+        self.D = param(gen, (Di,), f32, device, init=ones_init)
+        self.gate_norm = L.init_rmsnorm(gen, Di, dt, device)
+        self.out_proj = param(gen, (Di, d), dt, device, stddev=Di ** -0.5)
+
+
+def mamba2_block(lp: Mamba2Params, x, cfg: ModelConfig, state=None):
+    """Mamba-2: scalar per-head decay; reuses the mamba1 recurrence with A
+    and dt broadcast across each head's channels."""
+    N, dh = cfg.ssm_state, cfg.ssm_head_dim
+    h_in = L.rms_norm(lp.norm, x)
+    x_in, z = torch.chunk(h_in @ lp.in_proj, 2, dim=-1)
+    B_ssm, C_ssm = torch.chunk(h_in @ lp.bc_proj, 2, dim=-1)
+    dt_h = F.softplus((h_in @ lp.dt_w).float() + lp.dt_b)      # (Bt,S,H)
+    A_h = -torch.exp(lp.A_log)                                 # (H,)
+    A_full = A_h.repeat_interleave(dh)[:, None].repeat(1, N)   # (Di, N)
+    dt_full = dt_h.repeat_interleave(dh, dim=-1)               # (Bt,S,Di)
+
+    if state is None:
+        x_c = causal_conv1d(x_in, lp.conv_w, lp.conv_b)
+        x_c = F.silu(x_c.float()).to(x.dtype)
+        y, h_fin = _ssm_full(cfg, x_c, dt_full, A_full, B_ssm, C_ssm)
+        y = y + lp.D * x_c.float()
+        y = L.rms_norm(lp.gate_norm,
+                       y.to(x.dtype) * F.silu(z.float()).to(x.dtype))
+        out = y @ lp.out_proj
+        W = cfg.conv_width
+        conv_tail = F.pad(x_in, (0, 0, W - 1, 0))[:, -(W - 1):, :]
+        return x + out, (conv_tail, h_fin)
+
+    conv_state, h = state
+    x_t, z_t = x_in[:, 0], z[:, 0]
+    conv_state, x_c = conv1d_step(conv_state, x_t, lp.conv_w, lp.conv_b)
+    x_c = F.silu(x_c.float()).to(x.dtype)
+    h, y = selective_step(h, x_c, dt_full[:, 0], A_full, B_ssm[:, 0],
+                          C_ssm[:, 0])
+    y = y + lp.D * x_c.float()
+    y = L.rms_norm(lp.gate_norm,
+                   y.to(x.dtype) * F.silu(z_t.float()).to(x.dtype))
+    out = y[:, None] @ lp.out_proj
+    return x + out, (conv_state, h)
+
+
+def _generator(device, generator: Optional[torch.Generator]):
+    """The generator the weights are drawn from: ``generator``, else one
+    seeded with 0 on ``device``; none on the ``meta`` device."""
+    device = torch.device(device)
+    if generator is not None or device.type == "meta":
+        return generator
+    return torch.Generator(device=device).manual_seed(0)
+
+
+class _LM(nn.Module):
+    """What both SSM language models share: the tied embedding, the
+    final norm, the padded-vocabulary logits and the cache's home."""
+    embed: nn.Parameter
+    final_norm: nn.Parameter
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.vocab_padded = L.pad_vocab(cfg.vocab)
+
+    def _logits(self, h):
+        logits = L.logits_head(self.embed, h).float()
+        if self.vocab_padded > self.cfg.vocab:
+            pad = torch.arange(self.vocab_padded,
+                               device=logits.device) >= self.cfg.vocab
+            logits = logits.masked_fill(pad, -1e30)
+        return logits
+
+    def _ssm_cache(self, batch: int):
+        cfg = self.cfg
+        Lr, Di, N, W = cfg.num_layers, cfg.inner, cfg.ssm_state, cfg.conv_width
+        return {
+            "conv": torch.zeros((Lr, batch, W - 1, Di), dtype=cfg.dtype_torch,
+                                device=self.device),
+            "ssm": torch.zeros((Lr, batch, Di, N), dtype=torch.float32,
+                               device=self.device),
+        }
+
+
+# ---------------------------------------------------------------------------
+# Falcon-mamba: pure Mamba-1 LM
+# ---------------------------------------------------------------------------
+class MambaLM(_LM):
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, device)
+        gen = _generator(device, generator)
+        dt = cfg.dtype_torch
+        self.embed = L.init_embedding(gen, self.vocab_padded, cfg.d_model, dt,
+                                      device)
+        self.layers = nn.ModuleList(Mamba1Params(gen, cfg, device)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = param(gen, (cfg.d_model,), dt, device,
+                                init=ones_init)
+
+    def init_cache(self, batch: int, seq_len: int):
+        return self._ssm_cache(batch)
+
+    @torch.no_grad()
+    def prefill(self, batch, seq_len: int):
+        x = L.embed(self.embed, batch["tokens"])
+        convs, ssms = [], []
+        for lp in self.layers:
+            x, (conv, ssm) = mamba1_block(lp, x, self.cfg)
+            convs.append(conv)
+            ssms.append(ssm)
+        h = L.rms_norm(self.final_norm, x[:, -1:])
+        cache = {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
+        return self._logits(h), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, cur_pos: int):
+        x = L.embed(self.embed, tokens)
+        for i, lp in enumerate(self.layers):
+            x, (conv, ssm) = mamba1_block(
+                lp, x, self.cfg, state=(cache["conv"][i], cache["ssm"][i]))
+            cache["conv"][i] = conv
+            cache["ssm"][i] = ssm
+        h = L.rms_norm(self.final_norm, x)
+        return self._logits(h), cache
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 hybrid: Mamba-2 backbone + weight-tied shared attention block
+# ---------------------------------------------------------------------------
+class SharedBlock(nn.Module):
+    """The one weight-tied (attention + MLP) block of the hybrid."""
+
+    def __init__(self, gen, cfg: ModelConfig, device):
+        super().__init__()
+        dt = cfg.dtype_torch
+        self.attn_norm = param(gen, (cfg.d_model,), dt, device,
+                               init=ones_init)
+        self.attn = L.AttnParams(gen, cfg.d_model, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.hd, dt, device)
+        self.mlp_norm = param(gen, (cfg.d_model,), dt, device,
+                              init=ones_init)
+        self.mlp = L.MlpParams(gen, cfg.d_model, cfg.d_ff, dt, device)
+
+
+class HybridLM(_LM):
+    """``shared_attn_every`` mamba2 layers are preceded by one application of
+    a single weight-tied (attention + MLP) block; each application keeps its
+    own KV cache."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, device)
+        k = cfg.shared_attn_every
+        self.n_apps = math.ceil(cfg.num_layers / k)
+        # group g covers mamba layers [g*k, min((g+1)*k, L))
+        self.group_sizes = [min((g + 1) * k, cfg.num_layers) - g * k
+                            for g in range(self.n_apps)]
+        gen = _generator(device, generator)
+        dt = cfg.dtype_torch
+        self.shared = SharedBlock(gen, cfg, device)
+        self.embed = L.init_embedding(gen, self.vocab_padded, cfg.d_model, dt,
+                                      device)
+        self.layers = nn.ModuleList(Mamba2Params(gen, cfg, device)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = param(gen, (cfg.d_model,), dt, device,
+                                init=ones_init)
+
+    def _groups(self):
+        off = 0
+        for size in self.group_sizes:
+            yield off, self.layers[off:off + size]
+            off += size
+
+    def _shared_mlp(self, x):
+        sh = self.shared
+        return x + L.mlp(sh.mlp, L.rms_norm(sh.mlp_norm, x))
+
+    def init_cache(self, batch: int, seq_len: int):
+        cfg = self.cfg
+        one = L.init_kv_cache(batch, seq_len, cfg.n_kv_heads, cfg.hd,
+                              cfg.dtype_torch, self.device)
+        cache = self._ssm_cache(batch)
+        cache["kv"] = L.KVCache(*(a[None].repeat((self.n_apps,) +
+                                                 (1,) * a.dim())
+                                  for a in one))
+        return cache
+
+    @torch.no_grad()
+    def prefill(self, batch, seq_len: int):
+        """Full-sequence pass that fills SSM + KV caches."""
+        cfg, sh = self.cfg, self.shared
+        x = L.embed(self.embed, batch["tokens"])
+        convs, ssms, kvs = [], [], []
+        for _, group in self._groups():
+            a_out, kv = L.prefill_attention(
+                sh.attn, L.rms_norm(sh.attn_norm, x), seq_len,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                rope_theta=cfg.rope_theta, q_chunk=cfg.attn_q_chunk)
+            x = self._shared_mlp(x + a_out)
+            kvs.append(kv)
+            for lp in group:
+                x, (conv, ssm) = mamba2_block(lp, x, cfg)
+                convs.append(conv)
+                ssms.append(ssm)
+        h = L.rms_norm(self.final_norm, x[:, -1:])
+        cache = {
+            "conv": torch.stack(convs),
+            "ssm": torch.stack(ssms),
+            "kv": L.KVCache(*(torch.stack(leaf) for leaf in zip(*kvs))),
+        }
+        return self._logits(h), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, cur_pos: int):
+        cfg, sh = self.cfg, self.shared
+        x = L.embed(self.embed, tokens)
+        kv = cache["kv"]
+        for g, (off, group) in enumerate(self._groups()):
+            a_out, _ = L.decode_attention(
+                sh.attn, L.rms_norm(sh.attn_norm, x),
+                L.KVCache(kv.k[g], kv.v[g], kv.pos[g]), cur_pos,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                rope_theta=cfg.rope_theta)
+            x = self._shared_mlp(x + a_out)
+            for i, lp in enumerate(group, start=off):
+                x, (conv, ssm) = mamba2_block(
+                    lp, x, cfg, state=(cache["conv"][i], cache["ssm"][i]))
+                cache["conv"][i] = conv
+                cache["ssm"][i] = ssm
+        h = L.rms_norm(self.final_norm, x)
+        return self._logits(h), cache

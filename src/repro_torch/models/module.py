@@ -1,0 +1,52 @@
+"""Parameters and their initialisers, on an explicit device and generator.
+
+The JAX package builds a tree of ``Param`` leaves from a splittable key;
+the port builds ``nn.Module``s whose ``nn.Parameter``s are drawn from one
+``torch.Generator`` on the parameters' own device, so that a 7B model is
+made on the card without crossing the bus.  On the ``meta`` device a
+parameter is only a shape: that is how ``count_params`` sizes a full
+model without allocating it.  The port serves and does not train yet, so
+no parameter asks for a gradient.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+from torch import nn
+
+
+def normal_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype,
+                device, stddev: float = 0.02) -> torch.Tensor:
+    """Normal(0, stddev) drawn in float32, then cast to ``dtype``."""
+    z = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (stddev * z).to(dtype)
+
+
+def zeros_init(gen, shape, dtype, device) -> torch.Tensor:
+    return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+
+def ones_init(gen, shape, dtype, device) -> torch.Tensor:
+    return torch.ones(tuple(shape), dtype=dtype, device=device)
+
+
+def param(gen: Optional[torch.Generator], shape: Sequence[int], dtype, device,
+          init: Optional[Callable] = None,
+          stddev: float = 0.02) -> nn.Parameter:
+    """One parameter: ``normal_init`` at ``stddev`` unless ``init`` is
+    given, and only a shape on the ``meta`` device."""
+    device = torch.device(device)
+    if device.type == "meta":
+        value = torch.empty(tuple(shape), dtype=dtype, device=device)
+    elif init is None:
+        value = normal_init(gen, shape, dtype, device, stddev)
+    else:
+        value = init(gen, shape, dtype, device)
+    return nn.Parameter(value, requires_grad=False)
+
+
+def count_params(module: nn.Module) -> int:
+    """Number of parameter elements (works on the ``meta`` device)."""
+    return sum(p.numel() for p in module.parameters())
