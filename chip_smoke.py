@@ -45,8 +45,33 @@ Phases, in order; any failure raises and exits non-zero:
               both serving shapes beside their bounds, and one served
               request under torch.profiler: the device's busy share and
               the scan kernel's part of it
+  9. train    the serving models freed, repro_torch.launch.train for
+              granite-3-2b at full published width and depth, bf16, random
+              weights from a seeded generator, --steps 4 --batch 4 --seq
+              2048 with the launcher's own TrainConfig: per step the loss,
+              grad norm, ms, tokens/s, peak device memory and the model
+              FLOPs' share of the card's bf16 dense peak (mfu); losses and
+              grad norms finite, grad norms non-zero, parameters changed,
+              no flash launch (training runs the plain attention, as in
+              the reference); then, at full width with 4 layers, 4 steps
+              straight must equal bitwise 2 steps, checkpoint, restore, 2
+              more (in a temporary directory under build/, deleted after)
+ 10. eval     the trained granite with use_flash=True: model.loss under
+              torch.no_grad() on stream.batch_at(10_000), 40 flash
+              launches; h2o-danube-3-4b at full width and depth, bf16,
+              B=1, S=8192 (window 4096), 24 launches; at full width with 4
+              layers in float32 each model's flash and plain routes give
+              losses within EVAL_F32_ATOL; at full depth in bf16 their
+              difference is reported
+ 11. timing   CUDA-event times of the flash kernel, its plain version and
+              torch's scaled_dot_product_attention at both evaluation
+              shapes beside their bounds, and one granite training step
+              under torch.profiler: the device's busy share and the top
+              device ops
 
-It prints a JSON line with one entry per kernel, the card's name and power
+The counts of every kernel are set to 0 before each main path (the M3E
+searches, the served batch, and phases 9-10 together, "train_eval") and
+read after it.  It prints a JSON line with one entry per kernel, the card's name and power
 limit, and last the line ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -62,8 +87,16 @@ RTOL, ATOL = 1e-4, 1e-5          # tests/test_makespan_parity.py:29
 ORACLE_REL = 2e-3                # float32 simulators vs the float64 oracle
 SSM_TOL_F32, SSM_TOL_BF16 = 1e-4, 5e-2   # tests/test_kernels.py:112-127
 MODEL_F32_ATOL = 1e-3            # 4-layer f32 logits, kernel vs plain scan
+FLASH_TOL_F32, FLASH_TOL_BF16 = 2e-5, 2e-2   # tests/test_kernels.py:78
+# bf16 outside the reference's sweep (outputs ~0.03 at the evaluation
+# shapes, where 2e-2 would hold nothing): the f32 limit plus one bf16
+# rounding step of the output (spacing <= 2^-7 |x|), since both sides
+# round an f32 result that agrees to FLASH_TOL_F32
+FLASH_BF16_STEP = 2.0 ** -7
+EVAL_F32_ATOL = 1e-4             # 4-layer f32 loss, flash vs plain route
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 # expf results on the SFU: 16 per clock per SM (CUDA C++ Programming Guide,
 # arithmetic instruction throughput, compute capability 9.0), 132 SMs at
 # the 1,980 MHz boost clock
@@ -71,6 +104,9 @@ SFU_EXP_PER_S = 132 * 16 * 1.98e9
 GB = 1024 ** 3
 SERVE_ARCHS = ("falcon-mamba-7b", "zamba2-1.2b")
 PROMPT, GENERATE, WINDOW = 512, 32, 8
+TRAIN_ARCH, EVAL_ARCH = "granite-3-2b", "h2o-danube-3-4b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 2048
+EVAL_BATCH, EVAL_SEQ = 1, 8192
 
 
 def check(cond, msg):
@@ -162,18 +198,425 @@ def ssm_inputs(dev, seed, Bt, L, D, N, low):
     return x, dt, A, normal(Bt, L, N).to(low), normal(Bt, L, N).to(low)
 
 
-def compare_tol(got, want, tol, what):
-    """Max abs / rel error; fails outside atol = rtol = ``tol`` (the
-    reference's np.testing.assert_allclose(atol=tol, rtol=tol))."""
+def compare_tol(got, want, tol, what, rtol=None):
+    """Max abs / rel error; fails outside atol = ``tol`` and rtol =
+    ``rtol`` (default ``tol``: the reference's
+    np.testing.assert_allclose(atol=tol, rtol=tol))."""
     import torch
+    rtol = tol if rtol is None else rtol
     got, want = got.double().cpu(), want.double().cpu()
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
     err = (got - want).abs()
     rel = err / want.abs().clamp_min(1e-30)
-    check(bool((err <= tol + tol * want.abs()).all()),
+    check(bool((err <= tol + rtol * want.abs()).all()),
           f"{what}: kernel disagrees with the plain version (max abs "
-          f"{float(err.max())}, max rel {float(rel.max())}, tol {tol})")
+          f"{float(err.max())}, max rel {float(rel.max())}, atol {tol}, "
+          f"rtol {rtol})")
     return float(err.max()), float(rel.max())
+
+
+def causal_pairs(S, window):
+    """Unmasked (query, key) pairs of one causal head (window 0: none)."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_bound_ms(B, S, Hq, Hkv, D, window):
+    """Least time for one causal bf16 attention call: q and o (B, S, Hq,
+    D) and k, v (B, S, Hkv, D) moved once, against 4 * D operations (the
+    two products) per unmasked pair of every (b, h) at the bf16
+    tensor-core peak."""
+    nbytes = (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * 2
+    ops = 4 * B * Hq * D * causal_pairs(S, window)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def flash_inputs(dev, seed, B, S, Hq, Hkv, D, dtype):
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return tuple(torch.randn((B, S, h, D), generator=gen, device=dev)
+                 .to(dtype) for h in (Hq, Hkv, Hkv))
+
+
+def flash_checks(dev, fa, flash_ref, sync):
+    """Phase 3 for the flash kernel: against its plain version at the
+    reference tests' shapes, ragged S at D=20 and D=160, and the two
+    evaluation shapes, in float32 and bf16; and bitwise row independence.
+    In bf16 the reference sweep's shapes are held to the reference tests'
+    limit, the others to FLASH_TOL_F32 plus FLASH_BF16_STEP relative.
+    Returns (max abs, max rel) errors and the bf16 evaluation inputs."""
+    import torch
+    errs, main = [], {}
+    sweep = [(2, 64, 4, 2, 32, 0, True), (1, 128, 8, 8, 64, 0, True),
+             (2, 96, 4, 1, 16, 24, True), (1, 64, 6, 2, 128, 16, True),
+             (1, 64, 4, 2, 32, 0, False)]
+    evaluation = {"granite": (TRAIN_BATCH, TRAIN_SEQ, 32, 8, 64, 0, True),
+                  "danube": (EVAL_BATCH, EVAL_SEQ, 32, 8, 120, 4096, True)}
+    ragged = [(2, 33, 4, 2, 20, 0, True), (1, 97, 4, 2, 160, 0, True),
+              (1, 77, 2, 1, 160, 40, False)]
+    cases = sweep + ragged + list(evaluation.values())
+    at = {len(sweep) + len(ragged) + j: key
+          for j, key in enumerate(evaluation)}
+    for i, (B, S, Hq, Hkv, D, window, causal) in enumerate(cases):
+        bf16_tol = ((FLASH_TOL_BF16, FLASH_TOL_BF16) if i < len(sweep)
+                    else (FLASH_TOL_F32, FLASH_BF16_STEP))
+        for dtype, (tol, rtol) in (
+                (torch.float32, (FLASH_TOL_F32, FLASH_TOL_F32)),
+                (torch.bfloat16, bf16_tol)):
+            q, k, v = flash_inputs(dev, 300 + i, B, S, Hq, Hkv, D, dtype)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            sync()
+            want = flash_ref(q, k, v, causal=causal, window=window)
+            what = (f"flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                    f"window={window} causal={causal} "
+                    f"{str(dtype).split('.')[-1]}")
+            errs.append(compare_tol(got.float(), want.float(), tol, what,
+                                    rtol))
+            rms = float(want.double().pow(2).mean().sqrt())
+            print(f"[check] {what}: max abs {errs[-1][0]:.3e} rel "
+                  f"{errs[-1][1]:.3e} (atol {tol:g}, rtol {rtol:g}; "
+                  f"output rms {rms:.3e})")
+            del got, want
+            if i in at and dtype == torch.bfloat16:
+                main[at[i]] = ((q, k, v), dict(causal=causal, window=window))
+    q, k, v = flash_inputs(dev, 400, 2, 150, 8, 2, 120, torch.bfloat16)
+    out2 = fa.flash_attention(q, k, v, window=40)
+    for b in range(2):
+        out1 = fa.flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                  window=40)
+        check(torch.equal(out2[b:b + 1], out1),
+              f"flash_attention: row {b} of a B=2 launch differs bitwise "
+              "from its B=1 launch")
+    print("[check] flash_attention B=2 rows == two B=1 launches, bitwise")
+    return errs, main
+
+
+def model_flops(n_params, cfg, B, S):
+    """Model FLOPs of one training step: 6 N T plus three times the
+    forward attention products (4 D per unmasked pair, every head and
+    layer), as repro's registry.model_flops counts them."""
+    att = 4 * B * cfg.n_heads * cfg.hd * causal_pairs(
+        S, cfg.sliding_window) * cfg.num_layers
+    return 6.0 * n_params * B * S + 3.0 * att
+
+
+def train_phase(dev, fa):
+    """Phase 9: the launcher at full width and depth, then the 4-layer
+    checkpoint restart.  Returns (model, stream, per-step records,
+    restart summary)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import count_params, get_model
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.loop import TrainConfig, train
+
+    args = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--device", str(dev),
+            "--seed", "0"]
+    t0 = time.perf_counter()
+    model, state, hist = launch_train.main(args)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    wall = time.perf_counter() - t0
+    cfg = model.cfg
+    n = count_params(cfg)
+    check(sum(p.numel() for p in model.parameters()) == n,
+          f"{cfg.name}: parameter count")
+    flops = model_flops(n, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    records = []
+    for h in hist:
+        rec = dict(h, ms=h["wall_s"] * 1e3,
+                   tokens_per_s=h["tokens"] / h["wall_s"],
+                   mfu=flops / h["wall_s"] / BF16_OPS_PER_S)
+        records.append(rec)
+        peak = ("not measured" if h["peak_bytes"] is None
+                else f"{h['peak_bytes'] / GB:.2f} GiB")
+        print(f"[train] {cfg.name} step {h['step']}: loss {h['loss']:.6f} "
+              f"grad norm {h['grad_norm']:.6f} lr {h['lr']:.3e} "
+              f"{rec['ms']:.3f} ms {rec['tokens_per_s']:.1f} tokens/s "
+              f"peak {peak} mfu {rec['mfu']:.4f}")
+    check(len(hist) == TRAIN_STEPS, f"{len(hist)} training steps, want "
+                                    f"{TRAIN_STEPS}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              and h["grad_norm"] > 0 for h in hist),
+          "training: a loss or grad norm is not finite, or a grad norm is 0")
+    check(fa.LAUNCHES["flash_attention"] == 0,
+          "training launched the flash kernel (it runs the plain route)")
+    fresh = get_model(cfg, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    moved = [(p.dim(), not torch.equal(p, f)) for p, f in
+             zip(model.parameters(), fresh.parameters())]
+    del fresh
+    matrices = [c for d, c in moved if d == 2]
+    vectors = [c for d, c in moved if d == 1]
+    check(all(matrices), f"training changed {sum(matrices)} of the "
+                         f"{len(matrices)} weight matrices, want all")
+    print(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {n:,} params in {cfg.dtype}; {TRAIN_STEPS} steps "
+          f"of {TRAIN_BATCH}x{TRAIN_SEQ} tokens in {wall:.3f} s including "
+          f"init; {sum(matrices)}/{len(matrices)} weight matrices and "
+          f"{sum(vectors)}/{len(vectors)} norm scales changed; flash "
+          "launches 0")
+
+    # checkpoint restart at full width, 4 layers
+    cfg4 = cfg.replace(num_layers=4)
+    stream = TokenStream(cfg4, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    tc = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    quiet = dict(log_every=0, log_fn=lambda *_: None)
+
+    def fresh4():
+        return get_model(cfg4, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(1))
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        straight = train(fresh4(), tc, stream, TRAIN_STEPS, **quiet)
+        snap = {k: v.detach().clone() for k, v in straight.params.items()}
+        del straight
+        train(fresh4(), tc, stream, TRAIN_STEPS // 2, checkpoint_dir=tmp,
+              **quiet)
+        resumed = train(fresh4(), tc, stream, TRAIN_STEPS,
+                        checkpoint_dir=tmp, **quiet)
+        on_disk = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(tmp) for f in fs)
+        check(resumed.step == TRAIN_STEPS and all(
+            torch.equal(snap[k], v) for k, v in resumed.params.items()),
+            "checkpoint restart: 2 + restore + 2 steps differ bitwise from "
+            "4 steps straight")
+        restart = {"layers": 4, "steps": TRAIN_STEPS, "bitwise": True,
+                   "checkpoint_bytes_on_disk": on_disk,
+                   "wall_s": time.perf_counter() - t0}
+        print(f"[train] checkpoint restart at full width, 4 layers: 4 steps "
+              f"straight == 2 + checkpoint + restore + 2, bitwise "
+              f"({on_disk / GB:.2f} GiB of checkpoints on disk, "
+              f"{restart['wall_s']:.3f} s)")
+        del resumed, snap
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    model.cfg = cfg
+    del state
+    return model, records, restart
+
+
+EVALS = [("granite", TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ),
+         ("danube", EVAL_ARCH, EVAL_BATCH, EVAL_SEQ)]
+
+
+def eval_batch(dev, cfg, B, S):
+    """``TokenStream(cfg, B, S, seed=0).batch_at(10_000)`` on ``dev``, the
+    batch examples/train_lm.py evaluates on."""
+    import torch
+    from repro_torch.train.data import TokenStream
+    return {k: torch.as_tensor(v, device=dev) for k, v in
+            TokenStream(cfg, B, S, seed=0).batch_at(10_000).items()}
+
+
+def eval_loss(model, cfg, batch, fa):
+    """(loss under torch.no_grad() with ``cfg``, flash launches, wall s)."""
+    import torch
+    dev = batch["tokens"].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    model.cfg = cfg
+    before = fa.LAUNCHES["flash_attention"]
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss = float(model.loss(batch)[0])
+    sync()
+    return loss, fa.LAUNCHES["flash_attention"] - before, \
+        time.perf_counter() - t0
+
+
+def free(dev):
+    import gc
+
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def eval_phase(dev, fa, trained):
+    """Phase 10: the trained granite and a full danube through the flash
+    route, with launch counts, and the plain route beside it (reported).
+    Returns the phase's summary."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import count_params, get_model
+
+    out = {}
+    for key, arch, B, S in EVALS:
+        if key == "granite":
+            model, cfg = trained, trained.cfg
+        else:
+            cfg = get_config(arch)
+            model = get_model(cfg, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(2))
+        batch = eval_batch(dev, cfg, B, S)
+        lf, launched, wall = eval_loss(model, cfg.replace(use_flash=True),
+                                       batch, fa)
+        check(np.isfinite(lf), f"{arch} eval: non-finite loss")
+        check(launched == cfg.num_layers,
+              f"{arch} eval: {launched} flash launches, want one per layer "
+              f"({cfg.num_layers})")
+        lp, plain_launched, plain_wall = eval_loss(
+            model, cfg.replace(use_flash=False), batch, fa)
+        check(plain_launched == 0, f"{arch}: the plain route launched the "
+                                   "flash kernel")
+        out[key] = {"arch": arch, "params": count_params(cfg), "B": B,
+                    "S": S, "window": cfg.sliding_window, "loss_flash": lf,
+                    "flash_launches": launched, "wall_s": wall,
+                    "loss_plain_bf16": lp, "plain_wall_s": plain_wall,
+                    "full_depth_bf16_abs_diff": abs(lf - lp)}
+        print(f"[eval] {arch} full width and depth, bf16, B={B} S={S}: loss "
+              f"{lf:.6f} with use_flash=True ({launched} flash launches, "
+              f"{wall * 1e3:.3f} ms), {lp:.6f} on the plain route "
+              f"({plain_wall * 1e3:.3f} ms); |diff| {abs(lf - lp):.3e} "
+              "(reported, not required)")
+        model.cfg = cfg
+        del model, batch
+        free(dev)
+    return out
+
+
+def compare_routes(dev, fa, evals):
+    """Phase 10, the comparison: at full width with 4 layers in float32,
+    each model's flash and plain routes on the same weights."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+
+    for key, arch, B, S in EVALS:
+        cfg = get_config(arch).replace(num_layers=4, dtype="float32")
+        model = get_model(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(3))
+        batch = eval_batch(dev, cfg, B, S)
+        lf, launched, _ = eval_loss(model, cfg.replace(use_flash=True),
+                                    batch, fa)
+        lp, _, _ = eval_loss(model, cfg.replace(use_flash=False), batch, fa)
+        diff = abs(lf - lp)
+        check(launched == 4 and diff <= EVAL_F32_ATOL,
+              f"{arch} 4 layers f32: flash loss {lf} vs plain {lp} "
+              f"(|diff| {diff}, tol {EVAL_F32_ATOL}; {launched} launches)")
+        evals[key]["f32_4_layers"] = {"loss_flash": lf, "loss_plain": lp,
+                                      "abs_diff": diff}
+        print(f"[eval] {arch} full width, 4 layers, f32, B={B} S={S}: "
+              f"flash {lf:.7f} plain {lp:.7f} |diff| {diff:.3e} (tol "
+              f"{EVAL_F32_ATOL})")
+        del model, batch
+        free(dev)
+
+
+def flash_timing(fa, flash_ref, main_inputs, time_fn):
+    """Phase 11: kernel, plain version and torch's SDPA at both
+    evaluation shapes, beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    out = {}
+    for key, ((q, k, v), kw) in main_inputs.items():
+        B, S, Hq, D = q.shape
+        Hkv = k.shape[2]
+        k_ms = time_fn(lambda: fa.flash_attention(q, k, v, **kw), 10, 2)
+        p_ms = time_fn(lambda: flash_ref(q, k, v, **kw), 3, 1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if kw["window"]:
+            pos = torch.arange(S, device=q.device)
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - kw["window"])
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=kw["causal"], enable_gqa=True)
+        got = fa.flash_attention(q, k, v, **kw)
+        try:
+            lib = library()
+        except RuntimeError as err:       # no backend takes these inputs
+            raise RuntimeError(f"scaled_dot_product_attention refused the "
+                               f"{key} inputs: {err}") from err
+        lib_err = float((lib.transpose(1, 2).float() - got.float())
+                        .abs().max())
+        del lib, got
+        l_ms = time_fn(library, 10, 2)
+        b_ms, b_by = flash_bound_ms(B, S, Hq, Hkv, D, kw["window"])
+        out[key] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_max_abs_diff": lib_err,
+                    "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
+                              "window": kw["window"]}}
+        print(f"[timing] flash_attention {key} B={B} S={S} Hq={Hq} "
+              f"Hkv={Hkv} D={D} window={kw['window']} bf16: kernel "
+              f"{k_ms:.6f} ms, plain {p_ms:.6f} ms, "
+              f"scaled_dot_product_attention {l_ms} ms (max abs diff to "
+              f"the kernel {lib_err}), bound {b_ms:.6f} ms ({b_by}); "
+              f"kernel {k_ms / b_ms:.1f}x the bound")
+    return out
+
+
+def profile_train_step(dev):
+    """Phase 11: one granite training step (full width and depth, after a
+    warm-up step) under torch.profiler: wall, device busy share, top
+    device ops."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.loop import TrainConfig, init_state, \
+        make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    model = get_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    step = make_train_step(model, TrainConfig(
+        lr=3e-4, warmup_steps=max(TRAIN_STEPS // 10, 5),
+        total_steps=TRAIN_STEPS))
+    state, _ = step(init_state(model), stream.batch_at(0))
+    batch = stream.batch_at(1)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    sync()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    del state, model
+    if not on_card:
+        print("[profile] the profiler saw no device time: device busy share "
+              "not measured")
+        return None
+    busy_ms = sum(e.device_time_total for e in on_card) / 1e3
+    by_name = {}
+    for e in on_card:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"[profile] one {TRAIN_ARCH} training step ({TRAIN_BATCH}x"
+          f"{TRAIN_SEQ} tokens): wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}) over {len(on_card)} "
+          f"device ops")
+    for k, v in top:
+        print(f"[profile]   {v:10.3f} ms  {k[:100]}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_ops": len(on_card),
+            "top_kernels_ms": [[k[:80], v] for k, v in top]}
 
 
 def main():
@@ -199,18 +642,20 @@ def main():
     from repro_torch.core.m3e import M3E
     from repro_torch.costmodel import get_setting
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import makespan as mk
     from repro_torch.kernels import ssm_scan as ssm
-    from repro_torch.kernels.ref import ssm_scan_ref
+    from repro_torch.kernels.ref import flash_attention_ref, ssm_scan_ref
     from repro_torch.workloads import build_task_groups
     from concurrent.futures import ThreadPoolExecutor
 
     def reset_counts():
         mk.reset_launches()
         ssm.reset_launches()
+        fa.reset_launches()
 
     # -- 2. build ---------------------------------------------------------
-    names = ("makespan", "ssm_scan")
+    names = ("makespan", "ssm_scan", "flash_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(_build.load, names))
@@ -346,6 +791,8 @@ def main():
               f"ssm_scan: row {b} of a Bt=2 launch differs bitwise from its "
               "Bt=1 launch")
     print("[check] ssm_scan Bt=2 rows == two Bt=1 launches, bitwise")
+    flash_errs, flash_main = flash_checks(dev, fa, flash_attention_ref,
+                                          torch.cuda.synchronize)
 
     # -- 4. main path -----------------------------------------------------
     setting, budget, bw_sys_main = "S4", 10_000, 256 * GB
@@ -376,8 +823,9 @@ def main():
         check(sorted(sum(mapping, [])) == list(range(100)),
               f"seed {seed}: the best mapping does not place every job once")
     launches = mk.LAUNCHES["makespan"]
-    check(ssm.LAUNCHES["ssm_scan"] == 0, "the M3E searches launched the "
-                                         "scan kernel")
+    check(ssm.LAUNCHES["ssm_scan"] == 0
+          and fa.LAUNCHES["flash_attention"] == 0,
+          "the M3E searches launched the scan or the flash kernel")
     print(f"[main] makespan kernel launches over 4 searches: {launches}")
 
     # -- 5. timing --------------------------------------------------------
@@ -465,6 +913,8 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = (ssm.LAUNCHES["ssm_scan"], mk.LAUNCHES["makespan"])
+        check(fa.LAUNCHES["flash_attention"] == 0,
+              f"{what}: serving launched the flash kernel")
         check(sorted(u for q in out["queues"] for u in q)
               == sorted(j.uid for j in jobs),
               f"{what}: a job is not scheduled exactly once")
@@ -634,17 +1084,43 @@ def main():
         print("[profile] the profiler saw no device time: device busy share "
               "not measured")
 
+    # -- 9. train, 10. eval: the dense slice ------------------------------
+    del tenants, engine, traced_jobs, traced_out, jobs, served, again
+    free(dev)
+    reset_counts()
+    trained, train_steps, restart = train_phase(dev, fa)
+    evals = eval_phase(dev, fa, trained)
+    train_eval_counts = {"makespan": mk.LAUNCHES["makespan"],
+                         "ssm_scan": ssm.LAUNCHES["ssm_scan"],
+                         "flash_attention": fa.LAUNCHES["flash_attention"]}
+    want = {"makespan": 0, "ssm_scan": 0, "flash_attention": 40 + 24}
+    check(train_eval_counts == want,
+          f"train_eval launches {train_eval_counts}, want {want}")
+    print(f"[eval] train_eval path launches: {train_eval_counts}")
+    del trained
+    free(dev)
+    compare_routes(dev, fa, evals)
+
+    # -- 11. timing: the flash kernel, and where a training step goes -----
+    flash_times = flash_timing(fa, flash_attention_ref, flash_main,
+                               time_cuda)
+    del flash_main
+    free(dev)
+    train_profile = profile_train_step(dev)
+
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
     k_ms, p_ms, b_ms, b_by, shape = ssm_times["falcon"]
     z_ms, zp_ms, zb_ms, _, z_shape = ssm_times["zamba2"]
+    gt, dt_ = flash_times["granite"], flash_times["danube"]
     kernels = [{
         "name": "makespan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/makespan.cu",
         "replaces": "src/repro/kernels/makespan.py:36",
         "launches": launches + serve_counts[1],
         "launches_by_path": {"m3e_search": launches,
-                             "serve": serve_counts[1]},
+                             "serve": serve_counts[1],
+                             "train_eval": train_eval_counts["makespan"]},
         "launches_per_search": launches // 4,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -658,7 +1134,8 @@ def main():
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:28",
         "launches": serve_counts[0],
-        "launches_by_path": {"m3e_search": 0, "serve": serve_counts[0]},
+        "launches_by_path": {"m3e_search": 0, "serve": serve_counts[0],
+                             "train_eval": train_eval_counts["ssm_scan"]},
         "max_abs_err": max(e[0] for e in ssm_errs),
         "max_rel_err": max(e[1] for e in ssm_errs),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -668,6 +1145,27 @@ def main():
         "shape_zamba2": dict(zip(("Bt", "L", "D", "N"), z_shape)),
         "serve": serve_out, "model_f32_logits_max_abs_diff": model_diff,
         "full_depth_bf16": full_depth, "profile": serve_profile, "ok": True,
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "launches": train_eval_counts["flash_attention"],
+        "launches_by_path": {"m3e_search": 0, "serve": 0,
+                             "train_eval": train_eval_counts[
+                                 "flash_attention"]},
+        "launches_per_eval": {k: v["flash_launches"] for k, v in
+                              evals.items()},
+        "max_abs_err": max(e[0] for e in flash_errs),
+        "max_rel_err": max(e[1] for e in flash_errs),
+        "ms": gt["ms"], "plain_ms": gt["plain_ms"], "bound_ms": gt["bound_ms"],
+        "bound_by": gt["bound_by"], "library_ms": gt["library_ms"],
+        "shape": gt["shape"],
+        "ms_danube": dt_["ms"], "plain_ms_danube": dt_["plain_ms"],
+        "bound_ms_danube": dt_["bound_ms"],
+        "library_ms_danube": dt_["library_ms"], "shape_danube": dt_["shape"],
+        "train": {"steps": train_steps, "restart": restart,
+                  "profile": train_profile},
+        "eval": evals, "ok": True,
     }]
     print(f"[device] {smi}")
     print(json.dumps({"kernels": kernels}))

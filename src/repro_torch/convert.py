@@ -61,18 +61,23 @@ def _fill(module: torch.nn.Module, tree, index=None) -> None:
 
 
 def model_from_numpy(cfg, values, device):
-    """The port's ``MambaLM`` / ``HybridLM`` for ``cfg`` holding the weights
-    of a JAX model's value tree (``module.split(model.init(key))[0]`` with
-    numpy leaves).  The stacked ``(L, ...)`` layer leaves are sliced into
-    the per-layer modules; the hybrid's shared attention and MLP leaves,
-    stacked ``(1, ...)``, give their one block."""
+    """The port's ``MambaLM`` / ``HybridLM`` / ``TransformerLM`` for ``cfg``
+    holding the weights of a JAX model's value tree
+    (``module.split(model.init(key))[0]`` with numpy leaves).  The stacked
+    ``(L, ...)`` layer leaves are sliced into the per-layer modules (a
+    transformer layer's ``attn`` and ``mlp`` into its submodules); the
+    hybrid's shared attention and MLP leaves, stacked ``(1, ...)``, give
+    their one block."""
     from repro_torch.models.registry import get_model
 
     model = get_model(cfg, device="meta").to_empty(device=device)
     model.device = torch.device(device)
     _fill(model, values)                    # embed, final_norm
+    lyr = values["layers"]
     for i, lp in enumerate(model.layers):
-        _fill(lp, values["layers"], index=i)
+        _fill(lp, lyr, index=i)
+        for name, sub in lp.named_children():   # the transformer's attn, mlp
+            _fill(sub, _field(lyr, name), index=i)
     if cfg.family == "hybrid":
         shared = values["shared"]
         sh = model.shared

@@ -3,9 +3,10 @@
 ``population_makespan`` is the M3E fitness hot loop: genome decode and the
 table gather run in PyTorch, and the event simulation in the makespan
 kernel (``repro_torch.kernels.makespan``).  ``ssm_scan`` is the Mamba
-selective scan (``repro_torch.kernels.ssm_scan``).  Each takes CUDA
-tensors to its hand-written kernel and CPU tensors to its plain PyTorch
-version.
+selective scan (``repro_torch.kernels.ssm_scan``).  ``flash_attention``
+is the attention of ``models.layers.full_attention`` with ``use_flash``
+(``repro_torch.kernels.flash_attention``).  Each takes CUDA tensors to its
+hand-written kernel and CPU tensors to its plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.core.bw_allocator import queue_tables
 from repro_torch.core.encoding import decode
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels.makespan import makespan
 
@@ -49,3 +51,18 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             A.float().contiguous()
         B, C = B.contiguous(), C.contiguous()
     return _ssm.ssm_scan(x, dt, A, B, C)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (B, S, Hq, D) in q's dtype.
+
+    The layout is the models' (sequence-major heads); the kernel reads it
+    through strides, so nothing is transposed.  Forward only, as in the
+    JAX package: a call that autograd would have to differentiate raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention is forward-only, as the JAX package's Pallas "
+            "kernel is (it has no gradient): train with use_flash=False and "
+            "evaluate with use_flash=True under torch.no_grad()")
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)

@@ -5,6 +5,8 @@ written for clarity over speed.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.bw_allocator import simulate_population
@@ -17,6 +19,30 @@ def population_makespan_ref(accel, prio, lat, bw, bw_sys,
     return simulate_population(accel, prio, torch.as_tensor(lat).float(),
                                torch.as_tensor(bw).float(), bw_sys,
                                num_accels)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """Dense softmax attention in float32 == ``ops.flash_attention`` on any
+    device.  q: (B, S, Hq, D), k/v: (B, S, Hkv, D) -> (B, S, Hq, D) in q's
+    dtype; masked logits are -1e30 and k/v heads are repeated for GQA."""
+    B, S, Hq, D = q.shape
+    group = Hq // k.shape[2]
+    kr = torch.repeat_interleave(k, group, dim=2)
+    vr = torch.repeat_interleave(v, group, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          kr.float()) / math.sqrt(D)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    logits = logits.masked_fill(~ok[None, None], -1e30)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, vr.float())
+    return out.to(q.dtype)
 
 
 def ssm_scan_ref(x, dt, A, B, C):

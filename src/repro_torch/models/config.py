@@ -3,9 +3,12 @@
 The same fields as ``repro.models.config.ModelConfig``, so that one config
 means the same model in both packages.  ``dtype_torch`` takes the place of
 ``dtype_jnp``.  Some fields steer only the JAX package's lowering or its
-sharding (``remat``, ``scan_layers``, ``fsdp``, ``attn_batch_shard``,
-``ssm_time_chunk``, ``moe_group_decode``, ``ce_seq_chunk``): they are kept
-for parity and mean nothing to the port yet.
+sharding (``scan_layers``, ``fsdp``, ``attn_batch_shard``,
+``ssm_time_chunk``, ``moe_group_decode``): they are kept for parity and
+mean nothing to the port yet.  ``use_flash`` selects the hand-written
+kernels (the selective scan and the forward-only flash attention),
+``remat`` recomputes each transformer block in the backward pass, and
+``ce_seq_chunk`` chunks the cross-entropy, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -53,17 +56,23 @@ class ModelConfig:
     # attention memory control: process queries in chunks of this size when
     # S > 2*chunk (exact, O(S*chunk) memory; SWA also slices the KV range)
     attn_q_chunk: int = 1024
-    # decode MoE grouping, fused cross-entropy, attention batch
-    # re-sharding and FSDP: JAX-package options, kept for parity
+    # decode MoE grouping, attention batch re-sharding and FSDP: JAX-package
+    # options, kept for parity
     moe_group_decode: bool = False
+    # fused cross-entropy: the loss's logits in sequence chunks of this size
     ce_seq_chunk: int = 0
     attn_batch_shard: bool = False
     fsdp: bool = True
     # numerics / lowering
     dtype: str = "bfloat16"
     scan_layers: bool = True     # JAX layer scan; kept for parity only
-    use_flash: bool = False      # route the SSM scan through the CUDA kernel
-    remat: bool = True           # JAX rematerialisation; kept for parity only
+    # route the SSM scan and full_attention through the CUDA kernels; the
+    # flash-attention kernel is forward-only (as in the JAX package), so
+    # training runs with use_flash=False
+    use_flash: bool = False
+    # recompute each transformer block in the backward pass
+    # (torch.utils.checkpoint) when training
+    remat: bool = True
 
     # ---- derived -----------------------------------------------------------
     @property

@@ -1,4 +1,6 @@
-"""The building blocks that serving the SSM and hybrid families needs.
+"""The building blocks of the port's language models: the SSM and hybrid
+families that the serving engine runs, and the dense transformer that the
+trainer trains and evaluates.
 
 Plain functions on tensors, as in ``repro.models.layers``, with the same
 layouts (activations ``(B, S, d)``, heads ``(B, S, H, hd)``, weights
@@ -11,6 +13,12 @@ JAX package computes outside any Pallas kernel, so ``torch.matmul`` and
 
 Attention: GQA, RoPE, causal masking, sliding windows and a ring-buffer
 KV cache for decode (capacity ``seq_len`` for full attention).
+``full_attention`` (training and evaluation) has two routes, chosen by
+``use_flash`` as in the JAX package: the hand-written flash-attention
+kernel (``kernels.ops.flash_attention``; its plain version on CPU
+tensors), or the plain dense / query-chunked products.  The kernel is
+forward-only, as the JAX package's Pallas kernel is: training runs the
+plain route, and a grad-enabled call of the kernel route raises.
 ``decode_attention`` writes the new slot into the cache it is given, in
 place, where the JAX package returns a new cache: the caller never reads
 the old one, and a copy per token would move the whole cache.
@@ -23,6 +31,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.module import ones_init, param
 
@@ -177,6 +186,37 @@ def _chunked_attention(q, k, v, *, causal, window, q_chunk, dtype):
     return torch.cat(chunks, dim=1)
 
 
+def full_attention(p: AttnParams, x, *, n_heads, n_kv, head_dim, rope_theta,
+                   window=0, use_flash=False, q_chunk=0):
+    """Training / evaluation causal self-attention over the full sequence.
+
+    ``use_flash`` routes through the flash-attention kernel (forward only);
+    otherwise ``q_chunk`` > 0 and S > 2*q_chunk routes through exact
+    chunked attention (memory O(S * q_chunk) instead of O(S^2)), and the
+    rest through dense attention.  The JAX package's unused layer index
+    ``li``, its ``flash_interpret`` switch, and its ``positions`` and
+    ``causal`` arguments (no ported caller passes them; the encoder of
+    ``EncDecLM`` is the one non-causal caller) have no counterpart."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q = _split_heads(x @ p.wq, n_heads, head_dim)
+    k = _split_heads(x @ p.wk, n_kv, head_dim)
+    v = _split_heads(x @ p.wv, n_kv, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    if use_flash:
+        from repro_torch.kernels import ops as kops
+        ctx = kops.flash_attention(q, k, v, window=window)
+    elif q_chunk and S > 2 * q_chunk and S % q_chunk == 0:
+        ctx = _chunked_attention(q, k, v, causal=True, window=window,
+                                 q_chunk=q_chunk, dtype=x.dtype)
+    else:
+        w = attention_scores(q, k, causal_mask(S, S, window, device=x.device),
+                             x.dtype)
+        ctx = attention_context(w, v).to(x.dtype)
+    return ctx.reshape(B, S, n_heads * head_dim) @ p.wo
+
+
 def prefill_attention(p: AttnParams, x, capacity: int, *, n_heads, n_kv,
                       head_dim, rope_theta, window=0, q_chunk=0):
     """Full-sequence attention that also fills a fresh KV cache (ring
@@ -289,3 +329,40 @@ def logits_head(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def pad_vocab(vocab: int, multiple: int = 128) -> int:
     return int(math.ceil(vocab / multiple) * multiple)
+
+
+def nll_loss(table, h, labels, vocab: int, vocab_padded: int,
+             seq_chunk: int = 0) -> torch.Tensor:
+    """Next-token NLL (float32 scalar) of the tied head over ``h`` (B, S,
+    d) against ``labels`` (B, S); labels < 0 are ignored, and the padded
+    vocabulary entries are masked to -1e30.  With ``seq_chunk`` > 0 the
+    (B, S, V) logits are never materialized whole: the sequence goes in
+    chunks, each recomputed in the backward pass when autograd records."""
+    S = h.shape[1]
+    pad = (torch.arange(vocab_padded, device=h.device) >= vocab
+           if vocab_padded > vocab else None)
+
+    def chunk_nll(h_i, lab_i):
+        logits = logits_head(table, h_i).float()
+        if pad is not None:
+            logits = logits.masked_fill(pad, -1e30)
+        lp = torch.log_softmax(logits, dim=-1)
+        # an ignored label (< 0) reads entry 0; the mask zeroes it
+        idx = lab_i.long().clamp_min(0)[..., None]
+        tgt = torch.gather(lp, -1, idx)[..., 0]
+        mask = (lab_i >= 0).float()
+        return (tgt * mask).sum(), mask.sum()
+
+    if seq_chunk and S > seq_chunk and S % seq_chunk == 0:
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(S // seq_chunk):
+            sl = slice(i * seq_chunk, (i + 1) * seq_chunk)
+            if torch.is_grad_enabled():
+                t, c = checkpoint(chunk_nll, h[:, sl], labels[:, sl],
+                                  use_reentrant=False)
+            else:
+                t, c = chunk_nll(h[:, sl], labels[:, sl])
+            tot, cnt = tot + t, cnt + c
+        return -tot / cnt.clamp_min(1.0)
+    tot, cnt = chunk_nll(h, labels)
+    return -tot / cnt.clamp_min(1.0)

@@ -33,7 +33,8 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.module import ones_init, param, zeros_init
+from repro_torch.models.module import (ones_init, param,
+                                      weights_generator, zeros_init)
 
 
 # ---------------------------------------------------------------------------
@@ -238,15 +239,6 @@ def mamba2_block(lp: Mamba2Params, x, cfg: ModelConfig, state=None):
     return x + out, (conv_state, h)
 
 
-def _generator(device, generator: Optional[torch.Generator]):
-    """The generator the weights are drawn from: ``generator``, else one
-    seeded with 0 on ``device``; none on the ``meta`` device."""
-    device = torch.device(device)
-    if generator is not None or device.type == "meta":
-        return generator
-    return torch.Generator(device=device).manual_seed(0)
-
-
 class _LM(nn.Module):
     """What both SSM language models share: the tied embedding, the
     final norm, the padded-vocabulary logits and the cache's home."""
@@ -285,7 +277,7 @@ class MambaLM(_LM):
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg, device)
-        gen = _generator(device, generator)
+        gen = weights_generator(device, generator)
         dt = cfg.dtype_torch
         self.embed = L.init_embedding(gen, self.vocab_padded, cfg.d_model, dt,
                                       device)
@@ -352,7 +344,7 @@ class HybridLM(_LM):
         # group g covers mamba layers [g*k, min((g+1)*k, L))
         self.group_sizes = [min((g + 1) * k, cfg.num_layers) - g * k
                             for g in range(self.n_apps)]
-        gen = _generator(device, generator)
+        gen = weights_generator(device, generator)
         dt = cfg.dtype_torch
         self.shared = SharedBlock(gen, cfg, device)
         self.embed = L.init_embedding(gen, self.vocab_padded, cfg.d_model, dt,

@@ -5,8 +5,9 @@ the port builds ``nn.Module``s whose ``nn.Parameter``s are drawn from one
 ``torch.Generator`` on the parameters' own device, so that a 7B model is
 made on the card without crossing the bus.  On the ``meta`` device a
 parameter is only a shape: that is how ``count_params`` sizes a full
-model without allocating it.  The port serves and does not train yet, so
-no parameter asks for a gradient.
+model without allocating it.  Parameters are made without gradients; the
+trainer (``repro_torch.train.loop.init_state``) turns them on for the
+model it trains.
 """
 from __future__ import annotations
 
@@ -45,6 +46,16 @@ def param(gen: Optional[torch.Generator], shape: Sequence[int], dtype, device,
     else:
         value = init(gen, shape, dtype, device)
     return nn.Parameter(value, requires_grad=False)
+
+
+def weights_generator(device, generator: Optional[torch.Generator]
+                      ) -> Optional[torch.Generator]:
+    """The generator a model's weights are drawn from: ``generator``, else
+    one seeded with 0 on ``device``; none on the ``meta`` device."""
+    device = torch.device(device)
+    if generator is not None or device.type == "meta":
+        return generator
+    return torch.Generator(device=device).manual_seed(0)
 
 
 def count_params(module: nn.Module) -> int:

@@ -1,7 +1,9 @@
 """Architecture registry: config -> model, and the parameter counts that
-the serving engine's cost model reads.
+the serving engine's cost model and the trainer's FLOP count read.
 
-Only the SSM and hybrid families are ported so far; the others raise
+The SSM and hybrid families serve (``MambaLM``, ``HybridLM``); the dense
+and VLM families train and evaluate (``TransformerLM``, whose attention has
+a forward-only flash kernel, as in the JAX package).  MoE and encdec raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -14,16 +16,18 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba import HybridLM, MambaLM
 from repro_torch.models.module import count_params as _count
+from repro_torch.models.transformer import (ENCDEC_LATER, MOE_LATER,
+                                            TransformerLM)
 
 MODEL_FAMILIES = {
+    "dense": TransformerLM,
+    "vlm": TransformerLM,
     "ssm": MambaLM,
     "hybrid": HybridLM,
 }
 _LATER = {
-    "dense": "ROADMAP Queue 1 item 11 (TransformerLM)",
-    "moe": "ROADMAP Queue 1 item 11 (TransformerLM with MoE)",
-    "vlm": "ROADMAP Queue 1 item 11 (TransformerLM with prefix embeds)",
-    "encdec": "ROADMAP Queue 1 item 11 (EncDecLM)",
+    "moe": MOE_LATER,
+    "encdec": ENCDEC_LATER,
 }
 
 

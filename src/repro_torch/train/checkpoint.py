@@ -1,0 +1,132 @@
+"""Checkpointing with atomic commit, ported from ``repro.train.checkpoint``.
+
+Layout:  <dir>/step_<k>/
+             manifest.json       leaf names, state paths, shapes, dtypes, step
+             <leaf-id>.npy       one file per state leaf
+
+Write protocol: serialize into ``step_<k>.tmp``, fsync, then atomically
+``rename`` to ``step_<k>``: a crash mid-write never corrupts the latest
+checkpoint (restore only ever sees fully committed directories, and
+``find_latest`` skips a stray ``.tmp``).  The newest ``keep`` are kept.
+
+numpy has no bfloat16, so a bf16 leaf is stored as its raw 16-bit
+pattern (``int16``) and the manifest records ``bfloat16``; restore views
+the bits back, so a restart is bitwise.  The re-meshed (sharded) restore
+of the JAX package waits for ``repro_torch.dist`` (ROADMAP Queue 1 item
+12).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.train.optimizer import AdamState
+
+
+def _leaves(state) -> List[Tuple[str, object]]:
+    """(path, leaf) of a ``TrainState`` in a fixed order: the step, the
+    params, the optimizer's step, mu and nu (each by parameter name)."""
+    out: List[Tuple[str, object]] = [("step", state.step)]
+    out += [(f"params/{k}", v) for k, v in state.params.items()]
+    out.append(("opt/step", state.opt.step))
+    out += [(f"opt/mu/{k}", v) for k, v in state.opt.mu.items()]
+    out += [(f"opt/nu/{k}", v) for k, v in state.opt.nu.items()]
+    return out
+
+
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    if isinstance(leaf, int):
+        return np.asarray(leaf, dtype=np.int32), "int32"
+    t = leaf.detach().cpu()
+    dtype = str(t.dtype).split(".")[-1]
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy(), dtype
+    return t.numpy(), dtype
+
+
+def _write(path: str, arr: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        np.save(f, arr)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def save(directory: str, state, step: Optional[int] = None,
+         keep: int = 3) -> str:
+    """Write ``state`` as ``<directory>/step_<step>`` and return its path."""
+    step = state.step if step is None else int(step)
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp, exist_ok=True)
+
+    manifest = {"step": step, "leaves": []}
+    for i, (path, leaf) in enumerate(_leaves(state)):
+        name = f"leaf_{i:05d}"
+        arr, dtype = _to_numpy(leaf)
+        _write(os.path.join(tmp, name + ".npy"), arr)
+        manifest["leaves"].append({"name": name, "path": path,
+                                   "shape": list(arr.shape), "dtype": dtype})
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)               # atomic commit
+
+    ckpts = sorted(d for d in os.listdir(directory)
+                   if d.startswith("step_") and not d.endswith(".tmp"))
+    for old in ckpts[:-keep]:
+        shutil.rmtree(os.path.join(directory, old))
+    return final
+
+
+def find_latest(directory: str) -> Optional[str]:
+    if not os.path.isdir(directory):
+        return None
+    ckpts = sorted(d for d in os.listdir(directory)
+                   if d.startswith("step_") and not d.endswith(".tmp")
+                   and os.path.exists(os.path.join(directory, d,
+                                                   "manifest.json")))
+    return os.path.join(directory, ckpts[-1]) if ckpts else None
+
+
+@torch.no_grad()
+def restore(path: str, like):
+    """Load the checkpoint at ``path`` into the tensors of ``like`` (a
+    ``TrainState`` of the same model: the model's parameters and the
+    moments are overwritten in place) and return the restored state."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    leaves = _leaves(like)
+    if len(leaves) != len(manifest["leaves"]):
+        raise ValueError(f"checkpoint has {len(manifest['leaves'])} leaves, "
+                         f"expected {len(leaves)}")
+    steps = {}
+    for (path_, leaf), entry in zip(leaves, manifest["leaves"]):
+        if entry["path"] != path_:
+            raise ValueError(f"checkpoint leaf {entry['path']!r} where "
+                             f"{path_!r} was expected")
+        arr = np.load(os.path.join(path, entry["name"] + ".npy"))
+        if isinstance(leaf, int):
+            steps[path_] = int(arr)
+            continue
+        want = str(leaf.dtype).split(".")[-1]
+        if entry["dtype"] != want or tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"{path_}: {entry['dtype']} {tuple(arr.shape)} "
+                             f"in the checkpoint, {want} "
+                             f"{tuple(leaf.shape)} expected")
+        t = torch.from_numpy(arr)
+        if leaf.dtype == torch.bfloat16:
+            t = t.view(torch.bfloat16)
+        leaf.copy_(t)
+    return type(like)(step=steps["step"], params=like.params,
+                      opt=AdamState(steps["opt/step"], like.opt.mu,
+                                    like.opt.nu))

@@ -84,10 +84,13 @@ def test_configs_match_reference():
             assert ours.__dict__ == ref.__dict__
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["granite-3-2b", "h2o-danube-3-4b",
+                                  "llava-next-mistral-7b"])
 def test_count_params_match_reference_full_configs(arch):
     cfg, jcfg = get_config(arch), jget_config(arch)
-    want = {"falcon-mamba-7b": 7_006_326_784, "zamba2-1.2b": 1_105_066_752}
+    want = {"falcon-mamba-7b": 7_006_326_784, "zamba2-1.2b": 1_105_066_752,
+            "granite-3-2b": 2_533_787_648, "h2o-danube-3-4b": 3_838_959_360,
+            "llava-next-mistral-7b": 7_110_660_096}
     assert registry.count_params(cfg) == jregistry.count_params(jcfg) \
         == want[arch]
     assert registry.count_active_params(cfg) == \
@@ -95,8 +98,13 @@ def test_count_params_match_reference_full_configs(arch):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        registry.get_model(get_smoke_config("granite-3-2b"), device="meta")
+    with pytest.raises(NotImplementedError,
+                       match=r"Queue 1 item 11 \(TransformerLM with MoE"):
+        registry.get_model(get_smoke_config("qwen2-moe-a2.7b"), device="meta")
+    with pytest.raises(NotImplementedError,
+                       match=r"Queue 1 item 11 \(EncDecLM"):
+        registry.get_model(get_smoke_config("seamless-m4t-medium"),
+                           device="meta")
 
 
 @pytest.mark.parametrize("seed,S", [(0, 1), (1, 9), (2, 33)])
