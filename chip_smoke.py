@@ -9,13 +9,17 @@ Phases, in order; any failure raises and exits non-zero:
               nvidia-smi reports them; fails without a CUDA device
   2. build    nvcc builds every kernel from csrc/, one nvcc per source, all
               started together (the seconds and the -Xptxas -v reports
-              are printed)
+              are printed, and each flash instantiation's registers and
+              spill bytes)
   3. check    every kernel against its plain PyTorch version on the card:
               the makespan kernel at the main path's shapes and at edge
               cases, plus the float64 oracle and bitwise population-size
               invariance; the selective-scan kernel at the reference
               tests' shapes (float32 and bf16 inputs) and at the two
-              serving shapes, plus bitwise batch-row independence
+              serving shapes, plus bitwise batch-row independence; the
+              flash kernel at the reference tests' shapes, ragged S, the
+              two evaluation shapes and the bf16 kernel's edges
+              (FLASH_EDGES), plus bitwise batch-row independence
   4. main     the M3E mapper end to end: S4 with a Mix group of 100 jobs,
               bw_sys = 256 GB/s, MAGMA with the paper's 10K-sample budget
               (P=100, 100 generations), four seeds; each search must
@@ -65,7 +69,9 @@ Phases, in order; any failure raises and exits non-zero:
               difference is reported
  11. timing   CUDA-event times of the flash kernel, its plain version and
               torch's scaled_dot_product_attention at both evaluation
-              shapes beside their bounds, and one granite training step
+              shapes beside their bounds and the kernel's useful TFLOP/s
+              (4 D per unmasked pair over its time), and one granite
+              training step
               under torch.profiler: the device's busy share and the top
               device ops
 
@@ -94,6 +100,16 @@ FLASH_TOL_F32, FLASH_TOL_BF16 = 2e-5, 2e-2   # tests/test_kernels.py:78
 # round an f32 result that agrees to FLASH_TOL_F32
 FLASH_BF16_STEP = 2.0 ** -7
 EVAL_F32_ATOL = 1e-4             # 4-layer f32 loss, flash vs plain route
+# the bf16 kernel's edges, held to FLASH_TOL_F32 + FLASH_BF16_STEP |want|:
+# (B, S, Hq, Hkv, D, window, causal, q/k/v packed in one tensor); rows of
+# 40 bytes at D=20 are not 16-byte aligned, a window of 300 ends inside
+# 64-key tiles, S=1 is one row of one tile
+FLASH_EDGES = [(2, 77, 4, 2, 20, 0, True, True),
+               (1, 300, 8, 2, 120, 0, True, True),
+               (1, 1000, 4, 2, 64, 300, True, False),
+               (2, 1, 4, 2, 64, 0, True, False),
+               (1, 1, 2, 1, 120, 0, False, False),
+               (1, 200, 4, 2, 120, 0, False, False)]
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
@@ -120,6 +136,33 @@ def smi_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def flash_ptxas(log):
+    """{instantiation: (registers, spill store bytes, spill load bytes)}
+    of the flash kernels, from nvcc's -Xptxas -v report."""
+    import re
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mma = re.search(r"flash_fwd_mma_kernelILi(\d+)E", m.group(1))
+            f32 = re.search(r"flash_fwd_kernelIfLi(\d+)E", m.group(1))
+            entry = (f"bf16 tensor cores D<={mma.group(1)}" if mma else
+                     f"f32 CUDA cores D<={f32.group(1)}" if f32 else None)
+            if entry:
+                out[entry] = [None, None, None]
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[entry][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def compare(got, want, what):
@@ -222,22 +265,34 @@ def causal_pairs(S, window):
     return window * (window + 1) // 2 + (S - window) * window
 
 
+def flash_ops(B, S, Hq, D, window):
+    """Useful operations of one causal attention call: 4 * D (the two
+    products) per unmasked pair of every (b, h)."""
+    return 4 * B * Hq * D * causal_pairs(S, window)
+
+
 def flash_bound_ms(B, S, Hq, Hkv, D, window):
     """Least time for one causal bf16 attention call: q and o (B, S, Hq,
-    D) and k, v (B, S, Hkv, D) moved once, against 4 * D operations (the
-    two products) per unmasked pair of every (b, h) at the bf16
-    tensor-core peak."""
+    D) and k, v (B, S, Hkv, D) moved once, against ``flash_ops`` at the
+    bf16 tensor-core peak."""
     nbytes = (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * 2
-    ops = 4 * B * Hq * D * causal_pairs(S, window)
+    ops = flash_ops(B, S, Hq, D, window)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
                                          else "operations")
 
 
-def flash_inputs(dev, seed, B, S, Hq, Hkv, D, dtype):
+def flash_inputs(dev, seed, B, S, Hq, Hkv, D, dtype, packed=False):
+    """q (B, S, Hq, D), k and v (B, S, Hkv, D), N(0, 1); ``packed``: strided
+    views of one (B, S, Hq + 2 Hkv, D) tensor, as a fused projection
+    gives them."""
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    if packed:
+        qkv = torch.randn((B, S, Hq + 2 * Hkv, D), generator=gen,
+                          device=dev).to(dtype)
+        return qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:]
     return tuple(torch.randn((B, S, h, D), generator=gen, device=dev)
                  .to(dtype) for h in (Hq, Hkv, Hkv))
 
@@ -245,10 +300,11 @@ def flash_inputs(dev, seed, B, S, Hq, Hkv, D, dtype):
 def flash_checks(dev, fa, flash_ref, sync):
     """Phase 3 for the flash kernel: against its plain version at the
     reference tests' shapes, ragged S at D=20 and D=160, and the two
-    evaluation shapes, in float32 and bf16; and bitwise row independence.
-    In bf16 the reference sweep's shapes are held to the reference tests'
-    limit, the others to FLASH_TOL_F32 plus FLASH_BF16_STEP relative.
-    Returns (max abs, max rel) errors and the bf16 evaluation inputs."""
+    evaluation shapes, in float32 and bf16; the bf16 kernel's edges
+    (``FLASH_EDGES``); and bitwise row independence.  In bf16 the
+    reference sweep's shapes are held to the reference tests' limit, the
+    others to FLASH_TOL_F32 plus FLASH_BF16_STEP relative.  Returns (max
+    abs, max rel) errors and the bf16 evaluation inputs."""
     import torch
     errs, main = [], {}
     sweep = [(2, 64, 4, 2, 32, 0, True), (1, 128, 8, 8, 64, 0, True),
@@ -283,6 +339,21 @@ def flash_checks(dev, fa, flash_ref, sync):
             del got, want
             if i in at and dtype == torch.bfloat16:
                 main[at[i]] = ((q, k, v), dict(causal=causal, window=window))
+    for i, (B, S, Hq, Hkv, D, window, causal, packed) in enumerate(
+            FLASH_EDGES):
+        q, k, v = flash_inputs(dev, 350 + i, B, S, Hq, Hkv, D,
+                               torch.bfloat16, packed)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        sync()
+        want = flash_ref(q, k, v, causal=causal, window=window)
+        what = (f"flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                f"window={window} causal={causal} bfloat16"
+                f"{' packed qkv views' if packed else ''}")
+        errs.append(compare_tol(got.float(), want.float(), FLASH_TOL_F32,
+                                what, FLASH_BF16_STEP))
+        print(f"[check] {what}: max abs {errs[-1][0]:.3e} rel "
+              f"{errs[-1][1]:.3e} (atol {FLASH_TOL_F32:g}, rtol "
+              f"{FLASH_BF16_STEP:g})")
     q, k, v = flash_inputs(dev, 400, 2, 150, 8, 2, 120, torch.bfloat16)
     out2 = fa.flash_attention(q, k, v, window=40)
     for b in range(2):
@@ -299,8 +370,8 @@ def model_flops(n_params, cfg, B, S):
     """Model FLOPs of one training step: 6 N T plus three times the
     forward attention products (4 D per unmasked pair, every head and
     layer), as repro's registry.model_flops counts them."""
-    att = 4 * B * cfg.n_heads * cfg.hd * causal_pairs(
-        S, cfg.sliding_window) * cfg.num_layers
+    att = flash_ops(B, S, cfg.n_heads, cfg.hd,
+                    cfg.sliding_window) * cfg.num_layers
     return 6.0 * n_params * B * S + 3.0 * att
 
 
@@ -551,8 +622,9 @@ def flash_timing(fa, flash_ref, main_inputs, time_fn):
         del lib, got
         l_ms = time_fn(library, 10, 2)
         b_ms, b_by = flash_bound_ms(B, S, Hq, Hkv, D, kw["window"])
+        tflops = flash_ops(B, S, Hq, D, kw["window"]) / k_ms / 1e9
         out[key] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                    "bound_ms": b_ms, "bound_by": b_by,
+                    "bound_ms": b_ms, "bound_by": b_by, "tflops": tflops,
                     "library_max_abs_diff": lib_err,
                     "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
                               "window": kw["window"]}}
@@ -561,7 +633,8 @@ def flash_timing(fa, flash_ref, main_inputs, time_fn):
               f"{k_ms:.6f} ms, plain {p_ms:.6f} ms, "
               f"scaled_dot_product_attention {l_ms} ms (max abs diff to "
               f"the kernel {lib_err}), bound {b_ms:.6f} ms ({b_by}); "
-              f"kernel {k_ms / b_ms:.1f}x the bound")
+              f"kernel {k_ms / b_ms:.1f}x the bound, {tflops:.1f} useful "
+              "TFLOP/s")
     return out
 
 
@@ -668,6 +741,10 @@ def main():
         for line in built.ptxas_log.splitlines():
             if line.strip():
                 print(f"[build]   {line.strip()}")
+    ptxas = flash_ptxas(builds[names.index("flash_attention")].ptxas_log)
+    for entry, (regs, spill_st, spill_ld) in ptxas.items():
+        print(f"[build] flash_attention {entry}: {regs} registers, "
+              f"{spill_st} bytes spill stores, {spill_ld} bytes spill loads")
 
     # -- 3. kernel check --------------------------------------------------
     group = build_task_groups("Mix", group_size=100, seed=0)[0]
@@ -1159,10 +1236,13 @@ def main():
         "max_rel_err": max(e[1] for e in flash_errs),
         "ms": gt["ms"], "plain_ms": gt["plain_ms"], "bound_ms": gt["bound_ms"],
         "bound_by": gt["bound_by"], "library_ms": gt["library_ms"],
-        "shape": gt["shape"],
+        "tflops": gt["tflops"], "shape": gt["shape"],
         "ms_danube": dt_["ms"], "plain_ms_danube": dt_["plain_ms"],
-        "bound_ms_danube": dt_["bound_ms"],
+        "bound_ms_danube": dt_["bound_ms"], "tflops_danube": dt_["tflops"],
         "library_ms_danube": dt_["library_ms"], "shape_danube": dt_["shape"],
+        "ptxas": {k: dict(zip(("registers", "spill_store_bytes",
+                               "spill_load_bytes"), v))
+                  for k, v in ptxas.items()},
         "train": {"steps": train_steps, "restart": restart,
                   "profile": train_profile},
         "eval": evals, "ok": True,

@@ -6,14 +6,26 @@ and k, v (B, S, Hkv, D) in the models' layout and returns (B, S, Hq, D) in
 q's dtype.  It replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention.py::_flash_kernel``.
 
-A CUDA tensor goes to the hand-written kernel ``csrc/flash_attention.cu``
-(FlashAttention-1 on CUDA cores, see the note at the top of that file); a
-CPU tensor goes to the plain PyTorch version,
+A CUDA tensor goes to the hand-written kernel ``csrc/flash_attention.cu``;
+a CPU tensor goes to the plain PyTorch version,
 ``repro_torch.kernels.ref.flash_attention_ref``.  There is no fallback
 from one to the other: a CUDA call builds and launches the kernel or
 raises.  ``LAUNCHES["flash_attention"]`` counts kernel launches and
 nothing else.  Like the TPU kernel it has no gradient
 (``ops.flash_attention`` refuses a call that would need one).
+
+What bounds it on the card is its tensor-core work, 4 * D operations per
+unmasked (query, key) pair.  bf16 inputs (evaluation) run FlashAttention-2
+on the tensor cores: ``mma.sync`` bf16 tiles with f32 accumulation for
+QK^T and P.V, K/V tiles in a ``cp.async`` ring, the softmax weights P kept
+in registers.  P goes into P.V as bf16 hi + lo (two products), because
+rounding it to bf16 once would miss the limit of one bf16 output step by
+up to 34x; that costs 1.5x the tensor-core work of a single-bf16 P.V.
+float32 inputs (the checks and the f32 route comparison) run a
+FlashAttention-1 on the CUDA cores, which keeps full f32 (no TF32).  The
+note at the top of the ``.cu`` file has the details;
+``repro_torch.kernels.flash_variants`` times the bf16 kernel beside
+ablated builds of it.
 """
 from __future__ import annotations
 
@@ -35,8 +47,8 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("flash_attention").lib
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C entry points' argument and result types set."""
     lib.flash_attention_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 9
@@ -46,6 +58,10 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return _bind(_build.load("flash_attention").lib)
 
 
 def _check(q, k, v, window: int) -> None:
