@@ -9,7 +9,7 @@ Phases, in order; any failure raises and exits non-zero:
               nvidia-smi reports them; fails without a CUDA device
   2. build    nvcc builds every kernel from csrc/, one nvcc per source, all
               started together (the seconds and the -Xptxas -v reports
-              are printed, and each flash instantiation's registers and
+              are printed, and each kernel instantiation's registers and
               spill bytes)
   3. check    every kernel against its plain PyTorch version on the card:
               the makespan kernel at the main path's shapes and at edge
@@ -26,9 +26,11 @@ Phases, in order; any failure raises and exits non-zero:
               launch the makespan kernel once per generation, and its best
               individual, re-evaluated by the plain version on the CPU,
               must reproduce its best fitness
-  5. timing   CUDA-event times of the makespan kernel and its plain
-              version, beside the least time the card could take for the
-              same work, and one more search under torch.profiler: the
+  5. timing   the makespan kernel's device time (a CUDA graph of its
+              launches replayed) and its time issued from the host
+              (CUDA events around Python launches), its plain version's,
+              beside the least time the card could take for the same
+              work, and one more search under torch.profiler: the
               device's busy share of the search and the kernel's part
   6. serve    the serving engine end to end: falcon-mamba-7b and
               zamba2-1.2b at full published width and depth, bf16, random
@@ -45,8 +47,9 @@ Phases, in order; any failure raises and exits non-zero:
               must give prefill logits within MODEL_F32_ATOL and the same
               greedy tokens over the whole decode; at full depth in bf16
               the difference and the token agreement are reported
-  8. timing   CUDA-event times of the scan kernel and its plain version at
-              both serving shapes beside their bounds, and one served
+  8. timing   the scan kernel's device and host-issued times (as in
+              phase 5) and its plain version's at both serving shapes
+              beside their bounds, and one served
               request under torch.profiler: the device's busy share and
               the scan kernel's part of it
   9. train    the serving models freed, repro_torch.launch.train for
@@ -138,31 +141,27 @@ def smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def flash_ptxas(log):
-    """{instantiation: (registers, spill store bytes, spill load bytes)}
-    of the flash kernels, from nvcc's -Xptxas -v report."""
+def kernel_label(mangled):
+    """A readable name for one instantiation of the port's kernels."""
     import re
-    out, entry = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            mma = re.search(r"flash_fwd_mma_kernelILi(\d+)E", m.group(1))
-            f32 = re.search(r"flash_fwd_kernelIfLi(\d+)E", m.group(1))
-            entry = (f"bf16 tensor cores D<={mma.group(1)}" if mma else
-                     f"f32 CUDA cores D<={f32.group(1)}" if f32 else None)
-            if entry:
-                out[entry] = [None, None, None]
-            continue
-        if entry is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            out[entry][1:] = [int(m.group(1)), int(m.group(2))]
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[entry][0] = int(m.group(1))
-    return {k: tuple(v) for k, v in out.items()}
+    m = re.search(r"flash_fwd_mma_kernelILi(\d+)E", mangled)
+    if m:
+        return f"bf16 tensor cores D<={m.group(1)}"
+    m = re.search(r"flash_fwd_kernelIfLi(\d+)E", mangled)
+    if m:
+        return f"f32 CUDA cores D<={m.group(1)}"
+    m = re.search(r"makespan_kernelILi(\d+)E", mangled)
+    if m:
+        return f"groups of {m.group(1)} lanes"
+    m = re.search(r"ssm_scan_kernelI(\w+?)Li(\d+)ELi(\d+)E", mangled)
+    if m:
+        types = m.group(1)
+        x_f32 = types.startswith("f")
+        rest = types[1:] if x_f32 else types[len("13__nv_bfloat16"):]
+        return (f"x {'f32' if x_f32 else 'bf16'} B/C "
+                f"{'f32' if rest == 'f' else 'bf16'}, {m.group(2)} states "
+                f"a lane, {m.group(3)} lanes")
+    return None
 
 
 def compare(got, want, what):
@@ -179,8 +178,14 @@ def compare(got, want, what):
     return float(err.max()), float(rel.max())
 
 
+def ptxas_json(entries):
+    return {k: dict(zip(("registers", "spill_store_bytes",
+                         "spill_load_bytes"), v)) for k, v in entries.items()}
+
+
 def time_cuda(fn, reps, warmup):
-    """Mean ms per call of ``fn`` on the card, by CUDA events."""
+    """Mean ms per call of ``fn`` on the card, by CUDA events around calls
+    issued back to back from Python (the host-issued figure)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -223,22 +228,6 @@ def ssm_bound_ms(Bt, L, D, N, x_bytes, bc_bytes):
                  Bt * L * D * (6 * N + 1) / F32_OPS_PER_S)
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
                                          else "operations")
-
-
-def ssm_inputs(dev, seed, Bt, L, D, N, low):
-    """x, B, C in ``low``, dt = softplus(normal) / 10 and A = -exp(normal/2)
-    in f32, as tests/test_kernels.py:104-108 draws them."""
-    import torch
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-
-    def normal(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
-
-    x = normal(Bt, L, D).to(low)
-    dt = torch.nn.functional.softplus(normal(Bt, L, D)) * 0.1
-    A = -torch.exp(normal(D, N) * 0.5)
-    return x, dt, A, normal(Bt, L, N).to(low), normal(Bt, L, N).to(low)
 
 
 def compare_tol(got, want, tol, what, rtol=None):
@@ -715,10 +704,12 @@ def main():
     from repro_torch.core.m3e import M3E
     from repro_torch.costmodel import get_setting
     from repro_torch.kernels import _build
+    from repro_torch.kernels._variants import graph_ms
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import makespan as mk
     from repro_torch.kernels import ssm_scan as ssm
-    from repro_torch.kernels.ref import flash_attention_ref, ssm_scan_ref
+    from repro_torch.kernels.ref import (flash_attention_ref, ssm_inputs,
+                                         ssm_scan_ref)
     from repro_torch.workloads import build_task_groups
     from concurrent.futures import ThreadPoolExecutor
 
@@ -741,10 +732,12 @@ def main():
         for line in built.ptxas_log.splitlines():
             if line.strip():
                 print(f"[build]   {line.strip()}")
-    ptxas = flash_ptxas(builds[names.index("flash_attention")].ptxas_log)
-    for entry, (regs, spill_st, spill_ld) in ptxas.items():
-        print(f"[build] flash_attention {entry}: {regs} registers, "
-              f"{spill_st} bytes spill stores, {spill_ld} bytes spill loads")
+    ptxas = {kname: _build.ptxas_report(built.ptxas_log, kernel_label)
+             for kname, built in zip(names, builds)}
+    for kname, entries in ptxas.items():
+        for entry, (regs, spill_st, spill_ld) in entries.items():
+            print(f"[build] {kname} {entry}: {regs} registers, {spill_st} "
+                  f"bytes spill stores, {spill_ld} bytes spill loads")
 
     # -- 3. kernel check --------------------------------------------------
     group = build_task_groups("Mix", group_size=100, seed=0)[0]
@@ -907,20 +900,29 @@ def main():
 
     # -- 5. timing --------------------------------------------------------
     P, A, G = qlat.shape
-    ms = time_cuda(lambda: mk.makespan(qlat, qbw, count, bw_sys), 200, 20)
+    bq = big_q
+
+    def run_100():
+        return mk.makespan(qlat, qbw, count, bw_sys)
+
+    def run_4096():
+        return mk.makespan(bq[0], bq[1], bq[2], bw_sys)
+
+    ms, ms_big = graph_ms(run_100, 200), graph_ms(run_4096, 100)
+    host_ms = time_cuda(run_100, 200, 20)
+    host_big = time_cuda(run_4096, 100, 10)
     plain_ms = time_cuda(lambda: simulate_tables(qlat, qbw, count, bw_sys),
                          10, 2)
     bound_ms, bound_by = makespan_bound_ms(P, A, G)
-    bq = big_q
-    ms_big = time_cuda(lambda: mk.makespan(bq[0], bq[1], bq[2], bw_sys),
-                       100, 10)
     plain_big = time_cuda(lambda: simulate_tables(bq[0], bq[1], bq[2],
                                                   bw_sys), 5, 1)
     bound_big, by_big = makespan_bound_ms(4096, A, G)
-    print(f"[timing] makespan P={P} A={A} G={G}: kernel {ms:.6f} ms, plain "
+    print(f"[timing] makespan P={P} A={A} G={G}: kernel {ms:.6f} ms on the "
+          f"device ({host_ms:.6f} ms issued from the host), plain "
           f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
-          f"P=4096: kernel {ms_big:.6f} ms, plain {plain_big:.6f} ms, bound "
-          f"{bound_big:.6f} ms ({by_big}); library call: none")
+          f"P=4096: kernel {ms_big:.6f} ms on the device ({host_big:.6f} ms "
+          f"from the host), plain {plain_big:.6f} ms, bound {bound_big:.6f} "
+          f"ms ({by_big}); library call: none")
     print(f"[timing] search wall s per seed: {walls}")
 
     # where a search's time goes: one more search under the profiler
@@ -1119,13 +1121,15 @@ def main():
     for key, args in ssm_main.items():
         Bt, L, D = args[0].shape
         N = args[2].shape[1]
-        k_ms = time_cuda(lambda: ssm.ssm_scan(*args), 100, 10)
+        k_ms = graph_ms(lambda: ssm.ssm_scan(*args), 50)
+        h_ms = time_cuda(lambda: ssm.ssm_scan(*args), 100, 10)
         p_ms = time_cuda(lambda: ssm_scan_ref(*args), 3, 1)
         b_ms, b_by = ssm_bound_ms(Bt, L, D, N, args[0].element_size(),
                                   args[3].element_size())
-        ssm_times[key] = (k_ms, p_ms, b_ms, b_by, (Bt, L, D, N))
+        ssm_times[key] = (k_ms, p_ms, b_ms, b_by, (Bt, L, D, N), h_ms)
         print(f"[timing] ssm_scan {key} Bt={Bt} L={L} D={D} N={N} bf16 "
-              f"x/B/C: kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms, bound "
+              f"x/B/C: kernel {k_ms:.6f} ms on the device ({h_ms:.6f} ms "
+              f"issued from the host), plain {p_ms:.6f} ms, bound "
               f"{b_ms:.6f} ms ({b_by}); library call: none")
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1187,8 +1191,8 @@ def main():
 
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
-    k_ms, p_ms, b_ms, b_by, shape = ssm_times["falcon"]
-    z_ms, zp_ms, zb_ms, _, z_shape = ssm_times["zamba2"]
+    k_ms, p_ms, b_ms, b_by, shape, kh_ms = ssm_times["falcon"]
+    z_ms, zp_ms, zb_ms, _, z_shape, zh_ms = ssm_times["zamba2"]
     gt, dt_ = flash_times["granite"], flash_times["danube"]
     kernels = [{
         "name": "makespan", "route": "cuda",
@@ -1202,9 +1206,11 @@ def main():
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
+        "ms_host_issued": host_ms,
         "shape": {"P": P, "A": A, "G": G},
-        "ms_p4096": ms_big, "plain_ms_p4096": plain_big,
-        "bound_ms_p4096": bound_big,
+        "ms_p4096": ms_big, "ms_p4096_host_issued": host_big,
+        "plain_ms_p4096": plain_big, "bound_ms_p4096": bound_big,
+        "ptxas": ptxas_json(ptxas["makespan"]),
         "search_wall_s": walls, "profile": profile_out, "ok": True,
     }, {
         "name": "ssm_scan", "route": "cuda",
@@ -1216,9 +1222,11 @@ def main():
         "max_abs_err": max(e[0] for e in ssm_errs),
         "max_rel_err": max(e[1] for e in ssm_errs),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "library_ms": None, "ms_host_issued": kh_ms,
         "shape": dict(zip(("Bt", "L", "D", "N"), shape)),
-        "ms_zamba2": z_ms, "plain_ms_zamba2": zp_ms, "bound_ms_zamba2": zb_ms,
+        "ms_zamba2": z_ms, "ms_zamba2_host_issued": zh_ms,
+        "plain_ms_zamba2": zp_ms, "bound_ms_zamba2": zb_ms,
+        "ptxas": ptxas_json(ptxas["ssm_scan"]),
         "shape_zamba2": dict(zip(("Bt", "L", "D", "N"), z_shape)),
         "serve": serve_out, "model_f32_logits_max_abs_diff": model_diff,
         "full_depth_bf16": full_depth, "profile": serve_profile, "ok": True,
@@ -1240,9 +1248,7 @@ def main():
         "ms_danube": dt_["ms"], "plain_ms_danube": dt_["plain_ms"],
         "bound_ms_danube": dt_["bound_ms"], "tflops_danube": dt_["tflops"],
         "library_ms_danube": dt_["library_ms"], "shape_danube": dt_["shape"],
-        "ptxas": {k: dict(zip(("registers", "spill_store_bytes",
-                               "spill_load_bytes"), v))
-                  for k, v in ptxas.items()},
+        "ptxas": ptxas_json(ptxas["flash_attention"]),
         "train": {"steps": train_steps, "restart": restart,
                   "profile": train_profile},
         "eval": evals, "ok": True,

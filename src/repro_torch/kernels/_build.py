@@ -13,6 +13,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -73,6 +74,30 @@ def _compile(name: str) -> BuiltLibrary:
         os.replace(tmp, so)   # atomic: a concurrent loader never sees a part
     return BuiltLibrary(lib=ctypes.CDLL(str(so)), path=so,
                         ptxas_log=log.read_text(), build_seconds=seconds)
+
+
+def ptxas_report(log, label):
+    """{label: (registers, spill store bytes, spill load bytes)} of the
+    kernels in nvcc's -Xptxas -v report to whose mangled names ``label``
+    gives a label (None: left out)."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = label(m.group(1))
+            if entry:
+                out[entry] = [None, None, None]
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[entry][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def load(name: str) -> BuiltLibrary:

@@ -22,15 +22,12 @@ the ratio of each output's error to the bf16 limit 2e-5 + 2^-7 |want|.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import subprocess
-from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _variants
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.ref import flash_attention_ref
 
@@ -124,41 +121,9 @@ def p_rounding_table(seed: int = 0, heads: int = 4):
 def variant_sources() -> Dict[str, str]:
     """{variant: CUDA source}: "as_is" and one per ablation."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    out = {"as_is": src}
-    for name, (old, new) in ABLATIONS.items():
-        if src.count(old) != 1:
-            raise RuntimeError(f"ablation {name}: its text is not in "
-                               "flash_attention.cu once; update ABLATIONS")
-        out[name] = src.replace(old, new)
-    return out
-
-
-def _build_variant(item):
-    name, text = item
-    out = _build.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    src, so = out / f"{name}.cu", out / f"lib{name}.so"
-    src.write_text(text)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                           str(src)], capture_output=True, text=True,
-                          check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on variant {name}:\n{proc.stderr}")
-    return name, ctypes.CDLL(str(so))
-
-
-def _time_ms(fn, reps: int) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return _variants.ablated_sources(
+        src, {name: (edit,) for name, edit in ABLATIONS.items()},
+        "flash_attention.cu")
 
 
 def main(argv=None) -> dict:
@@ -174,15 +139,9 @@ def main(argv=None) -> dict:
                   ", ".join(f"{m} max {r:.3f}x the limit, {share:.2%} over"
                             for m, (r, share) in modes.items()), flush=True)
         return table
-    if not torch.cuda.is_available():
-        raise SystemExit("flash_variants times the kernel on a CUDA card; "
-                         "none is present")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = _variants.card_line()
     print(f"[variants] {smi}", flush=True)
-    with ThreadPoolExecutor(len(ABLATIONS) + 1) as pool:
-        libs = dict(pool.map(_build_variant, variant_sources().items()))
+    libs = _variants.build_all(variant_sources(), "variants")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     inputs = {key: (tuple(torch.randn((B, S, h, D), generator=gen,
@@ -205,7 +164,7 @@ def main(argv=None) -> dict:
                                  * want.abs()).all()):
                         raise RuntimeError(f"the kernel as it is disagrees "
                                            f"with the plain version ({key})")
-                times[name][key] = _time_ms(run, args.reps)
+                times[name][key] = _variants.time_ms(run, args.reps)
             print(f"[variants] {name}: " + ", ".join(
                 f"{k} {v:.4f} ms" for k, v in times[name].items()),
                 flush=True)

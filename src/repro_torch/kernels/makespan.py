@@ -5,8 +5,9 @@ of ``G`` jobs on ``A`` sub-accelerators sharing ``bw_sys`` and returns
 their ``(P,)`` makespans.  It replaces the Pallas TPU kernel
 ``src/repro/kernels/makespan.py::_makespan_kernel``.
 
-A CUDA tensor goes to the hand-written kernel ``csrc/makespan.cu`` (one
-warp per individual, see the note at the top of that file); a CPU tensor
+A CUDA tensor goes to the hand-written kernel ``csrc/makespan.cu`` (a
+group of lanes as wide as A needs per individual, its queues staged in
+shared memory; see the note at the top of that file); a CPU tensor
 goes to the plain PyTorch version,
 ``repro_torch.core.bw_allocator.simulate_tables``.  There is no fallback
 from one to the other: a CUDA call builds and launches the kernel or

@@ -50,3 +50,19 @@ def ssm_scan_ref(x, dt, A, B, C):
     selective_scan`` == ``ops.ssm_scan`` on any device."""
     from repro_torch.models.mamba import selective_scan
     return selective_scan(x, dt, A, B, C)
+
+
+def ssm_inputs(dev, seed: int, Bt: int, L: int, D: int, N: int,
+               low=torch.bfloat16):
+    """Seeded inputs of ``ssm_scan`` on ``dev``: x, B, C in ``low``, dt =
+    softplus(normal) / 10 and A = -exp(normal / 2) in f32, as the
+    reference's kernel tests draw them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = normal(Bt, L, D).to(low)
+    dt = torch.nn.functional.softplus(normal(Bt, L, D)) * 0.1
+    A = -torch.exp(normal(D, N) * 0.5)
+    return x, dt, A, normal(Bt, L, N).to(low), normal(Bt, L, N).to(low)

@@ -6,8 +6,10 @@ C_t>`` from a zero state.  It replaces the Pallas TPU kernel
 ``src/repro/kernels/ssm_scan.py::_ssm_kernel``.
 
 A CUDA tensor goes to the hand-written kernel ``csrc/ssm_scan.cu`` (a
-channel's states spread over a few lanes, see the note at the top of that
-file); a CPU tensor goes to the plain PyTorch version,
+channel's states spread over a few lanes, inputs staged by ``cp.async``,
+the y sums through shared memory; see the note at the top of that file;
+``repro_torch.kernels.ssm_variants`` times it beside ablated builds);
+a CPU tensor goes to the plain PyTorch version,
 ``repro_torch.models.mamba.selective_scan``.  There is no fallback from
 one to the other: a CUDA call builds and launches the kernel or raises.
 ``LAUNCHES["ssm_scan"]`` counts kernel launches and nothing else.
@@ -22,7 +24,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.models.mamba import selective_scan
 
-MAX_STATE = 128        # 32 lanes of 4 states each
+MAX_STATE = 128        # 32 lanes of at most 4 states each
 LAUNCHES = {"ssm_scan": 0}
 INPUT_TYPES = (torch.float32, torch.bfloat16)
 
@@ -32,14 +34,18 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("ssm_scan").lib
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C entry points' argument and result types set."""
     lib.ssm_scan_launch.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.ssm_scan_launch.restype = ctypes.c_int
     lib.ssm_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssm_scan_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return _bind(_build.load("ssm_scan").lib)
 
 
 def _check(x, dt, A, B, C) -> None:

@@ -24,11 +24,12 @@ from repro_torch.kernels import makespan as mk  # noqa: E402
 from repro_torch.kernels.ops import population_makespan  # noqa: E402
 
 
-def _problem(seed, P, G, A):
+def _problem(seed, P, G, A, one_accel=False):
     rng = np.random.default_rng(seed)
     lat = rng.uniform(0.05, 5.0, (G, A))
     bw = rng.uniform(0.01, 10.0, (G, A))
-    accel = rng.integers(0, A, (P, G)).astype(np.int32)
+    accel = (np.zeros((P, G), np.int32) if one_accel
+             else rng.integers(0, A, (P, G)).astype(np.int32))
     prio = rng.random((P, G)).astype(np.float32)
     return lat, bw, accel, prio
 
@@ -48,11 +49,21 @@ def cuda():
     return torch.device("cuda")
 
 
+# A from 1 to 32 (groups of 1 to 32 lanes), P not a multiple of the
+# individuals of a block, G = 1000 (the paper's largest group; staged in
+# shared memory) and G = 7000 (past the staged slots: queues read from
+# device memory), and empty queues (every job on one sub-accelerator)
 @pytest.mark.gpu
-@pytest.mark.parametrize("G,A,P,bw_sys", [
-    (37, 5, 7, 3.0), (100, 8, 100, 2.0), (100, 16, 100, 0.05), (1, 3, 2, 2.0)])
-def test_kernel_matches_plain_on_card(cuda, G, A, P, bw_sys):
-    lat, bw, accel, prio = _problem(G + A + P, P, G, A)
+@pytest.mark.parametrize("G,A,P,bw_sys,one_accel", [
+    (37, 5, 7, 3.0, False), (100, 8, 100, 2.0, False),
+    (100, 16, 100, 0.05, False), (1, 3, 2, 2.0, False),
+    (60, 1, 13, 2.0, False), (100, 8, 13, 2.0, False),
+    (80, 9, 11, 1.0, False), (50, 32, 5, 4.0, False),
+    (1000, 8, 9, 3.0, False), (1000, 1, 3, 2.0, False),
+    (7000, 2, 3, 2.0, False), (19, 4, 3, 5.0, True),
+    (1000, 8, 5, 0.5, True)])
+def test_kernel_matches_plain_on_card(cuda, G, A, P, bw_sys, one_accel):
+    lat, bw, accel, prio = _problem(G + A + P, P, G, A, one_accel)
     qlat, qbw, count = _tables(lat, bw, accel, prio, A, cuda)
     before = mk.LAUNCHES["makespan"]
     got = mk.makespan(qlat, qbw, count, bw_sys)

@@ -25,7 +25,11 @@ from repro_torch.models import mamba as M  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 
 
-def _inputs(seed, Bt, L, D, N, low, device):
+def _inputs(seed, Bt, L, D, N, low, device, low_bc=None, offset=0):
+    """x, dt, A, B, C as the reference's kernel tests draw them, on
+    ``device``: x in ``low``, B and C in ``low_bc`` (default ``low``);
+    ``offset`` > 0 places x, B and C that many elements into their
+    storage, so that their rows are not 16-byte aligned."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((Bt, L, D)).astype(np.float32)
     dt = (np.log1p(np.exp(rng.standard_normal((Bt, L, D)))) * 0.1
@@ -34,10 +38,16 @@ def _inputs(seed, Bt, L, D, N, low, device):
     B = rng.standard_normal((Bt, L, N)).astype(np.float32)
     C = rng.standard_normal((Bt, L, N)).astype(np.float32)
 
-    def dev(a, dtype=torch.float32):
-        return torch.as_tensor(a, device=device).to(dtype)
+    def dev(a, dtype=torch.float32, shift=0):
+        t = torch.as_tensor(a, device=device).to(dtype)
+        if shift:
+            flat = torch.empty(t.numel() + shift, dtype=dtype, device=device)
+            t = flat[shift:].view(t.shape).copy_(t)
+        return t
 
-    return dev(x, low), dev(dt), dev(A), dev(B, low), dev(C, low)
+    low_bc = low if low_bc is None else low_bc
+    return (dev(x, low, offset), dev(dt), dev(A), dev(B, low_bc, offset),
+            dev(C, low_bc, offset))
 
 
 @pytest.fixture
@@ -65,6 +75,42 @@ def test_kernel_matches_plain_on_card(cuda, Bt, L, D, N, low, tol):
     yr, hr = M.selective_scan(*args)
     torch.testing.assert_close(y, yr, rtol=tol, atol=tol)
     torch.testing.assert_close(h, hr, rtol=tol, atol=tol)
+
+
+_MIXES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+          (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16)]
+
+
+# L ending mid-chunk and mid-ring, N from 1 to 128 (1 to 32 lanes), D
+# that is not a multiple of a block's channels (and odd: bf16 rows that
+# allow no 4-byte copies), Bt = 2 rows whose B/C spans start unaligned,
+# and the four x / (B, C) type mixes
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 33, 97, 513])
+@pytest.mark.parametrize("N", [1, 3, 16, 64, 128])
+def test_kernel_edges_match_plain_on_card(cuda, L, N):
+    D = 37 + 2 * N
+    Bt = 2 if L % 2 else 1
+    low, low_bc = _MIXES[(L + N) % 4]
+    args = _inputs(L + N, Bt, L, D, N, low, cuda, low_bc)
+    y, h = ssm.ssm_scan(*args)
+    torch.cuda.synchronize()
+    yr, hr = M.selective_scan(*args)
+    tol = 5e-2 if torch.bfloat16 in (low, low_bc) else 1e-4
+    torch.testing.assert_close(y, yr, rtol=tol, atol=tol)
+    torch.testing.assert_close(h, hr, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("low,low_bc", _MIXES)
+def test_unaligned_rows_match_aligned_bitwise(cuda, low, low_bc):
+    """Inputs one element into their storage (the scalar staging path)
+    give the aligned launch's bits."""
+    aligned = _inputs(7, 1, 70, 256, 16, low, cuda, low_bc)
+    moved = _inputs(7, 1, 70, 256, 16, low, cuda, low_bc, offset=1)
+    assert any(t.data_ptr() % 16 for t in moved)
+    for got, want in zip(ssm.ssm_scan(*moved), ssm.ssm_scan(*aligned)):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
