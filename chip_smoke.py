@@ -13,8 +13,9 @@ Phases, in order; any failure raises and exits non-zero:
               spill bytes)
   3. check    every kernel against its plain PyTorch version on the card:
               the makespan kernel at the main path's shapes and at edge
-              cases, plus the float64 oracle and bitwise population-size
-              invariance; the selective-scan kernel at the reference
+              cases, plus the float64 oracle, bitwise population-size
+              invariance and a per-row bw_sys launch (4 rows of 100, four
+              bandwidths) bitwise equal to four one-row launches; the selective-scan kernel at the reference
               tests' shapes (float32 and bf16 inputs) and at the two
               serving shapes, plus bitwise batch-row independence; the
               flash kernel at the reference tests' shapes, ragged S, the
@@ -31,7 +32,9 @@ Phases, in order; any failure raises and exits non-zero:
               (CUDA events around Python launches), its plain version's,
               beside the least time the card could take for the same
               work, and one more search under torch.profiler: the
-              device's busy share of the search and the kernel's part
+              device's busy share of the search and the kernel's part;
+              the per-row bw_sys launch's device time at N = 4 x 100 and
+              3 x 100 (a sweep chunk) beside its bound
   6. serve    the serving engine end to end: falcon-mamba-7b and
               zamba2-1.2b at full published width and depth, bf16, random
               weights from a seeded generator, use_flash=True;
@@ -77,11 +80,29 @@ Phases, in order; any failure raises and exits non-zero:
               training step
               under torch.profiler: the device's busy share and the top
               device ops
+ 12. compare  the paper's Fig. 9 protocol at full width (G=100, 10K
+              samples): S2 at 16 GB/s and S4 at 256 GB/s, each with the
+              Vision and Mix groups, and all eleven Table IV methods.
+              magma, stdga, de, pso and random run one run_sweep per
+              setting (2 tasks x 2 seeds = 4 rows, chunks of 3) that
+              must launch the makespan kernel once per generation and
+              chunk and whose every row must equal bitwise the same
+              search run alone by run_strategy; cmaes, tbpsa, a2c, ppo2,
+              herald_like and ai_mt_like run through M3E.search (one
+              seed: HOST_SEEDS); every best individual is re-evaluated
+              by the plain version on the CPU (rtol 1e-4).  Prints the
+              Fig. 9 table normalized to MAGMA, the geomean MAGMA
+              advantage per method and their order (reported, not
+              asserted), each method's wall, each sweep's wall beside
+              its rows run one by one, one MAGMA sweep under
+              torch.profiler (the device's busy share, device ops per
+              generation and chunk), and the phase's wall
 
 The counts of every kernel are set to 0 before each main path (the M3E
-searches, the served batch, and phases 9-10 together, "train_eval") and
-read after it.  It prints a JSON line with one entry per kernel, the card's name and power
-limit, and last the line ``{"ok": true, "device": {...}}``.
+searches, the served batch, phases 9-10 together, "train_eval", and the
+comparison, "compare") and read after it.  It prints a JSON line with one
+entry per kernel, the card's name and power limit, and last the line
+``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -126,6 +147,18 @@ PROMPT, GENERATE, WINDOW = 512, 32, 8
 TRAIN_ARCH, EVAL_ARCH = "granite-3-2b", "h2o-danube-3-4b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 2048
 EVAL_BATCH, EVAL_SEQ = 1, 8192
+# phase 12: the Fig. 9 protocol (benchmarks/fig09_heterogeneous.py:15-19)
+# and Table IV's methods (benchmarks/common.py:24-25)
+FIG9_SETTINGS = (("S2", 16), ("S4", 256))      # setting, bw_sys in GB/s
+FIG9_TASKS = ("Vision", "Mix")
+DEVICE_METHODS = ("magma", "stdga", "de", "pso", "random")
+HOST_METHODS = ("cmaes", "tbpsa", "a2c", "ppo2", "herald_like", "ai_mt_like")
+COMPARE_SEEDS = (0, 1)
+COMPARE_CHUNK_ROWS = 3       # 4 rows a sweep: the last chunk is partial
+# the cut this script takes to finish in half its time limit: the host
+# methods (an RL search at 10K samples takes ~30 s on the card) run one
+# seed; G and the budget are never cut
+HOST_SEEDS = (0,)
 
 
 def check(cond, msg):
@@ -681,6 +714,188 @@ def profile_train_step(dev):
             "top_kernels_ms": [[k[:80], v] for k, v in top]}
 
 
+def compare_phase(dev, mk, budget=10_000, group_size=100):
+    """Phase 12: the paper's Fig. 9 comparison through the port's entry
+    points on ``dev``.  Every device-resident method runs one
+    ``run_sweep`` per setting (its two tasks x COMPARE_SEEDS rows in
+    chunks of COMPARE_CHUNK_ROWS) that must launch the makespan kernel
+    once per generation and chunk, and whose rows must equal bitwise the
+    same searches run one by one with ``run_strategy``; the host methods
+    run through ``M3E.search``.  Every best individual, re-evaluated by
+    the plain version on the CPU, must give its best fitness at rtol
+    1e-4.  Returns the phase's summary."""
+    import torch
+    from repro_torch.core.fitness import FitnessFn
+    from repro_torch.core.m3e import M3E, geomean
+    from repro_torch.core.strategies import (get_strategy, plan_generations,
+                                             run_strategy)
+    from repro_torch.core.sweep import SweepConfig, run_sweep
+    from repro_torch.costmodel import get_setting
+    from repro_torch.workloads import build_task_groups
+
+    t_phase = time.perf_counter()
+    groups = {t: build_task_groups(t, group_size=group_size, seed=0)[0]
+              for t in FIG9_TASKS}
+    m3es, fits, cpu_fits, labels = {}, {}, {}, []
+    for setting, bw in FIG9_SETTINGS:
+        m3es[setting] = M3E(get_setting(setting), bw_sys=bw * GB, device=dev)
+        for task in FIG9_TASKS:
+            label = f"{task}-{setting}-bw{bw}"
+            labels.append(label)
+            fits[label] = m3es[setting].prepare(groups[task])
+            cpu_fits[label] = FitnessFn(fits[label].table, bw_sys=bw * GB,
+                                        device="cpu")
+
+    def reevaluate(label, method, best, accel, prio):
+        again = float(cpu_fits[label](torch.as_tensor(accel[None]),
+                                      torch.as_tensor(prio[None]))[0])
+        check(np.isfinite(best) and best > 0
+              and abs(again - best) <= RTOL * abs(best),
+              f"compare {method} {label}: best fitness {best}, the plain "
+              f"version on the CPU gives {again}")
+
+    best = {label: {} for label in labels}
+    method_wall, sweeps = {}, []
+    for method in DEVICE_METHODS:
+        strategy = get_strategy(method)
+        generations = plan_generations(budget, strategy.ask_size)[0]
+        method_wall[method] = 0.0
+        for setting, bw in FIG9_SETTINGS:
+            rows = [lab for lab in labels if lab.endswith(f"{setting}-bw{bw}")]
+            before = mk.LAUNCHES["makespan"]
+            t0 = time.perf_counter()
+            res = run_sweep([fits[lab] for lab in rows], budget=budget,
+                            seeds=COMPARE_SEEDS, strategy=strategy,
+                            sweep=SweepConfig(chunk_rows=COMPARE_CHUNK_ROWS),
+                            device=dev)
+            sweep_wall = time.perf_counter() - t0
+            launched = mk.LAUNCHES["makespan"] - before
+            check(launched == generations * res.num_chunks,
+                  f"compare {method} {setting}: {launched} makespan launches "
+                  f"for {res.rows} rows in {res.num_chunks} chunks, want one "
+                  f"per generation and chunk ({generations * res.num_chunks})")
+            t0 = time.perf_counter()
+            alone = {(s, k): run_strategy(strategy, fits[lab], budget=budget,
+                                          seed=seed, device=dev)
+                     for s, lab in enumerate(rows)
+                     for k, seed in enumerate(COMPARE_SEEDS)}
+            seq_wall = time.perf_counter() - t0
+            for (s, k), one in alone.items():
+                check(res.best_fitness[s, k] == one.best_fitness
+                      and np.array_equal(res.best_accel[s, k], one.best_accel)
+                      and np.array_equal(res.best_prio[s, k], one.best_prio)
+                      and np.array_equal(res.history_best[s, k],
+                                         one.history_best),
+                      f"compare {method} {setting}: sweep row [{s}, {k}] "
+                      "differs from the standalone run_strategy")
+            for s, lab in enumerate(rows):
+                best[lab][method] = [float(x) for x in res.best_fitness[s]]
+                for k in range(len(COMPARE_SEEDS)):
+                    reevaluate(lab, method, float(res.best_fitness[s, k]),
+                               res.best_accel[s, k], res.best_prio[s, k])
+            method_wall[method] += sweep_wall
+            sweeps.append({"method": method, "setting": setting,
+                           "rows": res.rows, "chunks": res.num_chunks,
+                           "padded_rows": res.padded_rows,
+                           "launches": launched, "generations": generations,
+                           "sweep_wall_s": sweep_wall,
+                           "sequential_wall_s": seq_wall,
+                           "chunk_wall_s": res.chunk_wall_s})
+            print(f"[compare] {method} {setting}: run_sweep of {res.rows} "
+                  f"rows in {res.num_chunks} chunks of {res.chunk_rows} "
+                  f"({res.padded_rows - res.rows} padding): wall "
+                  f"{sweep_wall:.4f} s, makespan launches {launched}; the "
+                  f"same rows one by one {seq_wall:.4f} s; rows == "
+                  f"standalone run_strategy, bitwise")
+    profile = profile_sweep(dev, fits, labels, budget)
+    for method in HOST_METHODS:
+        method_wall[method] = 0.0
+        for setting, bw in FIG9_SETTINGS:
+            for task in FIG9_TASKS:
+                label = f"{task}-{setting}-bw{bw}"
+                vals = []
+                for seed in HOST_SEEDS:
+                    res = m3es[setting].search(groups[task], method=method,
+                                               budget=budget, seed=seed)
+                    method_wall[method] += res.wall_time_s
+                    reevaluate(label, method, res.best_fitness,
+                               res.best_accel, res.best_prio)
+                    vals.append(res.best_fitness)
+                best[label][method] = vals
+        print(f"[compare] {method}: {len(labels) * len(HOST_SEEDS)} "
+              f"searches through M3E.search, wall {method_wall[method]:.4f} s")
+
+    methods = DEVICE_METHODS + HOST_METHODS
+    mean = {lab: {m: float(np.mean(best[lab][m])) for m in methods}
+            for lab in labels}
+    print("[compare] Fig. 9 (best throughput normalized to magma; magma "
+          "in GFLOP/s):")
+    print("[compare] problem," + ",".join(methods) + ",magma_GFLOPs")
+    for lab in labels:
+        norm = mean[lab]["magma"]
+        print(f"[compare] {lab}," + ",".join(
+            f"{mean[lab][m] / norm:.4f}" for m in methods)
+            + f",{norm / 1e9:.1f}")
+    advantage = {m: geomean([mean[lab]["magma"] / mean[lab][m]
+                             for lab in labels])
+                 for m in methods if m != "magma"}
+    order = sorted(methods, key=lambda m: -geomean(
+        [mean[lab][m] for lab in labels]))
+    print("[compare] geomean MAGMA advantage: " + ", ".join(
+        f"{m} {v:.4f}" for m, v in advantage.items()))
+    print(f"[compare] methods by geomean best fitness: {' > '.join(order)}")
+    print("[compare] wall per method (s): " + ", ".join(
+        f"{m} {w:.3f}" for m, w in method_wall.items()))
+    total = time.perf_counter() - t_phase
+    print(f"[compare] cuts: host methods at {len(HOST_SEEDS)} seed(s) "
+          f"({len(COMPARE_SEEDS)} for device methods); G={group_size} and "
+          f"budget={budget} not cut; phase wall {total:.3f} s")
+    return {"best_fitness": best, "normalized": {
+                lab: {m: mean[lab][m] / mean[lab]["magma"] for m in methods}
+                for lab in labels},
+            "magma_advantage": advantage, "order": order,
+            "method_wall_s": method_wall, "sweeps": sweeps,
+            "seeds": {"device": list(COMPARE_SEEDS),
+                      "host": list(HOST_SEEDS)},
+            "profile": profile, "phase_wall_s": total}
+
+
+def profile_sweep(dev, fits, labels, budget):
+    """One MAGMA sweep of the S4 rows under torch.profiler: its wall, the
+    device's busy share, the device ops per generation and chunk, and the
+    makespan kernel's part (None where the profiler sees no device)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.sweep import SweepConfig, run_sweep
+
+    rows = [fits[lab] for lab in labels if "-S4-" in lab]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 if dev.type == "cuda" else [ProfilerActivity.CPU]) as prof:
+        res = run_sweep(rows, budget=budget, seeds=COMPARE_SEEDS,
+                        sweep=SweepConfig(chunk_rows=COMPARE_CHUNK_ROWS),
+                        device=dev)
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not on_card:
+        print("[compare] the profiler saw no device time: the sweep's busy "
+              "share not measured")
+        return None
+    wall_ms = res.wall_time_s * 1e3
+    busy_ms = sum(e.device_time_total for e in on_card) / 1e3
+    mk_ms = sum(e.device_time_total for e in on_card
+                if "makespan_kernel" in e.name) / 1e3
+    per_gen = len(on_card) / (res.generations * res.num_chunks)
+    print(f"[compare] traced magma sweep ({res.rows} rows, {res.num_chunks} "
+          f"chunks of {res.chunk_rows}): wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}) over {len(on_card)} "
+          f"device ops ({per_gen:.1f} a generation and chunk), makespan "
+          f"kernel {mk_ms:.3f} ms")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_ops": len(on_card),
+            "device_ops_per_generation_and_chunk": per_gen,
+            "makespan_kernel_ms": mk_ms}
+
+
 def main():
     import torch
 
@@ -811,6 +1026,23 @@ def main():
           "from the P=100 launch")
     print("[check] P=4096 out[:100] == P=100 out, bitwise")
 
+    # per-row bw_sys, as a sweep chunk launches it: R = 4 rows of P = 100
+    # (each its own population, four bandwidths) against four one-row
+    # launches (bitwise) and the plain version
+    row_bw = torch.tensor([16 * GB, 64 * GB, 256 * GB, 1024 * GB],
+                          dtype=torch.float32, device=dev)
+    rows_q = [scenario_tables("S4", 100)[2:5] for _ in range(4)]
+    rq = [torch.cat([q[i] for q in rows_q]).contiguous() for i in range(3)]
+    out_rows = kernel_vs_plain(rq[0], rq[1], rq[2], row_bw,
+                               "per-row bw_sys R=4 x P=100 S4 A=8 G=100")
+    for r, q in enumerate(rows_q):
+        one = mk.makespan(q[0], q[1], q[2], row_bw[r:r + 1])
+        check(torch.equal(out_rows[r * 100:(r + 1) * 100], one),
+              f"per-row bw_sys: row {r} of the R=4 launch differs bitwise "
+              "from its one-row launch")
+    print("[check] per-row bw_sys R=4 rows == four one-row launches, "
+          "bitwise")
+
     table = fit.table
     bw_host = float(fit.bw_sys)
     oracle_rel = 0.0
@@ -924,6 +1156,17 @@ def main():
           f"from the host), plain {plain_big:.6f} ms, bound {bound_big:.6f} "
           f"ms ({by_big}); library call: none")
     print(f"[timing] search wall s per seed: {walls}")
+    per_row = {}
+    for R in (4, 3):
+        n = R * 100
+        args = (rq[0][:n], rq[1][:n], rq[2][:n], row_bw[:R])
+        r_ms = graph_ms(lambda: mk.makespan(*args), 200)
+        r_bound, r_by = makespan_bound_ms(n, A, G)
+        per_row[f"R{R}xP100"] = {"ms": r_ms, "bound_ms": r_bound,
+                                 "bound_by": r_by, "N": n}
+        print(f"[timing] makespan per-row bw_sys R={R} x P=100 (N={n}): "
+              f"kernel {r_ms:.6f} ms on the device, bound {r_bound:.6f} "
+              f"ms ({r_by})")
 
     # where a search's time goes: one more search under the profiler
     from torch.autograd import DeviceType
@@ -1189,6 +1432,20 @@ def main():
     free(dev)
     train_profile = profile_train_step(dev)
 
+    # -- 12. compare: the Fig. 9 grid, every Table IV method -------------
+    free(dev)
+    reset_counts()
+    compared = compare_phase(dev, mk)
+    compare_counts = {"makespan": mk.LAUNCHES["makespan"],
+                      "ssm_scan": ssm.LAUNCHES["ssm_scan"],
+                      "flash_attention": fa.LAUNCHES["flash_attention"]}
+    check(compare_counts["ssm_scan"] == 0
+          and compare_counts["flash_attention"] == 0
+          and compare_counts["makespan"] > 0,
+          f"compare launches {compare_counts}: want the makespan kernel "
+          "and no other")
+    print(f"[compare] compare path launches: {compare_counts}")
+
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
     k_ms, p_ms, b_ms, b_by, shape, kh_ms = ssm_times["falcon"]
@@ -1198,10 +1455,11 @@ def main():
         "name": "makespan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/makespan.cu",
         "replaces": "src/repro/kernels/makespan.py:36",
-        "launches": launches + serve_counts[1],
+        "launches": launches + serve_counts[1] + compare_counts["makespan"],
         "launches_by_path": {"m3e_search": launches,
                              "serve": serve_counts[1],
-                             "train_eval": train_eval_counts["makespan"]},
+                             "train_eval": train_eval_counts["makespan"],
+                             "compare": compare_counts["makespan"]},
         "launches_per_search": launches // 4,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1211,14 +1469,16 @@ def main():
         "ms_p4096": ms_big, "ms_p4096_host_issued": host_big,
         "plain_ms_p4096": plain_big, "bound_ms_p4096": bound_big,
         "ptxas": ptxas_json(ptxas["makespan"]),
-        "search_wall_s": walls, "profile": profile_out, "ok": True,
+        "search_wall_s": walls, "profile": profile_out,
+        "per_row_bw_sys": per_row, "compare": compared, "ok": True,
     }, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:28",
         "launches": serve_counts[0],
         "launches_by_path": {"m3e_search": 0, "serve": serve_counts[0],
-                             "train_eval": train_eval_counts["ssm_scan"]},
+                             "train_eval": train_eval_counts["ssm_scan"],
+                             "compare": 0},
         "max_abs_err": max(e[0] for e in ssm_errs),
         "max_rel_err": max(e[1] for e in ssm_errs),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1237,7 +1497,7 @@ def main():
         "launches": train_eval_counts["flash_attention"],
         "launches_by_path": {"m3e_search": 0, "serve": 0,
                              "train_eval": train_eval_counts[
-                                 "flash_attention"]},
+                                 "flash_attention"], "compare": 0},
         "launches_per_eval": {k: v["flash_launches"] for k, v in
                               evals.items()},
         "max_abs_err": max(e[0] for e in flash_errs),

@@ -3,8 +3,8 @@ and its language models' weights, handed over as numpy arrays, become this
 package's tensors on ``device``.
 
 For the mapper the "weights" are the scenario tables (``FitnessParams``)
-and the GA population; for the serving engine they are the tenants' model
-weights.  These functions are what lets both packages compute on the same
+and the GA population, and the RL baselines' policy; for the serving
+engine they are the tenants' model weights.  These functions are what lets both packages compute on the same
 inputs.
 """
 from __future__ import annotations
@@ -85,3 +85,22 @@ def model_from_numpy(cfg, values, device):
         _fill(sh.attn, _field(shared, "attn"), index=0)
         _fill(sh.mlp, _field(shared, "mlp"), index=0)
     return model
+
+
+def policy_from_numpy(values, device):
+    """The RL baselines' policy (``repro_torch.core.rl``, a dict of
+    tensors) from the reference's ``repro.core.rl.PolicyParams`` with
+    numpy leaves: each head's list of ``{"w", "b"}`` layers becomes
+    ``"<head>.<i>.w"`` / ``"<head>.<i>.b"``, and ``log_std`` stays."""
+    from repro_torch.core.rl import HEADS
+
+    def f32(x):
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+
+    params = {}
+    for head in HEADS:
+        for i, layer in enumerate(_field(values, head)):
+            params[f"{head}.{i}.w"] = f32(_field(layer, "w"))
+            params[f"{head}.{i}.b"] = f32(_field(layer, "b"))
+    params["log_std"] = f32(_field(values, "log_std"))
+    return params

@@ -33,22 +33,50 @@ _TINY = 1e-30
 
 def queue_tables(sched: DecodedSchedule, lat: torch.Tensor,
                  bw: torch.Tensor):
-    """Gather per-queue-slot (latency, bw) tables, (P, A, G) each:
-    ``q*[p, a, i] = table[queue[p, a, i], a]``, with the BW floor applied."""
-    A = sched.queue.shape[1]
+    """Gather per-queue-slot (latency, bw) tables, (N, A, G) each:
+    ``q*[n, a, i] = table[queue[n, a, i], a]``, with the BW floor applied.
+
+    ``lat``/``bw`` are one scenario's (G, A) tables, or R scenarios'
+    (R, G, A) with ``N % R == 0``: the schedules are then R rows of
+    ``N // R``, and row r reads scenario r's tables."""
+    N, A, _ = sched.queue.shape
     acc = torch.arange(A, device=lat.device)[None, :, None]
     queue = sched.queue.long()
-    qlat = lat.T[acc, queue]
-    qbw = bw.T[acc, queue]
+    if lat.dim() == 2:
+        qlat = lat.T[acc, queue]
+        qbw = bw.T[acc, queue]
+    else:
+        R = lat.shape[0]
+        row = (torch.arange(N, device=lat.device) // (N // R))[:, None, None]
+        qlat = lat.transpose(1, 2)[row, acc, queue]
+        qbw = bw.transpose(1, 2)[row, acc, queue]
     return qlat, torch.clamp_min(qbw, _BW_FLOOR)
+
+
+def per_individual(bw_sys, n: int):
+    """``bw_sys`` as the simulators take it: a float or a one-element
+    tensor stays one value; an ``(R,)`` tensor with ``n % R == 0`` gives
+    each of the R rows of ``n // R`` individuals its row's value, as an
+    ``(n,)`` tensor."""
+    if not isinstance(bw_sys, torch.Tensor) or bw_sys.numel() == 1:
+        return bw_sys.reshape(()) if isinstance(bw_sys, torch.Tensor) \
+            else bw_sys
+    R = bw_sys.numel()
+    if bw_sys.dim() != 1 or n % R:
+        raise ValueError(f"bw_sys must be one value or (R,) with R "
+                         f"dividing the population {n}; got "
+                         f"{tuple(bw_sys.shape)}")
+    return torch.repeat_interleave(bw_sys, n // R)
 
 
 def simulate_tables(qlat: torch.Tensor, qbw: torch.Tensor,
                     count: torch.Tensor, bw_sys) -> torch.Tensor:
-    """(P,) makespans from dense queue tables: qlat/qbw (P, A, G) f32,
-    count (P, A) int32.  Every per-event quantity is a dense (P, A)
+    """(N,) makespans from dense queue tables: qlat/qbw (N, A, G) f32,
+    count (N, A) int32, ``bw_sys`` one value or one per row (see
+    :func:`per_individual`).  Every per-event quantity is a dense (N, A)
     tensor; the loop runs the ``G`` events."""
     P, A, G = qlat.shape
+    bw_sys = per_individual(bw_sys, P)
     qbytes = qlat * qbw                  # remaining work, paper's CurJobs
     iota_a = torch.arange(A, device=qlat.device)[None, :]
 
@@ -82,10 +110,30 @@ def simulate_tables(qlat: torch.Tensor, qbw: torch.Tensor,
 def simulate_population(accel: torch.Tensor, prio: torch.Tensor,
                         lat: torch.Tensor, bw: torch.Tensor, bw_sys,
                         num_accels: int) -> torch.Tensor:
-    """(P,) makespans for a whole population, in plain PyTorch."""
-    sched = decode(accel, prio, num_accels)
+    """Makespans of a population, in plain PyTorch: accel/prio (P, G)
+    with (G, A) tables give (P,); (R, P, G) with (R, G, A) tables and
+    ``bw_sys`` one value or (R,) give (R, P)."""
+    lead = accel.shape[:-1]
+    G = accel.shape[-1]
+    sched = decode(accel.reshape(-1, G), prio.reshape(-1, G), num_accels)
     qlat, qbw = queue_tables(sched, lat.float(), bw.float())
-    return simulate_tables(qlat, qbw, sched.count, bw_sys)
+    return simulate_tables(qlat, qbw, sched.count, bw_sys).reshape(lead)
+
+
+def simulate_decoded(sched: DecodedSchedule, lat: torch.Tensor,
+                     bw: torch.Tensor, bw_sys) -> torch.Tensor:
+    """Makespan (seconds, f32, 0-d) of one decoded schedule: queue (A, G),
+    count (A,)."""
+    one = DecodedSchedule(queue=sched.queue[None], count=sched.count[None])
+    qlat, qbw = queue_tables(one, lat.float(), bw.float())
+    return simulate_tables(qlat, qbw, one.count, bw_sys)[0]
+
+
+def simulate(accel: torch.Tensor, prio: torch.Tensor, lat: torch.Tensor,
+             bw: torch.Tensor, bw_sys, num_accels: int) -> torch.Tensor:
+    """Makespan (0-d) of one *encoded* individual: accel/prio (G,)."""
+    return simulate_population(accel[None], prio[None], lat, bw, bw_sys,
+                               num_accels)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,15 @@ tensors and the decoded queues are dense (P, A, G) job-index tables plus a
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
+
+
+class Individual(NamedTuple):
+    accel: torch.Tensor   # (G,) int32
+    prio: torch.Tensor    # (G,) float32
 
 
 class Population(NamedTuple):
@@ -41,6 +46,54 @@ def random_population(gen: torch.Generator, pop: int, group: int,
         prio=torch.rand((pop, group), generator=gen, device=device,
                         dtype=torch.float32),
     )
+
+
+def rand_rows(gens: Sequence[torch.Generator], shape: Tuple[int, ...]
+              ) -> torch.Tensor:
+    """(R, *shape) float32 in [0, 1): row r drawn from ``gens[r]``."""
+    out = torch.empty((len(gens),) + tuple(shape), dtype=torch.float32,
+                      device=gens[0].device)
+    for r, gen in enumerate(gens):
+        torch.rand(tuple(shape), generator=gen, out=out[r])
+    return out
+
+
+def randint_rows(gens: Sequence[torch.Generator], low: int, high: int,
+                 shape: Tuple[int, ...]) -> torch.Tensor:
+    """(R, *shape) int32 in [low, high): row r drawn from ``gens[r]``."""
+    out = torch.empty((len(gens),) + tuple(shape), dtype=torch.int32,
+                      device=gens[0].device)
+    for r, gen in enumerate(gens):
+        torch.randint(low, high, tuple(shape), generator=gen, out=out[r])
+    return out
+
+
+def row_generators(seeds: Sequence[int], device) -> Tuple[torch.Generator,
+                                                          ...]:
+    """One generator per row on ``device``, each seeded with its seed --
+    the generator a standalone search with that seed starts from."""
+    gens = []
+    for seed in seeds:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+        gens.append(gen)
+    return tuple(gens)
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[r, idx[r, i]]`` for (R, N, ...) ``x`` and (R, K) ``idx``:
+    a gather along axis 1, row by row."""
+    tail = x.shape[2:]
+    index = idx.long().reshape(idx.shape + (1,) * len(tail))
+    return torch.gather(x, 1, index.expand(idx.shape + tail))
+
+
+def random_population_rows(gens: Sequence[torch.Generator], pop: int,
+                           group: int, accels: int) -> Population:
+    """(R, pop, group) uniform random genomes, row r drawn from
+    ``gens[r]`` exactly as :func:`random_population` draws it."""
+    return Population(accel=randint_rows(gens, 0, accels, (pop, group)),
+                      prio=rand_rows(gens, (pop, group)))
 
 
 def decode(accel: torch.Tensor, prio: torch.Tensor,

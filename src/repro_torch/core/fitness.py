@@ -182,7 +182,10 @@ def as_objective_spec(objective: ObjectiveLike) -> Optional[ObjectiveSpec]:
 
 class FitnessParams(NamedTuple):
     """Scenario data — everything the fitness needs besides genomes —
-    as tensors on the search's device."""
+    as tensors on the search's device.  Stacked for R scenarios (a sweep
+    chunk), every field gains a leading R axis: lat/bw/energy (R, G, A),
+    bw_sys/flops/objective_code (R,) (objective_code (R, M) for a
+    multi-column spec)."""
     lat: torch.Tensor             # (G, A) f32 no-stall latencies
     bw: torch.Tensor              # (G, A) f32 required bandwidths
     bw_sys: torch.Tensor          # ()     f32 system bandwidth
@@ -192,12 +195,29 @@ class FitnessParams(NamedTuple):
     #                               multi-column ObjectiveSpec
 
 
+def _row_view(params: FitnessParams) -> FitnessParams:
+    """Per-row scalars as (R, 1), so that an objective column
+    ``fn(params, ms, en)`` broadcasts them over each row's (R, P)
+    candidates exactly as over a single scenario's (P,)."""
+    if params.lat.dim() == 2:          # one scenario, no row axis
+        return params
+    return params._replace(bw_sys=params.bw_sys[:, None],
+                           flops=params.flops[:, None],
+                           objective_code=params.objective_code[:, None])
+
+
 def population_energies(energy: torch.Tensor,
                         accel: torch.Tensor) -> torch.Tensor:
-    """(P,) total group energy (J) of each assignment — order-free
-    (Section IV-C alternative objectives)."""
-    jobs = torch.arange(energy.shape[0], device=energy.device)
-    return energy[jobs, accel.long()].sum(dim=1)
+    """Total group energy (J) of each assignment — order-free (Section
+    IV-C alternative objectives): (G, A) tables with (P, G) genomes give
+    (P,); (R, G, A) with (R, P, G) give (R, P)."""
+    if energy.dim() == 2:
+        jobs = torch.arange(energy.shape[0], device=energy.device)
+        return energy[jobs, accel.long()].sum(dim=-1)
+    R, P, G = accel.shape
+    rows = torch.arange(R, device=energy.device)[:, None, None]
+    jobs = torch.arange(G, device=energy.device)[None, None, :]
+    return energy[rows, jobs, accel.long()].sum(dim=-1)
 
 
 def _population_makespans(params: FitnessParams, accel, prio, *,
@@ -209,7 +229,9 @@ def _population_makespans(params: FitnessParams, accel, prio, *,
 def evaluate_params(params: FitnessParams, accel: torch.Tensor,
                     prio: torch.Tensor, *, num_accels: int,
                     objective: ObjectiveLike = None) -> torch.Tensor:
-    """(P,) fitness values — higher is better for every objective.
+    """(P,) fitness values — higher is better for every objective — or
+    (R, P) for R stacked scenarios (``params`` with a leading row axis,
+    genomes (R, P, G)).
 
     ``objective`` may be a registered name (or a 1-column
     ``ObjectiveSpec``), in which case only that column is computed, or
@@ -229,13 +251,14 @@ def evaluate_params(params: FitnessParams, accel: torch.Tensor,
               if info.needs_makespan else None)
         en = (population_energies(params.energy, accel)
               if info.needs_energy else None)
-        return info.fn(params, ms, en)
+        return info.fn(_row_view(params), ms, en)
 
     # dynamic objective: select on the code over every registered column;
     # walking the columns backwards gives the first matching code priority
     ms = _population_makespans(params, accel, prio, num_accels=num_accels)
     en = population_energies(params.energy, accel)
     infos = registered_objectives()
+    params = _row_view(params)
     code = params.objective_code
     out = infos[-1].fn(params, ms, en)
     for info in reversed(infos[:-1]):
@@ -246,7 +269,8 @@ def evaluate_params(params: FitnessParams, accel: torch.Tensor,
 def evaluate_objectives(params: FitnessParams, accel: torch.Tensor,
                         prio: torch.Tensor, *, num_accels: int,
                         objective: ObjectiveLike = None) -> torch.Tensor:
-    """(P, M) objective matrix — column ``j`` is ``objective.names[j]``,
+    """(P, M) objective matrix ((R, P, M) for stacked scenarios) —
+    column ``j`` is ``objective.names[j]``,
     higher is better, and equal to the scalar :func:`evaluate_params` of
     that name alone (the shared makespans/energies are computed once).
 
@@ -262,7 +286,71 @@ def evaluate_objectives(params: FitnessParams, accel: torch.Tensor,
           if any(i.needs_makespan for i in infos) else None)
     en = (population_energies(params.energy, accel)
           if any(i.needs_energy for i in infos) else None)
-    return torch.stack([info.fn(params, ms, en) for info in infos], dim=-1)
+    view = _row_view(params)
+    return torch.stack([info.fn(view, ms, en) for info in infos], dim=-1)
+
+
+def stack_fitness_params(fns: Sequence["FitnessFn"]) -> FitnessParams:
+    """Stack the params of several same-shape FitnessFns along axis 0."""
+    if not fns:
+        raise ValueError("need at least one scenario")
+    G, A = fns[0].params.lat.shape
+    for f in fns[1:]:
+        if tuple(f.params.lat.shape) != (G, A):
+            raise ValueError(
+                f"scenario tables must share (G, A)={G, A}; "
+                f"got {tuple(f.params.lat.shape)}")
+        if f.num_accels != fns[0].num_accels:
+            raise ValueError("scenarios must share num_accels")
+    return FitnessParams(*(torch.stack([f.params[i].cpu() for f in fns])
+                           for i in range(len(FitnessParams._fields))))
+
+
+class ProblemSpec(NamedTuple):
+    """A normalized scenario batch: the stacked tables (on the host, so
+    that a sweep copies each chunk to the card as it needs it) plus what
+    a row search is specialized on.
+
+    ``objective`` is the shared ``ObjectiveSpec`` when every scenario
+    agrees, else ``None`` (the per-row select on ``objective_code``).
+    The reference's ``use_kernel`` field is dropped: the device decides
+    (the makespan kernel on a card, its plain version on the CPU), so
+    every row of a batch takes the same simulator by construction."""
+    params: FitnessParams
+    num_accels: int
+    objective: Optional[ObjectiveSpec]
+
+
+def normalize_scenarios(scenarios, num_accels: Optional[int] = None
+                        ) -> ProblemSpec:
+    """Validate a scenario grid into a :class:`ProblemSpec`.
+
+    ``scenarios`` is either an already-stacked ``FitnessParams`` (leading
+    scenario axis; ``num_accels`` required) or a sequence of same-shape
+    ``FitnessFn``s, which are stacked here.
+    """
+    if isinstance(scenarios, FitnessParams):
+        if num_accels is None:
+            raise ValueError("num_accels is required with raw FitnessParams")
+        return ProblemSpec(FitnessParams(*(t.cpu() for t in scenarios)),
+                           num_accels, None)
+    fns = list(scenarios)
+    # resolve the shared objective BEFORE stacking: a mixed multi/scalar
+    # batch must fail with the objective diagnosis, not a shape error from
+    # stacking ()-vs-(M,) objective_code leaves
+    specs = {f.objective_spec for f in fns}
+    if len(specs) == 1:
+        objective = specs.pop()
+    else:
+        if any(not s.is_scalar for s in specs):
+            raise ValueError(
+                "a scenario batch with mixed objectives falls back to the "
+                "dynamic per-scenario select, which is scalar-only; "
+                "multi-column ObjectiveSpec scenarios must all share one "
+                f"spec (got {sorted(s.token for s in specs)})")
+        objective = None
+    return ProblemSpec(stack_fitness_params(fns), fns[0].num_accels,
+                       objective)
 
 
 @dataclasses.dataclass

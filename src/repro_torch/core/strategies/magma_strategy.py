@@ -1,29 +1,30 @@
 """MAGMA behind the ask/tell interface — a thin adapter over the generation
 step of ``repro_torch.core.magma``.
 
-``ask`` returns the current population unchanged; ``tell`` draws the
-generation's random tensors from the generator carried in the state and
-runs the deterministic ``next_generation_body`` (elitism + the paper's four
-operators, batched over the children).
+``ask`` returns the current populations unchanged; ``tell`` draws the
+generation's random tensors, each row from its own generator
+(``draw_generation_rows``), and runs the deterministic
+``next_generation_body`` (elitism + the paper's four operators, batched
+over the children and the rows).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.encoding import Population, random_population
-from repro_torch.core.magma import (MagmaConfig, draw_generation,
+from repro_torch.core.encoding import Population, random_population_rows
+from repro_torch.core.magma import (MagmaConfig, draw_generation_rows,
                                     next_generation_body)
 from repro_torch.core.strategies.base import SearchStrategy
 from repro_torch.core.strategies.registry import register
 
 
 class MagmaState(NamedTuple):
-    gen: torch.Generator
-    accel: torch.Tensor   # (P, G) int32
-    prio: torch.Tensor    # (P, G) float32
+    gens: Tuple[torch.Generator, ...]   # one per row
+    accel: torch.Tensor   # (R, P, G) int32
+    prio: torch.Tensor    # (R, P, G) float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,26 +43,26 @@ class MagmaStrategy(SearchStrategy):
     def n_elite(self) -> int:
         return self.cfg.n_elite
 
-    def init(self, gen, params, *, init_population=None) -> MagmaState:
+    def init(self, gens, params, *, init_population=None) -> MagmaState:
         if init_population is None:
-            pop = random_population(gen, self.cfg.population,
-                                    params.lat.shape[-2], self.num_accels,
-                                    params.lat.device)
+            pop = random_population_rows(gens, self.cfg.population,
+                                         params.lat.shape[-2],
+                                         self.num_accels)
         else:
             pop = Population(*init_population)
-        return MagmaState(gen=gen, accel=pop.accel, prio=pop.prio)
+        return MagmaState(gens=tuple(gens), accel=pop.accel, prio=pop.prio)
 
     def ask(self, state: MagmaState):
         return state, state.accel, state.prio
 
     def tell(self, state: MagmaState, fitness: torch.Tensor) -> MagmaState:
-        P, G = state.accel.shape
-        draws = draw_generation(state.gen, P - self.n_elite, G,
-                                self.num_accels, self.cfg)
+        _, P, G = state.accel.shape
+        draws = draw_generation_rows(state.gens, P - self.n_elite, G,
+                                     self.num_accels, self.cfg)
         accel, prio = next_generation_body(
             state.accel, state.prio, fitness, draws, self.cfg,
             self.num_accels, self.n_elite)
-        return MagmaState(gen=state.gen, accel=accel, prio=prio)
+        return MagmaState(gens=state.gens, accel=accel, prio=prio)
 
     def population(self, state: MagmaState) -> Population:
         return Population(accel=state.accel, prio=state.prio)
@@ -71,7 +72,7 @@ def _magma_factory(cfg: Optional[MagmaConfig] = None) -> MagmaStrategy:
     return MagmaStrategy(cfg=cfg or MagmaConfig())
 
 
-register("magma", _magma_factory,
+register("magma", _magma_factory, device_resident=True,
          description="MAGMA GA: elitism + the paper's four domain-aware "
                      "operators (mutation, crossover-gen/-rg/-accel)",
          figures="every figure; Table IV")

@@ -1,7 +1,7 @@
 """Strategy registry — the successor of the old ``m3e.METHODS`` dict.
 
-``register`` records a named factory plus metadata (what paper figure it
-serves); ``get_strategy`` instantiates by
+``register`` records a named factory plus metadata (device-resident or
+host-only, what paper figure it serves); ``get_strategy`` instantiates by
 name with validated kwargs; ``available`` lists what exists.  Unlike the
 old ``METHODS`` lambdas — which died with a bare ``KeyError`` on unknown
 names and silently swallowed unsupported kwargs in ``**kw`` — unknown
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 from repro_torch.core.strategies.base import SearchStrategy
 
@@ -23,6 +23,7 @@ class StrategyInfo:
     """Registry entry: how to build a strategy and what it is."""
     name: str
     factory: Callable[..., SearchStrategy]
+    device_resident: bool
     description: str = ""
     figures: str = ""            # paper figure/table the strategy serves
     aliases: Tuple[str, ...] = ()
@@ -33,7 +34,7 @@ _ALIASES: Dict[str, str] = {}
 
 
 def register(name: str, factory: Callable[..., SearchStrategy], *,
-             description: str = "",
+             device_resident: bool, description: str = "",
              figures: str = "", aliases: Tuple[str, ...] = (),
              overwrite: bool = False) -> None:
     """Register a strategy factory under ``name`` (plus optional aliases)."""
@@ -52,6 +53,7 @@ def register(name: str, factory: Callable[..., SearchStrategy], *,
                   if target == name or a in (name, *aliases)]:
             del _ALIASES[a]
     _REGISTRY[name] = StrategyInfo(name=name, factory=factory,
+                                   device_resident=device_resident,
                                    description=description, figures=figures,
                                    aliases=tuple(aliases))
     for alias in aliases:
@@ -62,9 +64,11 @@ def canonical_name(name: str) -> str:
     return _ALIASES.get(name, name)
 
 
-def available() -> Tuple[str, ...]:
-    """Sorted registered strategy names."""
-    return tuple(sorted(_REGISTRY))
+def available(*, device_resident: Optional[bool] = None) -> Tuple[str, ...]:
+    """Sorted registered strategy names, optionally filtered by kind."""
+    return tuple(sorted(
+        n for n, info in _REGISTRY.items()
+        if device_resident is None or info.device_resident == device_resident))
 
 
 def strategy_info(name: str) -> StrategyInfo:

@@ -6,8 +6,11 @@
 // Its plain PyTorch version is repro_torch.core.bw_allocator.simulate_tables.
 //
 // Layout: qlat, qbw are (P, A, G) f32 per-queue-slot tables (row-major),
-// count is (P, A) i32, bw_sys is one f32 in device memory (so that a
-// caller holding it on the card never syncs), out is (P,) f32.  A group of
+// count is (P, A) i32, out is (P,) f32.  bw_sys is P / per_row f32 values
+// in device memory (so that a caller holding them on the card never
+// syncs): the population is R rows of per_row individuals each (a sweep
+// chunk stacks R scenarios), and individual p reads bw_sys[p / per_row].
+// One value for the whole launch is the case per_row = P.  A group of
 // W lanes (W = the power of two >= A, A <= 32 checked by the wrapper)
 // simulates one individual, 32 / W individuals a warp, one warp a block;
 // lane a holds sub-accelerator a's remaining bytes, queue pointer and
@@ -74,7 +77,8 @@ __global__ void __launch_bounds__(32)
 makespan_kernel(const float* __restrict__ qlat, const float* __restrict__ qbw,
                 const int32_t* __restrict__ count,
                 const float* __restrict__ bw_sys_ptr,
-                float* __restrict__ out, int P, int A, int G, int cap) {
+                float* __restrict__ out, int P, int A, int G, int per_row,
+                int cap) {
   extern __shared__ float staged_slots[];
   constexpr int kPerWarp = 32 / W;
   const int lane = threadIdx.x & 31;
@@ -114,7 +118,9 @@ makespan_kernel(const float* __restrict__ qlat, const float* __restrict__ qbw,
   const size_t row = (static_cast<size_t>(p) * A + (lane_ok ? gl : 0)) * G;
   const float* lat = staged ? s_lat + off : qlat + row;
   const float* bw = staged ? s_bw + off : qbw + row;
-  const float bw_sys = *bw_sys_ptr;
+  // the row comes from the individual, never from the block: a row's
+  // individuals need not fill whole warps (groups past P read row 0's)
+  const float bw_sys = bw_sys_ptr[(p < P ? p : 0) / per_row];
 
   // this slot's request and bytes, and the next slot's latency and
   // request, read ahead (by loads that nothing in the event waits for:
@@ -170,14 +176,15 @@ makespan_kernel(const float* __restrict__ qlat, const float* __restrict__ qbw,
 template <int W>
 cudaError_t launch(const float* qlat, const float* qbw, const int32_t* count,
                    const float* bw_sys, float* out, int P, int A, int G,
-                   cudaStream_t stream) {
+                   int per_row, cudaStream_t stream) {
   constexpr int kPerWarp = 32 / W;
   const int cap = G < kSmemBudget / (kPerWarp * 8)
                       ? G : kSmemBudget / (kPerWarp * 8);
   const size_t smem = sizeof(float) * 2 * cap * kPerWarp;
   const int blocks = (P + kPerWarp - 1) / kPerWarp;
   makespan_kernel<W><<<blocks, 32, smem, stream>>>(qlat, qbw, count, bw_sys,
-                                                   out, P, A, G, cap);
+                                                   out, P, A, G, per_row,
+                                                   cap);
   return cudaGetLastError();
 }
 
@@ -185,9 +192,9 @@ cudaError_t launch(const float* qlat, const float* qbw, const int32_t* count,
 
 extern "C" int makespan_launch(const float* qlat, const float* qbw,
                                const int32_t* count, const float* bw_sys,
-                               float* out,
-                               int P, int A, int G, void* stream) {
-  if (A < 1 || A > 32 || G < 1) {
+                               float* out, int P, int A, int G,
+                               int per_row, void* stream) {
+  if (A < 1 || A > 32 || G < 1 || per_row < 1 || P % per_row != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the narrowest group that holds A lanes, widened until a block's
@@ -199,12 +206,24 @@ extern "C" int makespan_launch(const float* qlat, const float* qbw,
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (w) {
-    case 1: return launch<1>(qlat, qbw, count, bw_sys, out, P, A, G, s);
-    case 2: return launch<2>(qlat, qbw, count, bw_sys, out, P, A, G, s);
-    case 4: return launch<4>(qlat, qbw, count, bw_sys, out, P, A, G, s);
-    case 8: return launch<8>(qlat, qbw, count, bw_sys, out, P, A, G, s);
-    case 16: return launch<16>(qlat, qbw, count, bw_sys, out, P, A, G, s);
-    default: return launch<32>(qlat, qbw, count, bw_sys, out, P, A, G, s);
+    case 1:
+      return launch<1>(qlat, qbw, count, bw_sys, out, P, A, G, per_row,
+                       s);
+    case 2:
+      return launch<2>(qlat, qbw, count, bw_sys, out, P, A, G, per_row,
+                       s);
+    case 4:
+      return launch<4>(qlat, qbw, count, bw_sys, out, P, A, G, per_row,
+                       s);
+    case 8:
+      return launch<8>(qlat, qbw, count, bw_sys, out, P, A, G, per_row,
+                       s);
+    case 16:
+      return launch<16>(qlat, qbw, count, bw_sys, out, P, A, G, per_row,
+                       s);
+    default:
+      return launch<32>(qlat, qbw, count, bw_sys, out, P, A, G, per_row,
+                       s);
   }
 }
 

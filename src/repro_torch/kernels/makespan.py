@@ -1,8 +1,13 @@
 """Population makespan kernel: the BW-allocator event simulation on Hopper.
 
-``makespan(qlat, qbw, count, bw_sys)`` evaluates ``P`` decoded schedules
+``makespan(qlat, qbw, count, bw_sys)`` evaluates ``N`` decoded schedules
 of ``G`` jobs on ``A`` sub-accelerators sharing ``bw_sys`` and returns
-their ``(P,)`` makespans.  It replaces the Pallas TPU kernel
+their ``(N,)`` makespans.  ``bw_sys`` is one value, or one per row of a
+population stacked from ``R`` rows (a sweep chunk): an ``(R,)`` tensor
+with ``N % R == 0``, individual ``i`` sharing ``bw_sys[i // (N // R)]``.
+An individual's makespan depends on its own queues and its row's
+``bw_sys`` only, so one launch of R rows gives bitwise the outputs of R
+one-row launches.  It replaces the Pallas TPU kernel
 ``src/repro/kernels/makespan.py::_makespan_kernel``.
 
 A CUDA tensor goes to the hand-written kernel ``csrc/makespan.cu`` (a
@@ -37,7 +42,7 @@ def _library() -> ctypes.CDLL:
     lib.makespan_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
     lib.makespan_launch.restype = ctypes.c_int
     lib.makespan_error_string.argtypes = [ctypes.c_int]
     lib.makespan_error_string.restype = ctypes.c_char_p
@@ -64,8 +69,9 @@ def makespan_cuda(qlat: torch.Tensor, qbw: torch.Tensor, count: torch.Tensor,
                   bw_sys) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream (no sync).
 
-    ``bw_sys`` is a float or a one-element tensor on the tables' device;
-    it is used as float32."""
+    ``bw_sys`` is a float, a one-element tensor, or an ``(R,)`` tensor
+    with ``R`` dividing the population, on the tables' device; it is used
+    as float32."""
     _check(qlat, qbw, count)
     if qlat.device.type != "cuda":
         raise ValueError(f"makespan_cuda needs CUDA tensors; got "
@@ -83,11 +89,16 @@ def makespan_cuda(qlat: torch.Tensor, qbw: torch.Tensor, count: torch.Tensor,
     if P == 0:
         return out
     if isinstance(bw_sys, torch.Tensor):
-        if bw_sys.numel() != 1 or bw_sys.device != qlat.device:
-            raise ValueError("a tensor bw_sys must be one value on the "
-                             "tables' device")
-        bw_dev = bw_sys.reshape(1).to(torch.float32).contiguous()
+        R = bw_sys.numel()
+        if bw_sys.device != qlat.device or (R > 1 and (
+                bw_sys.dim() != 1 or P % R)):
+            raise ValueError(
+                f"a tensor bw_sys must be one value or (R,) with R "
+                f"dividing the population {P}, on the tables' device; got "
+                f"{tuple(bw_sys.shape)} on {bw_sys.device}")
+        bw_dev = bw_sys.reshape(R).to(torch.float32).contiguous()
     else:
+        R = 1
         bw_dev = torch.full((1,), float(bw_sys), dtype=torch.float32,
                             device=qlat.device)
     lib = _library()
@@ -95,7 +106,7 @@ def makespan_cuda(qlat: torch.Tensor, qbw: torch.Tensor, count: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.makespan_launch(qlat.data_ptr(), qbw.data_ptr(),
                                   count.data_ptr(), bw_dev.data_ptr(),
-                                  out.data_ptr(), P, A, G, stream)
+                                  out.data_ptr(), P, A, G, P // R, stream)
     if err != 0:
         raise RuntimeError("makespan kernel launch failed: "
                            + lib.makespan_error_string(err).decode())
@@ -105,7 +116,7 @@ def makespan_cuda(qlat: torch.Tensor, qbw: torch.Tensor, count: torch.Tensor,
 
 def makespan(qlat: torch.Tensor, qbw: torch.Tensor, count: torch.Tensor,
              bw_sys) -> torch.Tensor:
-    """(P,) makespans: the CUDA kernel for CUDA tensors, the plain PyTorch
+    """(N,) makespans: the CUDA kernel for CUDA tensors, the plain PyTorch
     version for CPU tensors."""
     if qlat.device.type == "cuda":
         return makespan_cuda(qlat, qbw, count, bw_sys)

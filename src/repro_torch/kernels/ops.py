@@ -22,13 +22,21 @@ from repro_torch.kernels.makespan import makespan
 def population_makespan(accel: torch.Tensor, prio: torch.Tensor,
                         lat: torch.Tensor, bw: torch.Tensor, bw_sys,
                         num_accels: int) -> torch.Tensor:
-    """(P,) makespans of a population.
+    """Makespans of a population, in one kernel launch.
 
-    accel: (P, G) int32, prio: (P, G) f32, lat/bw: (G, A) job tables,
-    bw_sys: float or one-element tensor on the genomes' device."""
-    sched = decode(accel, prio, num_accels)
+    accel (P, G) int32 and prio (P, G) f32 with (G, A) job tables and one
+    ``bw_sys`` (a float or a one-element tensor) give (P,).  R rows --
+    accel/prio (R, P, G), tables (R, G, A), ``bw_sys`` (R,) or one value
+    -- give (R, P): the decode and the table gather run per row in
+    PyTorch, the rows are flattened to N = R*P individuals and the kernel
+    reads each individual's row's ``bw_sys``.  Tensors on the genomes'
+    device."""
+    lead = accel.shape[:-1]
+    G = accel.shape[-1]
+    sched = decode(accel.reshape(-1, G), prio.reshape(-1, G), num_accels)
     qlat, qbw = queue_tables(sched, lat.float(), bw.float())
-    return makespan(qlat.contiguous(), qbw.contiguous(), sched.count, bw_sys)
+    return makespan(qlat.contiguous(), qbw.contiguous(), sched.count,
+                    bw_sys).reshape(lead)
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -10,8 +10,8 @@ in place and returns them in the new state (a copy of the f32 moments of
 a 2.5B-parameter model is 20 GB), and ``apply_updates`` adds in place; the
 old state is not read again.  The arithmetic is done with
 ``torch._foreach_*`` over groups of tensors, to keep the host's op count
-and the f32 temporaries small.  ``RMSProp`` waits for the RL baselines
-(ROADMAP Queue 1 item 6).
+and the f32 temporaries small.  ``RMSProp`` (the A2C baseline's
+optimizer, ``repro_torch.core.rl``) has the same API.
 """
 from __future__ import annotations
 
@@ -121,6 +121,40 @@ class AdamW:
             for k, t in zip(names[sl], u):
                 updates[k] = t.to(params[k].dtype)
         return updates, AdamState(step=step, mu=state.mu, nu=state.nu)
+
+
+class RMSPropState(NamedTuple):
+    nu: Tree
+
+
+@dataclasses.dataclass(frozen=True)
+class RMSProp:
+    """``nu = decay * nu + (1 - decay) * g**2``, update ``-lr * g /
+    (sqrt(nu) + eps)``: ``repro.train.optimizer.RMSProp``'s arithmetic,
+    in float32 (the RL policies' parameters are small: no groups)."""
+    lr: float = 7e-4
+    decay: float = 0.99
+    eps: float = 1e-5
+
+    def init(self, params: Tree) -> RMSPropState:
+        return RMSPropState(nu={k: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device)
+                                for k, p in params.items()})
+
+    @torch.no_grad()
+    def update(self, grads: Tree, state: RMSPropState, params=None,
+               lr: Optional[float] = None) -> Tuple[Tree, RMSPropState]:
+        lr = self.lr if lr is None else lr
+        names = list(grads)
+        g = [grads[k] for k in names]
+        nu = torch._foreach_mul([state.nu[k] for k in names],
+                                _f32(self.decay))
+        torch._foreach_addcmul_(nu, g, g, value=_f32(1 - self.decay))
+        denom = torch._foreach_sqrt(nu)
+        torch._foreach_add_(denom, _f32(self.eps))
+        u = torch._foreach_mul(g, -_f32(lr))
+        torch._foreach_div_(u, denom)
+        return dict(zip(names, u)), RMSPropState(nu=dict(zip(names, nu)))
 
 
 @torch.no_grad()

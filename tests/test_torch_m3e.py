@@ -59,9 +59,15 @@ def test_search_geomean_matches_reference_and_bests_reevaluate():
 
 
 def test_only_magma_is_registered():
-    assert available() == ("magma",)
+    """The registry holds the reference's strategies, of the same kinds
+    (the name dates from the slice that registered magma alone)."""
+    from repro.core.strategies import available as ref_available
+    for kind in (True, False):
+        assert available(device_resident=kind) == \
+            ref_available(device_resident=kind)
+    assert available() == ref_available()
     with pytest.raises(ValueError, match="magma"):
-        get_strategy("random")
+        get_strategy("no_such_method")
     with pytest.raises(ValueError, match="cfg"):
         get_strategy("magma", population=10)
 

@@ -130,3 +130,42 @@ def test_wrapper_rejects_malformed_tables():
         mk.makespan(qlat, qbw[:, :2], count, 1.0)
     with pytest.raises(ValueError):
         mk.makespan_cuda(qlat, qbw, count, 1.0)   # CPU tensors
+
+
+@pytest.mark.parametrize("R,P,A", [(1, 7, 4), (3, 7, 8), (4, 100, 8)])
+def test_plain_per_row_bw_sys_equals_one_row_calls(R, P, A):
+    """R rows, each with its own tables and bw_sys, in one call: bitwise
+    the R one-row calls, and the reference's simulator per row."""
+    G = 23
+    rng = np.random.default_rng(R * P + A)
+    lat = rng.uniform(0.05, 5.0, (R, G, A)).astype(np.float32)
+    bw = rng.uniform(0.01, 10.0, (R, G, A)).astype(np.float32)
+    accel = rng.integers(0, A, (R, P, G)).astype(np.int32)
+    prio = rng.random((R, P, G)).astype(np.float32)
+    bw_sys = rng.uniform(0.05, 20.0, R).astype(np.float32)
+    got = population_makespan(torch.as_tensor(accel), torch.as_tensor(prio),
+                              torch.as_tensor(lat), torch.as_tensor(bw),
+                              torch.as_tensor(bw_sys), A)
+    assert got.shape == (R, P)
+    for r in range(R):
+        one = population_makespan(torch.as_tensor(accel[r]),
+                                  torch.as_tensor(prio[r]),
+                                  torch.as_tensor(lat[r]),
+                                  torch.as_tensor(bw[r]),
+                                  torch.as_tensor(bw_sys[r:r + 1]), A)
+        assert torch.equal(got[r], one), r
+        ref = np.asarray(ref_sim(jnp.asarray(accel[r]), jnp.asarray(prio[r]),
+                                 jnp.asarray(lat[r]), jnp.asarray(bw[r]),
+                                 float(bw_sys[r]), A))
+        np.testing.assert_allclose(got[r].numpy(), ref, rtol=1e-4, atol=1e-5)
+    sched = decode(torch.as_tensor(accel).reshape(-1, G),
+                   torch.as_tensor(prio).reshape(-1, G), A)
+    qlat, qbw = queue_tables(sched, torch.as_tensor(lat), torch.as_tensor(bw))
+    flat = mk.makespan(qlat.contiguous(), qbw.contiguous(), sched.count,
+                       torch.as_tensor(bw_sys))
+    assert torch.equal(flat, got.reshape(-1))
+    if R > 1:
+        with pytest.raises(ValueError, match="dividing"):
+            mk.makespan(qlat[:-1].contiguous(), qbw[:-1].contiguous(),
+                        sched.count[:-1].contiguous(),
+                        torch.as_tensor(bw_sys))

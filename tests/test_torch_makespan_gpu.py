@@ -108,3 +108,46 @@ def test_cuda_call_never_reaches_plain_version(cuda, monkeypatch):
                              torch.as_tensor(bw, device=cuda).float(), 2.0, 4)
     torch.cuda.synchronize()
     assert ms.device.type == "cuda" and bool(torch.isfinite(ms).all())
+
+
+def _rows(seed, R, P, G, A):
+    """R rows of P individuals, each row its own tables and bw_sys."""
+    rng = np.random.default_rng(seed)
+    lat = rng.uniform(0.05, 5.0, (R, G, A)).astype(np.float32)
+    bw = rng.uniform(0.01, 10.0, (R, G, A)).astype(np.float32)
+    accel = rng.integers(0, A, (R, P, G)).astype(np.int32)
+    prio = rng.random((R, P, G)).astype(np.float32)
+    bw_sys = rng.uniform(0.05, 20.0, R).astype(np.float32)
+    return lat, bw, accel, prio, bw_sys
+
+
+# one launch of R rows, each with its own bw_sys, against R one-row
+# launches (bitwise: an individual's makespan depends only on its own
+# queues and its row's bw_sys) and the plain version
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [1, 3, 8])
+@pytest.mark.parametrize("P", [7, 100])
+def test_per_row_bw_sys_equals_one_row_launches(cuda, R, P):
+    G, A = 40, 8
+    lat, bw, accel, prio, bw_sys = _rows(R * 10 + P, R, P, G, A)
+    t = {k: torch.as_tensor(v, device=cuda) for k, v in
+         dict(lat=lat, bw=bw, accel=accel, prio=prio, bw_sys=bw_sys).items()}
+    sched = decode(t["accel"].reshape(-1, G), t["prio"].reshape(-1, G), A)
+    qlat, qbw = queue_tables(sched, t["lat"], t["bw"])
+    qlat, qbw = qlat.contiguous(), qbw.contiguous()
+    got = mk.makespan(qlat, qbw, sched.count, t["bw_sys"])
+    for r in range(R):
+        sl = slice(r * P, (r + 1) * P)
+        one = mk.makespan(qlat[sl].contiguous(), qbw[sl].contiguous(),
+                          sched.count[sl].contiguous(), t["bw_sys"][r:r + 1])
+        assert torch.equal(got[sl], one), r
+    want = simulate_tables(qlat, qbw, sched.count, t["bw_sys"])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    rows = population_makespan(t["accel"], t["prio"], t["lat"], t["bw"],
+                               t["bw_sys"], A)
+    assert rows.shape == (R, P) and torch.equal(rows.reshape(-1), got)
+    with pytest.raises(ValueError, match="dividing"):
+        mk.makespan(qlat[:R * P - 1].contiguous(),
+                    qbw[:R * P - 1].contiguous(),
+                    sched.count[:R * P - 1].contiguous(),
+                    torch.ones((R * P,), device=cuda))

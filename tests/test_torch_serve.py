@@ -116,7 +116,7 @@ def test_schedule_rejects_missing_prompts_and_unknown_methods(tenants):
     with pytest.raises(ValueError, match="prompts"):
         eng.schedule(jobs, execute=True)
     with pytest.raises(ValueError, match="unknown strategy"):
-        eng.schedule(jobs, method="herald_like")
+        eng.schedule(jobs, method="no_such_method")
 
 
 def test_execute_gives_the_reference_tokens(tenants):
