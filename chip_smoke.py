@@ -98,11 +98,31 @@ Phases, in order; any failure raises and exits non-zero:
               torch.profiler (the device's busy share, device ops per
               generation and chunk), and the phase's wall
 
+ 13. memo     the schedule memo and the Section V-C warm start through
+              M3E(memo=ScheduleMemo(MemoStore(<fresh dir under build/>)))
+              and M3E(warm_start=WarmStartEngine()) at full width: S4 at
+              256 GB/s, a Mix group of 100, 10K samples; the first
+              memoized solve must equal M3E.search bitwise, the second
+              (and one from a reopened store) must replay it bitwise with
+              wall_time_s 0 and no makespan launch (the lookup's wall is
+              printed beside the search's); run_sweep(memo=) over phase
+              12's S4 setting must record its 4 rows, each replay equal
+              bitwise to its sweep row and its standalone search, at one
+              launch per generation and chunk; a 1K-sample row solved
+              on the CPU must not hit on the card; Mix group 0's record
+              is offered to 4 sibling groups (donor distance, the guard's
+              outcome and the warm/cold ratio at 1K samples printed; a
+              refused donor must give the cold search bitwise, a seeded
+              search must be deterministic and equal its loop engine);
+              Table V (benchmarks/tableV_warmstart.py:35-80) on S4 at
+              1 GB/s, Mix G=100, P=100, epochs (0, 1, 30, 100),
+              instances 1-4 must meet gain0 > 1.1 and full_frac > 0.75
+
 The counts of every kernel are set to 0 before each main path (the M3E
-searches, the served batch, phases 9-10 together, "train_eval", and the
-comparison, "compare") and read after it.  It prints a JSON line with one
-entry per kernel, the card's name and power limit, and last the line
-``{"ok": true, "device": {...}}``.
+searches, the served batch, phases 9-10 together, "train_eval", the
+comparison, "compare", and the memo phase, "memo") and read after it.
+It prints a JSON line with one entry per kernel, the card's name and
+power limit, and last the line ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -159,6 +179,16 @@ COMPARE_CHUNK_ROWS = 3       # 4 rows a sweep: the last chunk is partial
 # methods (an RL search at 10K samples takes ~30 s on the card) run one
 # seed; G and the budget are never cut
 HOST_SEEDS = (0,)
+# a host search launches the makespan kernel once per fitness batch: one
+# per entry of its history, plus, for the RL mappers, the batch of 32
+# random schedules that sets the reward scale
+HOST_EXTRA_BATCHES = {"a2c": 1, "ppo2": 1}
+# phase 13: the schedule memo and the Section V-C warm start; Table V's
+# protocol (benchmarks/tableV_warmstart.py:35-80) at full width
+MEMO_NEAR_GROUPS = 5         # Mix group 0 donates to groups 1-4
+TABLE_V_SETTING, TABLE_V_BW = "S4", 1          # bw_sys in GB/s
+TABLE_V_POP, TABLE_V_INSTS = 100, 4
+TABLE_V_EPOCHS = (0, 1, 30, 100)
 
 
 def check(cond, msg):
@@ -723,7 +753,10 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
     same searches run one by one with ``run_strategy``; the host methods
     run through ``M3E.search``.  Every best individual, re-evaluated by
     the plain version on the CPU, must give its best fitness at rtol
-    1e-4.  Returns the phase's summary."""
+    1e-4.  Every part's makespan launches are counted against what it
+    must launch (a host search: one per fitness batch, i.e. per entry of
+    its history, and the RL reward scale's batch); the phase's total is returned for ``main`` to hold
+    against the path's count.  Returns the phase's summary."""
     import torch
     from repro_torch.core.fitness import FitnessFn
     from repro_torch.core.m3e import M3E, geomean
@@ -755,11 +788,12 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
               f"version on the CPU gives {again}")
 
     best = {label: {} for label in labels}
-    method_wall, sweeps = {}, []
+    method_wall, sweeps, method_launches = {}, [], {}
     for method in DEVICE_METHODS:
         strategy = get_strategy(method)
         generations = plan_generations(budget, strategy.ask_size)[0]
         method_wall[method] = 0.0
+        method_launches[method] = 0
         for setting, bw in FIG9_SETTINGS:
             rows = [lab for lab in labels if lab.endswith(f"{setting}-bw{bw}")]
             before = mk.LAUNCHES["makespan"]
@@ -774,12 +808,19 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
                   f"compare {method} {setting}: {launched} makespan launches "
                   f"for {res.rows} rows in {res.num_chunks} chunks, want one "
                   f"per generation and chunk ({generations * res.num_chunks})")
+            before = mk.LAUNCHES["makespan"]
             t0 = time.perf_counter()
             alone = {(s, k): run_strategy(strategy, fits[lab], budget=budget,
                                           seed=seed, device=dev)
                      for s, lab in enumerate(rows)
                      for k, seed in enumerate(COMPARE_SEEDS)}
             seq_wall = time.perf_counter() - t0
+            alone_launched = mk.LAUNCHES["makespan"] - before
+            check(alone_launched == generations * len(alone),
+                  f"compare {method} {setting}: {alone_launched} makespan "
+                  f"launches for {len(alone)} standalone searches, want "
+                  f"{generations * len(alone)}")
+            method_launches[method] += launched + alone_launched
             for (s, k), one in alone.items():
                 check(res.best_fitness[s, k] == one.best_fitness
                       and np.array_equal(res.best_accel[s, k], one.best_accel)
@@ -807,16 +848,32 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
                   f"{sweep_wall:.4f} s, makespan launches {launched}; the "
                   f"same rows one by one {seq_wall:.4f} s; rows == "
                   f"standalone run_strategy, bitwise")
+    before = mk.LAUNCHES["makespan"]
     profile = profile_sweep(dev, fits, labels, budget)
+    profile_launches = mk.LAUNCHES["makespan"] - before
+    want = next(sw["launches"] for sw in sweeps
+                if sw["method"] == "magma" and sw["setting"] == "S4")
+    check(profile_launches == want,
+          f"compare: the profiled sweep launched {profile_launches} makespan "
+          f"kernels, the same sweep unprofiled {want}")
     for method in HOST_METHODS:
         method_wall[method] = 0.0
+        method_launches[method] = 0
         for setting, bw in FIG9_SETTINGS:
             for task in FIG9_TASKS:
                 label = f"{task}-{setting}-bw{bw}"
                 vals = []
                 for seed in HOST_SEEDS:
+                    before = mk.LAUNCHES["makespan"]
                     res = m3es[setting].search(groups[task], method=method,
                                                budget=budget, seed=seed)
+                    launched = mk.LAUNCHES["makespan"] - before
+                    batches = (len(res.history_samples)
+                               + HOST_EXTRA_BATCHES.get(method, 0))
+                    check(launched == batches,
+                          f"compare {method} {label}: {launched} makespan "
+                          f"launches for {batches} fitness batches")
+                    method_launches[method] += launched
                     method_wall[method] += res.wall_time_s
                     reevaluate(label, method, res.best_fitness,
                                res.best_accel, res.best_prio)
@@ -846,6 +903,11 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
     print(f"[compare] methods by geomean best fitness: {' > '.join(order)}")
     print("[compare] wall per method (s): " + ", ".join(
         f"{m} {w:.3f}" for m, w in method_wall.items()))
+    launches = sum(method_launches.values()) + profile_launches
+    print("[compare] makespan launches per method (sweeps and standalone "
+          "rows, or fitness batches): " + ", ".join(
+              f"{m} {n}" for m, n in method_launches.items())
+          + f"; profiled sweep {profile_launches}; phase {launches}")
     total = time.perf_counter() - t_phase
     print(f"[compare] cuts: host methods at {len(HOST_SEEDS)} seed(s) "
           f"({len(COMPARE_SEEDS)} for device methods); G={group_size} and "
@@ -855,6 +917,8 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
                 for lab in labels},
             "magma_advantage": advantage, "order": order,
             "method_wall_s": method_wall, "sweeps": sweeps,
+            "launches": launches, "launches_by_method": method_launches,
+            "profile_launches": profile_launches,
             "seeds": {"device": list(COMPARE_SEEDS),
                       "host": list(HOST_SEEDS)},
             "profile": profile, "phase_wall_s": total}
@@ -894,6 +958,266 @@ def profile_sweep(dev, fits, labels, budget):
             "device_ops": len(on_card),
             "device_ops_per_generation_and_chunk": per_gen,
             "makespan_kernel_ms": mk_ms}
+
+
+def same_result(a, b):
+    """Two search results bitwise equal (best, genomes, history)."""
+    return (a.best_fitness == b.best_fitness
+            and np.array_equal(a.best_accel, b.best_accel)
+            and np.array_equal(a.best_prio, b.best_prio)
+            and np.array_equal(a.history_best, b.history_best))
+
+
+def table_v(dev, group_size, pop=TABLE_V_POP, epochs=TABLE_V_EPOCHS,
+            n_insts=TABLE_V_INSTS):
+    """Table V through ``M3E(warm_start=WarmStartEngine())``: a full
+    search on Mix instance 0 fills the cache, then instances 1..n_insts
+    are searched for each number of epochs from the transferred
+    population; Raw is the mean fitness of 32 random individuals.
+    Returns the fractions of the full search and the script's two
+    summary numbers."""
+    import torch
+    from repro_torch.core import M3E, MagmaConfig, WarmStartEngine
+    from repro_torch.core.encoding import random_population
+    from repro_torch.costmodel import get_setting
+    from repro_torch.workloads import build_task_groups
+
+    m3e = M3E(get_setting(TABLE_V_SETTING), bw_sys=TABLE_V_BW * GB,
+              warm_start=WarmStartEngine(), device=dev)
+    groups = build_task_groups("Mix", group_size=group_size,
+                               num_groups=n_insts + 1, seed=0)
+    kw = {"strategy_kwargs": {"cfg": MagmaConfig(population=pop)}}
+    m3e.search(groups[0], budget=pop * max(epochs), seed=0, **kw)
+    raws, finals = [], {e: [] for e in epochs}
+    for i in range(1, n_insts + 1):
+        fit = m3e.prepare(groups[i])
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(100 + i)
+        rnd = random_population(gen, 32, fit.group_size, fit.num_accels, dev)
+        raws.append(float(fit(rnd.accel, rnd.prio).mean()))
+        for e in epochs:
+            res = m3e.search(groups[i], budget=max(pop * e, pop), seed=i, **kw)
+            finals[e].append(res.history_best[0] if e == 0
+                             else res.best_fitness)
+    full = np.array(finals[max(epochs)])
+    fracs = {"Raw": list(np.array(raws) / full)}
+    for e in epochs:
+        fracs[f"Trf-{e}-ep"] = list(np.array(finals[e]) / full)
+    return {"fractions": {k: [float(x) for x in v] for k, v in fracs.items()},
+            "gain0": float(np.mean(np.array(finals[0]) / np.array(raws))),
+            "full_frac": float(np.mean(np.array(finals[0]) / full))}
+
+
+def memo_phase(dev, mk, budget=10_000, group_size=100):
+    """Phase 13: the schedule memo and the Section V-C warm start through
+    the port's entry points on ``dev``: exact hits replay bitwise with no
+    makespan launch (also from a reopened store), a memoized sweep
+    records its rows, a row solved on the CPU never hits on ``dev``, near
+    hits keep the reference's invariants, and Table V at full width meets
+    the reference script's own assertion.  Returns the phase's
+    summary."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core import M3E
+    from repro_torch.core.fitness import FitnessFn
+    from repro_torch.core.strategies import (MagmaStrategy, plan_generations,
+                                             run_strategy)
+    from repro_torch.core.sweep import SweepConfig, run_sweep
+    from repro_torch.costmodel import get_setting
+    from repro_torch.memo import MemoStore, ScheduleMemo
+    from repro_torch.workloads import build_task_groups
+
+    t_phase = time.perf_counter()
+    strategy = MagmaStrategy()
+    small = budget // 10          # the route and near-hit rows: 1K samples
+    groups = build_task_groups("Mix", group_size=group_size,
+                               num_groups=MEMO_NEAR_GROUPS, seed=0)
+    s4 = get_setting("S4")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    store_dir = tempfile.mkdtemp(prefix="memo_phase_",
+                                 dir=os.path.join(ROOT, "build"))
+    out = {}
+    try:
+        # 1. exact hit: first solve == the un-memoized search, the second
+        # replays it with no launch, and so does a reopened store
+        plain = M3E(s4, bw_sys=256 * GB, device=dev).search(
+            groups[0], budget=budget, seed=0)
+        memo = ScheduleMemo(MemoStore(store_dir))
+        m3e = M3E(s4, bw_sys=256 * GB, memo=memo, device=dev)
+        before = mk.LAUNCHES["makespan"]
+        first = m3e.search(groups[0], budget=budget, seed=0)
+        first_launches = mk.LAUNCHES["makespan"] - before
+        check(same_result(first, plain),
+              "memo: the first memoized solve differs from M3E.search")
+        replays = []
+        for name, mm in (("same memo", m3e),
+                         ("reopened store", M3E(
+                             s4, bw_sys=256 * GB, device=dev,
+                             memo=ScheduleMemo(MemoStore(store_dir))))):
+            before = mk.LAUNCHES["makespan"]
+            t0 = time.perf_counter()
+            again = mm.search(groups[0], budget=budget, seed=0)
+            wall = time.perf_counter() - t0
+            launched = mk.LAUNCHES["makespan"] - before
+            check(launched == 0 and again.wall_time_s == 0.0
+                  and same_result(again, plain),
+                  f"memo: replay from the {name} launched {launched} "
+                  f"kernels, wall_time_s {again.wall_time_s}, or differs")
+            replays.append({"from": name, "m3e_search_wall_ms": wall * 1e3,
+                            "launches": launched})
+        fit = m3e.prepare(groups[0])
+        lookups = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            hit = memo.lookup(fit, strategy, budget, 0)
+            lookups.append((time.perf_counter() - t0) * 1e3)
+        check(hit is not None, "memo: lookup misses a recorded row")
+        lookup_ms = float(np.median(lookups))
+        print(f"[memo] exact hit S4/Mix G={group_size} budget={budget}: "
+              f"first solve {first.wall_time_s * 1e3:.3f} ms "
+              f"({first_launches} makespan launches) == M3E.search "
+              f"({plain.wall_time_s * 1e3:.3f} ms), bitwise; lookup "
+              f"{lookup_ms:.3f} ms (median of 5); replayed M3E.search "
+              + ", ".join(f"{r['from']} {r['m3e_search_wall_ms']:.3f} ms "
+                          f"({r['launches']} launches)" for r in replays)
+              + "; bitwise")
+        out["exact_hit"] = {"search_wall_ms": plain.wall_time_s * 1e3,
+                            "first_solve_ms": first.wall_time_s * 1e3,
+                            "first_launches": first_launches,
+                            "lookup_ms": lookup_ms,
+                            "lookup_ms_all": lookups, "replays": replays}
+
+        # 2. a memoized sweep over phase 12's S4 setting
+        setting, bw = FIG9_SETTINGS[-1]
+        fits = [M3E(get_setting(setting), bw_sys=bw * GB,
+                    device=dev).prepare(build_task_groups(
+                        t, group_size=group_size, seed=0)[0])
+                for t in FIG9_TASKS]
+        sweep_memo = ScheduleMemo()
+        before = mk.LAUNCHES["makespan"]
+        res = run_sweep(fits, budget=budget, seeds=COMPARE_SEEDS,
+                        sweep=SweepConfig(chunk_rows=COMPARE_CHUNK_ROWS),
+                        memo=sweep_memo, memo_family=list(FIG9_TASKS),
+                        device=dev)
+        launched = mk.LAUNCHES["makespan"] - before
+        generations = plan_generations(budget, strategy.ask_size)[0]
+        check(sweep_memo.stats.records == res.rows == 4
+              and launched == generations * res.num_chunks,
+              f"memo sweep: {sweep_memo.stats.records} rows recorded of "
+              f"{res.rows}, {launched} launches in {res.num_chunks} chunks")
+        for s, fit_s in enumerate(fits):
+            for k, seed in enumerate(COMPARE_SEEDS):
+                hit = sweep_memo.lookup(fit_s, strategy, budget, seed)
+                alone = run_strategy(strategy, fit_s, budget=budget,
+                                     seed=seed, device=dev)
+                check(hit is not None
+                      and hit.best_fitness == res.best_fitness[s, k]
+                      and np.array_equal(hit.best_accel, res.best_accel[s, k])
+                      and np.array_equal(hit.history_best,
+                                         res.history_best[s, k])
+                      and same_result(hit.to_search_result(), alone),
+                      f"memo sweep: row [{s}, {k}] replay differs from the "
+                      "sweep row or the standalone search")
+        print(f"[memo] run_sweep(memo=) {setting}/{bw} GB/s "
+              f"{'+'.join(FIG9_TASKS)} x seeds {COMPARE_SEEDS}: "
+              f"{sweep_memo.stats.records} rows recorded, {launched} "
+              f"makespan launches in {res.num_chunks} chunks; every "
+              "lookup == its sweep row == its standalone search, bitwise")
+        out["sweep"] = {"rows_recorded": sweep_memo.stats.records,
+                        "launches": launched, "chunks": res.num_chunks,
+                        "wall_s": res.wall_time_s}
+
+        # 3. route separation: a row solved on the CPU and recorded in a
+        # memo hits neither exactly nor near on the card
+        if dev.type == "cuda":   # the CPU is one route: a rehearsal skips it
+            route_memo = ScheduleMemo()
+            cpu_fit = FitnessFn(fit.table, bw_sys=256 * GB, device="cpu")
+            cpu_res = run_strategy(strategy, cpu_fit, budget=small, seed=0,
+                                   device="cpu", keep_population=True)
+            route_memo.record(cpu_fit, strategy, small, 0, cpu_res,
+                              population=cpu_res.final_population,
+                              family="Mix")
+            check(route_memo.lookup(cpu_fit, strategy, small, 0) is not None
+                  and route_memo.lookup(fit, strategy, small, 0) is None
+                  and route_memo.warm_start(fit, strategy,
+                                            family="Mix") is None,
+                  "memo route: the CPU-solved row hit on the card")
+            before = mk.LAUNCHES["makespan"]
+            card_res = M3E(s4, bw_sys=256 * GB, memo=route_memo,
+                           device=dev).search(groups[0], budget=small,
+                                              seed=0)
+            launched = mk.LAUNCHES["makespan"] - before
+            check(launched == plan_generations(small, strategy.ask_size)[0]
+                  and same_result(card_res, run_strategy(
+                      strategy, fit, budget=small, seed=0, device=dev)),
+                  f"memo route: the card search after a CPU record launched "
+                  f"{launched} kernels or is not the cold search")
+            print(f"[memo] route: a {small}-sample row solved on the CPU "
+                  f"(best {cpu_res.best_fitness:.6e}) hits neither exactly "
+                  f"nor near on {dev}; the card solves it cold ({launched} "
+                  f"launches, best {card_res.best_fitness:.6e})")
+            out["route"] = {"cpu_best": cpu_res.best_fitness,
+                            "card_best": card_res.best_fitness,
+                            "card_launches": launched}
+
+        # 4. near hits: Mix group 0's converged population (step 1's
+        # record) offered to four sibling groups
+        near = []
+        for i in range(1, MEMO_NEAR_GROUPS):
+            sib = m3e.prepare(groups[i])
+            donor, dist = memo.donor(sib, strategy, family="Mix")
+            ws = memo.warm_start(sib, strategy, family="Mix")
+            cold = run_strategy(strategy, sib, budget=small, seed=i,
+                                device=dev)
+            warm = run_strategy(strategy, sib, budget=small, seed=i,
+                                device=dev, init_population=ws)
+            if ws is None:
+                check(same_result(warm, cold),
+                      f"memo near: group {i}'s refused donor did not give "
+                      "the cold search")
+            else:
+                again = run_strategy(strategy, sib, budget=small, seed=i,
+                                     device=dev, init_population=ws)
+                loop = run_strategy(strategy, sib, budget=small, seed=i,
+                                    device=dev, init_population=ws,
+                                    engine="loop")
+                check(same_result(warm, again) and same_result(warm, loop),
+                      f"memo near: group {i}'s warm search is not "
+                      "deterministic or its loop engine differs")
+            outcome = "seeded" if ws is not None else "refused"
+            ratio = warm.best_fitness / cold.best_fitness
+            near.append({"group": i, "donor_dist": dist, "outcome": outcome,
+                         "warm_over_cold": ratio})
+            print(f"[memo] near hit Mix group {i}: donor distance "
+                  f"{dist:.4f} (guard {memo.max_donor_dist}), {outcome}; "
+                  f"warm/cold best fitness at {small} samples {ratio:.4f}")
+        out["near"] = near
+        out["stats"] = memo.stats.summary()
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+    # 5. Table V at full width
+    t0 = time.perf_counter()
+    tv = table_v(dev, group_size)
+    tv_wall = time.perf_counter() - t0
+    print(f"[memo] Table V ({TABLE_V_SETTING}, {TABLE_V_BW} GB/s, Mix, "
+          f"G={group_size}, P={TABLE_V_POP}, epochs {TABLE_V_EPOCHS}), "
+          f"fraction of the full search per instance 1-{TABLE_V_INSTS}:")
+    for row, vals in tv["fractions"].items():
+        print(f"[memo]   {row}," + ",".join(f"{v:.4f}" for v in vals))
+    print(f"[memo]   gain0 (Trf-0-ep over Raw) {tv['gain0']:.4f}, full_frac "
+          f"(Trf-0-ep over full) {tv['full_frac']:.4f}; wall "
+          f"{tv_wall:.3f} s")
+    check(tv["gain0"] > 1.1 and tv["full_frac"] > 0.75,
+          f"Table V: gain0 {tv['gain0']} and full_frac {tv['full_frac']}, "
+          "want > 1.1 and > 0.75 (benchmarks/tableV_warmstart.py:80)")
+    out["table_v"] = dict(tv, wall_s=tv_wall)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[memo] memo stats {out['stats']}; phase wall "
+          f"{out['phase_wall_s']:.3f} s")
+    return out
 
 
 def main():
@@ -1441,10 +1765,23 @@ def main():
                       "flash_attention": fa.LAUNCHES["flash_attention"]}
     check(compare_counts["ssm_scan"] == 0
           and compare_counts["flash_attention"] == 0
-          and compare_counts["makespan"] > 0,
+          and compare_counts["makespan"] == compared["launches"] > 0,
           f"compare launches {compare_counts}: want the makespan kernel "
-          "and no other")
+          f"{compared['launches']} times (the phase's parts) and no other")
     print(f"[compare] compare path launches: {compare_counts}")
+
+    # -- 13. memo: exact replay, memoized sweeps, warm starts, Table V ----
+    reset_counts()
+    memo_out = memo_phase(dev, mk)
+    memo_counts = {"makespan": mk.LAUNCHES["makespan"],
+                   "ssm_scan": ssm.LAUNCHES["ssm_scan"],
+                   "flash_attention": fa.LAUNCHES["flash_attention"]}
+    check(memo_counts["ssm_scan"] == 0
+          and memo_counts["flash_attention"] == 0
+          and memo_counts["makespan"] > 0,
+          f"memo launches {memo_counts}: want the makespan kernel and no "
+          "other")
+    print(f"[memo] memo path launches: {memo_counts}")
 
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
@@ -1455,11 +1792,13 @@ def main():
         "name": "makespan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/makespan.cu",
         "replaces": "src/repro/kernels/makespan.py:36",
-        "launches": launches + serve_counts[1] + compare_counts["makespan"],
+        "launches": launches + serve_counts[1] + compare_counts["makespan"]
+        + memo_counts["makespan"],
         "launches_by_path": {"m3e_search": launches,
                              "serve": serve_counts[1],
                              "train_eval": train_eval_counts["makespan"],
-                             "compare": compare_counts["makespan"]},
+                             "compare": compare_counts["makespan"],
+                             "memo": memo_counts["makespan"]},
         "launches_per_search": launches // 4,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1470,7 +1809,8 @@ def main():
         "plain_ms_p4096": plain_big, "bound_ms_p4096": bound_big,
         "ptxas": ptxas_json(ptxas["makespan"]),
         "search_wall_s": walls, "profile": profile_out,
-        "per_row_bw_sys": per_row, "compare": compared, "ok": True,
+        "per_row_bw_sys": per_row, "compare": compared, "memo": memo_out,
+        "ok": True,
     }, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -1478,7 +1818,7 @@ def main():
         "launches": serve_counts[0],
         "launches_by_path": {"m3e_search": 0, "serve": serve_counts[0],
                              "train_eval": train_eval_counts["ssm_scan"],
-                             "compare": 0},
+                             "compare": 0, "memo": 0},
         "max_abs_err": max(e[0] for e in ssm_errs),
         "max_rel_err": max(e[1] for e in ssm_errs),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1497,7 +1837,8 @@ def main():
         "launches": train_eval_counts["flash_attention"],
         "launches_by_path": {"m3e_search": 0, "serve": 0,
                              "train_eval": train_eval_counts[
-                                 "flash_attention"], "compare": 0},
+                                 "flash_attention"], "compare": 0,
+                             "memo": 0},
         "launches_per_eval": {k: v["flash_launches"] for k, v in
                               evals.items()},
         "max_abs_err": max(e[0] for e in flash_errs),

@@ -11,6 +11,7 @@ from repro_torch.core.fitness import FitnessFn, FitnessParams
 from repro_torch.core.magma import MagmaConfig, SearchResult, magma_search
 from repro_torch.core.strategies import (SearchStrategy, available,
                                          get_strategy, run_strategy)
+from repro_torch.core.warmstart import WarmStartEngine
 from repro_torch.core.m3e import M3E, geomean
 
 __all__ = [
@@ -20,5 +21,5 @@ __all__ = [
     "JobAnalyzer", "JobAnalysisTable", "table_from_arrays", "FitnessFn",
     "FitnessParams", "MagmaConfig", "SearchResult", "magma_search",
     "SearchStrategy", "available", "get_strategy", "run_strategy", "M3E",
-    "geomean",
+    "geomean", "WarmStartEngine",
 ]

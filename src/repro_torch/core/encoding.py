@@ -58,6 +58,16 @@ def rand_rows(gens: Sequence[torch.Generator], shape: Tuple[int, ...]
     return out
 
 
+def randn_rows(gens: Sequence[torch.Generator], shape: Tuple[int, ...]
+               ) -> torch.Tensor:
+    """(R, *shape) float32 standard normals: row r drawn from ``gens[r]``."""
+    out = torch.empty((len(gens),) + tuple(shape), dtype=torch.float32,
+                      device=gens[0].device)
+    for r, gen in enumerate(gens):
+        torch.randn(tuple(shape), generator=gen, out=out[r])
+    return out
+
+
 def randint_rows(gens: Sequence[torch.Generator], low: int, high: int,
                  shape: Tuple[int, ...]) -> torch.Tensor:
     """(R, *shape) int32 in [low, high): row r drawn from ``gens[r]``."""
@@ -86,6 +96,23 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     tail = x.shape[2:]
     index = idx.long().reshape(idx.shape + (1,) * len(tail))
     return torch.gather(x, 1, index.expand(idx.shape + tail))
+
+
+def to_host(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
+    """numpy copies of ``tensors`` (all on one device) read back in one
+    transfer: on a card their bytes are packed into one buffer there and
+    copied once, instead of one synchronising copy per tensor."""
+    if tensors[0].device.type == "cpu":
+        return tuple(t.numpy().copy() for t in tensors)
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        out.append(flat[at:at + n].view(dtype).reshape(tuple(t.shape)))
+        at += n
+    return tuple(out)
 
 
 def random_population_rows(gens: Sequence[torch.Generator], pop: int,

@@ -180,6 +180,13 @@ def as_objective_spec(objective: ObjectiveLike) -> Optional[ObjectiveSpec]:
     return ObjectiveSpec(tuple(objective))
 
 
+def objective_token(objective: ObjectiveLike) -> Optional[str]:
+    """The canonical string the memo keys on: scalar specs and bare names
+    collapse to the same token (``None`` passes through)."""
+    spec = as_objective_spec(objective)
+    return None if spec is None else spec.token
+
+
 class FitnessParams(NamedTuple):
     """Scenario data — everything the fitness needs besides genomes —
     as tensors on the search's device.  Stacked for R scenarios (a sweep

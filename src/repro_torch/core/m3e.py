@@ -5,11 +5,12 @@ BW allocator, fitness) -> a chosen optimization method -> best mapping.
 
 Method dispatch goes through the ``repro_torch.core.strategies`` registry
 (MAGMA, the Table IV baselines and NSGA-II); every method receives the
-same fitness and the same sampling budget, the paper's protocol.  The
-reference's schedule memo and warm-start branches wait for ROADMAP Queue
-1 items 8 and 7.  Unknown method names raise a ``ValueError`` listing
-what is registered.  The search runs on ``device`` ("cuda" unless the
-caller asks for another).
+same fitness and the same sampling budget, the paper's protocol.
+Unknown method names raise a ``ValueError`` listing what is registered.
+The search runs on ``device`` ("cuda" unless the caller asks for
+another).  ``warm_start`` (Section V-C, populations kept per task type)
+and ``memo`` (``repro_torch.memo``: exact-hit replay, nearest-scenario
+warm seeds, every search recorded) are the reference's two reuse knobs.
 """
 from __future__ import annotations
 
@@ -25,17 +26,28 @@ from repro_torch.core.job_analyzer import JobAnalyzer
 from repro_torch.core.magma import SearchResult
 from repro_torch.core.pareto import ParetoFront, pareto_front
 from repro_torch.core.strategies import get_strategy, run_strategy
+from repro_torch.core.warmstart import WarmStartEngine
 from repro_torch.costmodel.accelerators import AcceleratorConfig
 from repro_torch.workloads.benchmark import JobGroup
 
 
 @dataclasses.dataclass
 class M3E:
-    """One optimization problem: (job group, accelerator, system BW)."""
+    """One optimization problem: (job group, accelerator, system BW).
+
+    ``warm_start`` is the Section V-C cache (population transfer keyed
+    per task type); ``memo`` is the full ``repro_torch.memo`` subsystem —
+    exact hits replay the stored schedule bit for bit with no search,
+    misses are warm-seeded from the nearest stored scenario of the same
+    task family, and every solved search is recorded back.  The two are
+    independent knobs (the memo is consulted first when both are set).
+    """
     accel: AcceleratorConfig
     bw_sys: float                       # bytes/s
     objective: ObjectiveLike = "throughput"
     device: Union[str, torch.device] = "cuda"
+    warm_start: Optional[WarmStartEngine] = None
+    memo: Optional[object] = None       # repro_torch.memo.ScheduleMemo
 
     def prepare(self, group: JobGroup,
                 objective: ObjectiveLike = None) -> FitnessFn:
@@ -69,6 +81,27 @@ class M3E:
             run_kw["init_population"] = init_population
         if keep_population is not None:
             run_kw["keep_population"] = keep_population
+        if self.memo is not None and strategy.device_resident \
+                and init_population is None:
+            # a caller-supplied init_population bypasses the memo: a
+            # replay would discard the seed, and the seeded result
+            # recorded under the cold fingerprint would poison exact-hit
+            # bit-identity for every other client
+            return self._search_memoized(group, strategy, fit, budget, seed,
+                                         run_kw)
+        if strategy.name == "magma" and self.warm_start is not None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed + 1)
+            init = self.warm_start.init_population(
+                group.task, gen, fit.group_size, fit.num_accels)
+            if init is not None:
+                run_kw.setdefault("init_population", init)
+            run_kw.setdefault("keep_population", True)
+            res = run_strategy(strategy, fit, budget=budget, seed=seed,
+                               device=self.device, **run_kw)
+            if res.final_population is not None:
+                self.warm_start.remember(group.task, res.final_population)
+            return res
         return run_strategy(strategy, fit, budget=budget, seed=seed,
                             device=self.device, **run_kw)
 
@@ -84,7 +117,10 @@ class M3E:
 
         ``objectives`` name registered objective columns (the first one
         is the anytime scalar the search history tracks); ``method`` must
-        be a ``multi_objective`` strategy (``nsga2``).
+        be a ``multi_objective`` strategy (``nsga2``).  Rides the same
+        memo as ``search``: the converged archive is recorded under the
+        vector spec's fingerprint, so a re-seen frontier request replays
+        its front without a search.
         """
         fit = self.prepare(group, objective=tuple(objectives))
         strategy = get_strategy(method, **dict(strategy_kwargs or {}))
@@ -95,11 +131,39 @@ class M3E:
         run_kw = {"keep_population": True}
         if engine is not None:
             run_kw["engine"] = engine
-        res = run_strategy(strategy, fit, budget=budget, seed=seed,
-                           device=self.device, **run_kw)
+        if self.memo is not None and strategy.device_resident:
+            res = self._search_memoized(group, strategy, fit, budget, seed,
+                                        run_kw)
+        else:
+            res = run_strategy(strategy, fit, budget=budget, seed=seed,
+                               device=self.device, **run_kw)
+        if res.final_population is None:
+            raise RuntimeError(
+                "search_front needs the converged population to extract "
+                "the front, but none came back (a memo record without a "
+                "stored population?)")
         return pareto_front(fit, res.final_population,
                             n_samples=res.n_samples,
                             wall_time_s=res.wall_time_s)
+
+    def _search_memoized(self, group: JobGroup, strategy, fit: FitnessFn,
+                         budget: int, seed: int, run_kw) -> SearchResult:
+        """Route one search through the schedule memo: exact hit ->
+        bitwise replay (no search, no kernel launch); miss -> warm-seed
+        from the nearest same-family scenario, run, record."""
+        hit = self.memo.lookup(fit, strategy, budget, seed)
+        if hit is not None:
+            return hit.to_search_result()
+        warm = self.memo.warm_start(fit, strategy, family=group.task)
+        if warm is not None:
+            run_kw["init_population"] = warm
+        run_kw.setdefault("keep_population", True)
+        res = run_strategy(strategy, fit, budget=budget, seed=seed,
+                           device=self.device, **run_kw)
+        self.memo.record(fit, strategy, budget, seed, res,
+                         population=res.final_population,
+                         family=group.task, warm=warm)
+        return res
 
     def describe_mapping(self, res: SearchResult) -> list:
         return decode_to_lists(res.best_accel, res.best_prio,

@@ -21,8 +21,9 @@ set comes from ``repro_torch.core.pareto.pareto_front(fit,
 result.final_population)`` (``M3E.search_front``).
 """
 from repro_torch.core.strategies.base import (HostSearchStrategy,
-                                              SearchStrategy,
-                                              decode_continuous)
+                                              SearchStrategy, WarmStart,
+                                              decode_continuous,
+                                              seed_population)
 from repro_torch.core.strategies.registry import (StrategyInfo, available,
                                                   canonical_name,
                                                   get_strategy, register,
@@ -39,7 +40,8 @@ from repro_torch.core.strategies.nsga2 import (NSGA2State, NSGA2Strategy,
 from repro_torch.core.strategies import host as _host  # noqa: F401
 
 __all__ = [
-    "SearchStrategy", "HostSearchStrategy", "decode_continuous",
+    "SearchStrategy", "HostSearchStrategy", "WarmStart",
+    "seed_population", "decode_continuous",
     "StrategyInfo", "available", "canonical_name", "get_strategy",
     "register", "strategy_info",
     "plan_generations", "run_strategy", "scan_strategy",

@@ -23,6 +23,17 @@ bitwise the standalone search of its scenario and seed.
 ``init``/``ask``/``tell`` return new state and never assign to ``self``,
 so one strategy object can serve many searches.
 
+A strategy with ``supports_init_population`` also takes a hand-off in
+``init``: a ``Population`` (used verbatim) or a :class:`WarmStart` (a
+transferred population, its priorities jittered by
+:func:`seed_population`).  Either way ``init`` still draws the cold
+population's numbers and drops them, so every row's generator leaves
+``init`` where a cold search's does and a seeded search differs from the
+cold one only in its initial population.  The warm jitter re-reads, from
+a saved generator state, the numbers the cold population then takes
+(:func:`warm_noise_rows`), as the reference draws it from the sub-key
+that would have drawn the random population.
+
 Strategies are *bound* to a problem before running: :meth:`bind` returns
 a copy with ``num_accels`` filled in.  Host-only methods (adaptive
 population sizes, RL training loops, one-shot heuristics) implement
@@ -32,9 +43,58 @@ population sizes, RL training loops, one-shot heuristics) implement
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.core.encoding import randn_rows
+
+
+class WarmStart(NamedTuple):
+    """A transferred population as a warm-start seed (Section V-C).
+
+    Taken wherever ``init_population`` is, by strategies with
+    ``supports_init_population``.  Unlike a plain ``Population`` (used
+    verbatim), a ``WarmStart`` is *seeded*: ``init`` clips the accel
+    genome to the problem's accelerator count and re-randomizes the
+    priorities' low bits (:func:`seed_population`).  The schedule memo
+    hands one out as host arrays; ``run_strategy`` and the sweep give
+    every field a leading row axis on the search's device.
+    """
+    accel: Any    # (P, G) int32 source population (clipped to A-1)
+    prio: Any     # (P, G) float32 source priorities
+    jitter: Any   # ()     float32 priority noise scale
+
+
+def seed_population(accel, prio, jitter, noise, num_accels: int):
+    """The Section V-C warm-seed discipline, in one place.
+
+    Clip the transferred accel genome to this problem's accelerator count
+    and add ``jitter`` times the standard normals ``noise`` (the shape of
+    ``prio``, drawn by the caller) to the priorities, clipped to [0,
+    0.999] to keep the prio < 1 encoding invariant.  ``jitter`` is one
+    value or one per row (leading axis).  The strategies' ``init`` and
+    ``WarmStartEngine.init_population`` both call exactly this.  Returns
+    ``(accel int32, prio float32)``.
+    """
+    accel = torch.clamp_max(torch.as_tensor(accel).to(torch.int32),
+                            num_accels - 1)
+    prio = torch.as_tensor(prio).to(torch.float32)
+    jitter = torch.as_tensor(jitter, dtype=torch.float32, device=prio.device)
+    jitter = jitter.reshape(jitter.shape + (1,) * (prio.dim() - jitter.dim()))
+    return accel, torch.clamp(prio + jitter * noise, 0.0, 0.999)
+
+
+def warm_noise_rows(gens: Sequence[torch.Generator],
+                    shape: Tuple[int, ...]) -> torch.Tensor:
+    """(R, *shape) standard normals, row r from ``gens[r]``, each
+    generator left in the state it was in: the jitter of a warm start
+    reads the stream the cold population is drawn from next."""
+    states = [gen.get_state() for gen in gens]
+    noise = randn_rows(gens, shape)
+    for gen, state in zip(gens, states):
+        gen.set_state(state)
+    return noise
 
 
 class SearchStrategy:
@@ -46,6 +106,9 @@ class SearchStrategy:
     # plain class attributes, NOT dataclass fields (subclasses override)
     name = "?"
     device_resident = True
+    # whether ``init`` accepts a Population / WarmStart hand-off (the
+    # memo's near-hit seeding is gated on this)
+    supports_init_population = False
     # whether ``tell`` consumes an (R, P, M) objective matrix instead of
     # an (R, P) scalar column; the driver evaluates via
     # ``evaluate_objectives`` and ranks the anytime best on column 0

@@ -30,7 +30,7 @@ from repro_torch.core.fitness import (FitnessFn, FitnessParams,
                                       ObjectiveSpec, evaluate_objectives,
                                       evaluate_params)
 from repro_torch.core.magma import SearchResult
-from repro_torch.core.strategies.base import SearchStrategy
+from repro_torch.core.strategies.base import SearchStrategy, WarmStart
 
 
 def plan_generations(budget: int, ask_size: int) -> Tuple[int, bool]:
@@ -114,6 +114,21 @@ def _run_loop(strategy: SearchStrategy, state, eval_fn, generations: int,
     return bf, ba, bp, np.asarray(hist), state
 
 
+def rows_hand_off(init_population, device):
+    """A one-search hand-off (a ``Population`` or a ``WarmStart``, host
+    arrays or tensors) as the one-row state ``init`` takes: every field
+    with a leading row axis, on ``device``."""
+    accel = torch.as_tensor(init_population[0], dtype=torch.int32,
+                            device=device)[None]
+    prio = torch.as_tensor(init_population[1], dtype=torch.float32,
+                           device=device)[None]
+    if isinstance(init_population, WarmStart):
+        jitter = torch.as_tensor(init_population.jitter, dtype=torch.float32,
+                                 device=device).reshape(1)
+        return WarmStart(accel=accel, prio=prio, jitter=jitter)
+    return Population(accel=accel, prio=prio)
+
+
 def _same_device(a: torch.device, b: torch.device) -> bool:
     if a.type != b.type:
         return False
@@ -139,6 +154,9 @@ def run_strategy(strategy: SearchStrategy, fitness_fn: FitnessFn,
     ``"host"``), their fitness batches on the fitness' device.
     ``device`` must be where ``fitness_fn`` keeps its tables; the
     generator is seeded from ``seed`` on it, so no draw crosses the bus.
+    ``init_population`` is a ``Population`` (used verbatim) or a
+    ``WarmStart`` (seeded in ``init``), for strategies with
+    ``supports_init_population``.
     """
     if not strategy.device_resident:
         if engine not in (None, "host"):
@@ -172,7 +190,7 @@ def run_strategy(strategy: SearchStrategy, fitness_fn: FitnessFn,
     params = FitnessParams(*(t[None] for t in fitness_fn.params))
     eval_fn = row_eval_fn(strategy, params, fitness_fn.objective_spec)
     if init_population is not None:
-        init_population = Population(*(t[None] for t in init_population))
+        init_population = rows_hand_off(init_population, device)
 
     t0 = time.perf_counter()
     state = strategy.init(row_generators([seed], device), params,

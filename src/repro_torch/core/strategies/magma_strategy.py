@@ -17,7 +17,9 @@ import torch
 from repro_torch.core.encoding import Population, random_population_rows
 from repro_torch.core.magma import (MagmaConfig, draw_generation_rows,
                                     next_generation_body)
-from repro_torch.core.strategies.base import SearchStrategy
+from repro_torch.core.strategies.base import (SearchStrategy, WarmStart,
+                                              seed_population,
+                                              warm_noise_rows)
 from repro_torch.core.strategies.registry import register
 
 
@@ -34,6 +36,7 @@ class MagmaStrategy(SearchStrategy):
     cfg: MagmaConfig = MagmaConfig()
     num_accels: Optional[int] = None     # bound per problem via .bind()
     name = "magma"
+    supports_init_population = True
 
     @property
     def ask_size(self) -> int:
@@ -44,11 +47,18 @@ class MagmaStrategy(SearchStrategy):
         return self.cfg.n_elite
 
     def init(self, gens, params, *, init_population=None) -> MagmaState:
-        if init_population is None:
-            pop = random_population_rows(gens, self.cfg.population,
-                                         params.lat.shape[-2],
-                                         self.num_accels)
-        else:
+        warm = isinstance(init_population, WarmStart)
+        if warm:
+            noise = warm_noise_rows(gens, init_population.prio.shape[1:])
+        # drawn with a hand-off too: the generators then stand where a
+        # cold search's do (see strategies.base)
+        pop = random_population_rows(gens, self.cfg.population,
+                                     params.lat.shape[-2], self.num_accels)
+        if warm:
+            ws = init_population
+            pop = Population(*seed_population(ws.accel, ws.prio, ws.jitter,
+                                              noise, self.num_accels))
+        elif init_population is not None:
             pop = Population(*init_population)
         return MagmaState(gens=tuple(gens), accel=pop.accel, prio=pop.prio)
 

@@ -34,8 +34,10 @@ import torch
 from repro_torch.core.encoding import (Population, rand_rows, randint_rows,
                                        take_rows)
 from repro_torch.core.pareto import crowded_order, crowding_distance, nd_ranks
-from repro_torch.core.strategies.base import (SearchStrategy,
-                                              decode_continuous)
+from repro_torch.core.strategies.base import (SearchStrategy, WarmStart,
+                                              decode_continuous,
+                                              seed_population,
+                                              warm_noise_rows)
 from repro_torch.core.strategies.registry import register
 
 _SENTINEL = -1e30      # finite "worse than anything real" archive init
@@ -132,6 +134,7 @@ class NSGA2Strategy(SearchStrategy):
     p_crossover: float = 0.9        # per-individual SBX probability
     num_accels: Optional[int] = None
     name = "nsga2"
+    supports_init_population = True
     multi_objective = True
 
     @property
@@ -144,9 +147,18 @@ class NSGA2Strategy(SearchStrategy):
         # rows: objective_code (R,) for a scalar problem, (R, M) for M
         code = params.objective_code
         M = int(code.shape[-1]) if code.dim() == 2 else 1
-        if init_population is None:
-            X = rand_rows(gens, (P, 2 * G))
-        else:
+        warm = isinstance(init_population, WarmStart)
+        if warm:
+            noise = warm_noise_rows(gens, init_population.prio.shape[1:])
+        # drawn with a hand-off too: the generators then stand where a
+        # cold search's do (see strategies.base)
+        X = rand_rows(gens, (P, 2 * G))
+        if warm:
+            ws = init_population
+            X = encode_continuous(*seed_population(
+                ws.accel, ws.prio, ws.jitter, noise, self.num_accels),
+                self.num_accels)
+        elif init_population is not None:
             pop = Population(*init_population)
             X = encode_continuous(pop.accel, pop.prio, self.num_accels)
         arch_F = torch.full(X.shape[:2] + (M,), _SENTINEL,

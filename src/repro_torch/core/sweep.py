@@ -27,9 +27,16 @@ same scenario and seed, whatever the chunking: nothing in the loop mixes
 rows, and the makespan kernel gives an individual's makespan from its own
 queues and its row's ``bw_sys`` only.
 
+``run_sweep(memo=...)`` records every solved row in a
+``repro_torch.memo.ScheduleMemo`` (the schedule and, for strategies with
+a population hand-off, the converged population, read back with the
+chunk's results), so a later ``M3E.search`` or ``lookup`` of the same
+(scenario, seed) replays it; ``run_rows(warm=...)`` seeds every row from
+its own ``WarmStart``.  Neither changes the search a row runs.
+
 Not ported yet: sharding rows over several cards (ROADMAP Queue 1 item
-12), the schedule memo (item 8), and the transfer sanitizer and tracing
-(item 13); asking for them raises.
+12), and the transfer sanitizer and tracing (item 13); asking for them
+raises.
 """
 from __future__ import annotations
 
@@ -40,13 +47,13 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.core.encoding import row_generators
+from repro_torch.core.encoding import row_generators, to_host
 from repro_torch.core.fitness import (FitnessFn, FitnessParams,
                                       ObjectiveSpec, as_objective_spec,
                                       normalize_scenarios)
 from repro_torch.core.magma import BatchSearchResult, MagmaConfig
 from repro_torch.core.strategies import (MagmaStrategy, SearchStrategy,
-                                         available, get_strategy,
+                                         WarmStart, available, get_strategy,
                                          plan_generations, scan_strategy)
 from repro_torch.core.strategies.driver import row_eval_fn
 
@@ -97,24 +104,39 @@ class SweepResult(BatchSearchResult):
 def _row_search(seeds: Sequence[int], params: FitnessParams,
                 strategy: SearchStrategy, generations: int,
                 evolve_last: bool, group_size: int,
-                objective: Optional[ObjectiveSpec], device):
+                objective: Optional[ObjectiveSpec], device,
+                keep_population: bool = False,
+                warm: Optional[WarmStart] = None):
     """R (scenario, seed) rows on ``device`` (``params`` stacked there) --
     the trace of ``run_strategy``: seed each row's generator, init, run
     the shared loop.  Returns ``(best_fit (R,), best_accel (R, G),
-    best_prio (R, G), history (R, T))`` on the device."""
+    best_prio (R, G), history (R, T))`` on the device, and with
+    ``keep_population`` also the converged ``(pop_accel (R, P, G),
+    pop_prio (R, P, G))``.  ``warm`` is a per-row ``WarmStart`` (leading
+    R, on the device) seeding each row's initial population in ``init``;
+    neither option changes the search a row runs."""
     eval_fn = row_eval_fn(strategy, params, objective)
-    state = strategy.init(row_generators(seeds, device), params)
-    return scan_strategy(strategy, state, eval_fn, group_size, generations,
-                         evolve_last)[:4]
+    state = strategy.init(row_generators(seeds, device), params,
+                          init_population=warm)
+    out = scan_strategy(strategy, state, eval_fn, group_size, generations,
+                        evolve_last)
+    if keep_population:
+        pop = strategy.population(out[4])
+        return out[:4] + (pop.accel, pop.prio)
+    return out[:4]
 
 
 def row_executable(strategy: SearchStrategy, generations: int,
                    evolve_last: bool, group_size: int, objective,
                    num_devices: int = 1,
-                   device: Union[str, torch.device] = "cuda"):
+                   device: Union[str, torch.device] = "cuda",
+                   keep_population: bool = False):
     """(row-batch fn, target device): ``fn(seeds (N,), params with leading
-    N on the target)`` -> per-row results on the device, without a sync.
-    The function ``run_sweep`` runs each chunk through."""
+    N on the target, warm=None)`` -> per-row results on the device,
+    without a sync.  The function ``run_sweep`` runs each chunk through.
+    ``keep_population`` appends the converged populations to the
+    outputs; ``warm`` (a ``WarmStart`` with leading N on the target)
+    seeds each row."""
     objective = as_objective_spec(objective)
     if getattr(strategy, "multi_objective", False) and objective is None:
         raise ValueError(
@@ -127,9 +149,10 @@ def row_executable(strategy: SearchStrategy, generations: int,
             "Queue 1 item 12; run with max_devices=1")
     target = torch.device(device)
 
-    def fn(seeds, params):
+    def fn(seeds, params, warm=None):
         return _row_search(seeds, params, strategy, generations,
-                           evolve_last, group_size, objective, target)
+                           evolve_last, group_size, objective, target,
+                           keep_population, warm)
     return fn, target
 
 
@@ -143,16 +166,35 @@ def _flatten_grid(params: FitnessParams, seeds: np.ndarray):
 
 
 def _pad_rows(rows_params: FitnessParams, rows_seeds: np.ndarray,
-              total: int):
-    """Pad to ``total`` rows by repeating the last real row (its tables
-    and its seed: the padding simulates cleanly, from a generator of its
-    own, and its results are sliced off)."""
+              total: int, warm: Optional[WarmStart] = None):
+    """Pad to ``total`` rows by repeating the last real row (its tables,
+    its seed and its warm start: the padding simulates cleanly, from a
+    generator of its own, and its results are sliced off)."""
     pad = total - rows_seeds.shape[0]
     if pad <= 0:
-        return rows_params, rows_seeds
-    return (FitnessParams(*(torch.cat([x, x[-1:].expand(
-                (pad,) + x.shape[1:])]) for x in rows_params)),
-            np.concatenate([rows_seeds, np.repeat(rows_seeds[-1:], pad)]))
+        return rows_params, rows_seeds, warm
+
+    def rep(x):
+        return torch.cat([x, x[-1:].expand((pad,) + x.shape[1:])])
+    return (FitnessParams(*(rep(x) for x in rows_params)),
+            np.concatenate([rows_seeds, np.repeat(rows_seeds[-1:], pad)]),
+            None if warm is None else WarmStart(*(rep(x) for x in warm)))
+
+
+def _host_warm(warm: Optional[WarmStart], N: int) -> Optional[WarmStart]:
+    """Per-row warm starts as host tensors: accel (N, P, G) int32, prio
+    (N, P, G) f32, jitter (N,) f32."""
+    if warm is None:
+        return None
+    accel = torch.as_tensor(warm.accel, dtype=torch.int32).cpu()
+    prio = torch.as_tensor(warm.prio, dtype=torch.float32).cpu()
+    jitter = torch.as_tensor(warm.jitter, dtype=torch.float32).cpu()
+    if accel.dim() != 3 or accel.shape[0] != N or prio.shape != accel.shape:
+        raise ValueError(f"warm must hold one (P, G) population per row "
+                         f"({N}); got accel {tuple(accel.shape)}, prio "
+                         f"{tuple(prio.shape)}")
+    return WarmStart(accel=accel, prio=prio,
+                     jitter=jitter.expand(N).contiguous())
 
 
 def _resolve_strategy(strategy, cfg: Optional[MagmaConfig]) -> SearchStrategy:
@@ -206,7 +248,10 @@ def run_rows(rows_params: FitnessParams, rows_seeds, *,
              strategy: SearchStrategy, generations: int, evolve_last: bool,
              objective: Optional[ObjectiveSpec] = None,
              sweep: SweepConfig | None = None,
-             device: Union[str, torch.device] = "cuda") -> RowsResult:
+             device: Union[str, torch.device] = "cuda",
+             warm: Optional[WarmStart] = None,
+             memo=None, rows_family: Optional[Sequence[str]] = None
+             ) -> RowsResult:
     """Execute N independent (scenario, seed) search rows on ``device``.
 
     ``rows_params`` is a ``FitnessParams`` with leading axis N on the
@@ -215,7 +260,16 @@ def run_rows(rows_params: FitnessParams, rows_seeds, *,
     accelerator count.  Rows are padded to equal chunks by repeating the
     last real row and the padding is sliced off, so row ``i`` of the
     result is bitwise a standalone ``run_strategy`` with that scenario
-    and seed, whatever the chunking or which rows share a chunk.
+    and seed (and ``warm[i]`` as its ``init_population``), whatever the
+    chunking or which rows share a chunk.
+
+    ``warm`` is a ``WarmStart`` with leading axis N (host arrays or
+    tensors; the jitter one value or one per row) seeding every row.
+    ``memo`` (a ``repro_torch.memo.ScheduleMemo``) records every solved
+    row — the schedule plus, for strategies with a population hand-off,
+    the converged population — under its fingerprint once the chunks
+    have run; ``rows_family`` tags each row's transfer family.  Recording
+    adds outputs to the chunk, never changes a row's search.
     """
     sweep = sweep or SweepConfig()
     device = torch.device(device)
@@ -223,58 +277,102 @@ def run_rows(rows_params: FitnessParams, rows_seeds, *,
     N = int(rows_seeds.shape[0])
     G = int(rows_params.lat.shape[-2])
     ndev = _num_devices(sweep, device)
+    warm = _host_warm(warm, N)
 
     chunk_rows = N if sweep.chunk_rows is None else max(1, sweep.chunk_rows)
     chunk_rows = min(chunk_rows, N)
     n_chunks = -(-N // chunk_rows)
     padded = n_chunks * chunk_rows   # the last partial chunk is padded
-    rows_params, rows_seeds = _pad_rows(rows_params, rows_seeds, padded)
+    rows_params, rows_seeds, warm = _pad_rows(rows_params, rows_seeds,
+                                              padded, warm)
+    keep_pop = memo is not None and strategy.supports_init_population
     fn, target = row_executable(strategy, generations, evolve_last, G,
-                                objective, ndev, device)
+                                objective, ndev, device,
+                                keep_population=keep_pop)
+    # the tensors each chunk copies to the target: the tables, then the
+    # warm starts' fields
+    host = tuple(rows_params) + (() if warm is None else tuple(warm))
+    n_params = len(rows_params)
 
     cuda = target.type == "cuda"
     side = torch.cuda.Stream(target) if cuda else None
     if cuda:     # pinned host rows: the copies below run asynchronously
-        rows_params = FitnessParams(*(x.pin_memory() for x in rows_params))
+        host = tuple(x.pin_memory() for x in host)
 
     def put_chunk(i):
-        """Chunk i's tables on the target; on a card, copied on the side
+        """Chunk i's tensors on the target; on a card, copied on the side
         stream (an event marks the copy's end)."""
         sl = slice(i * chunk_rows, (i + 1) * chunk_rows)
         if not cuda:
-            return FitnessParams(*(x[sl] for x in rows_params)), None
+            return tuple(x[sl] for x in host), None
         with torch.cuda.stream(side):
-            params = FitnessParams(*(x[sl].to(target, non_blocking=True)
-                                     for x in rows_params))
+            xs = tuple(x[sl].to(target, non_blocking=True) for x in host)
             done = side.record_event()
-        return params, done
+        return xs, done
 
     t0 = time.perf_counter()
     outs, walls = [], []
     buf = put_chunk(0)
     for i in range(n_chunks):
         tc = time.perf_counter()
-        params, done = buf
+        xs, done = buf
         if done is not None:
             stream = torch.cuda.current_stream(target)
             stream.wait_event(done)
-            for x in params:
+            for x in xs:
                 x.record_stream(stream)
-        out = fn(rows_seeds[i * chunk_rows:(i + 1) * chunk_rows], params)
+        out = fn(rows_seeds[i * chunk_rows:(i + 1) * chunk_rows],
+                 FitnessParams(*xs[:n_params]),
+                 None if warm is None else WarmStart(*xs[n_params:]))
         # the next chunk's copy overlaps this chunk's generations
         buf = put_chunk(i + 1) if i + 1 < n_chunks else None
-        outs.append(tuple(o.cpu().numpy() for o in out))
+        outs.append(to_host(*out))    # the chunk's results in one copy
         walls.append(time.perf_counter() - tc)
     wall = time.perf_counter() - t0
 
     def gather(j):
         return np.concatenate([o[j] for o in outs])[:N]
 
-    return RowsResult(
+    rr = RowsResult(
         best_fitness=gather(0), best_accel=gather(1), best_prio=gather(2),
         history_best=gather(3).astype(np.float64), generations=generations,
         wall_time_s=wall, num_devices=ndev, rows=N, padded_rows=padded,
         chunk_rows=chunk_rows, chunk_wall_s=walls)
+    if memo is not None:
+        _record_rows(memo, rr, rows_params, rows_seeds, strategy,
+                     generations, evolve_last, objective, device,
+                     rows_family, (gather(4), gather(5)) if keep_pop
+                     else None, warm is not None)
+    return rr
+
+
+def _record_rows(memo, rr: RowsResult, rows_params: FitnessParams,
+                 rows_seeds: np.ndarray, strategy: SearchStrategy,
+                 generations: int, evolve_last: bool,
+                 objective: Optional[ObjectiveSpec], device: torch.device,
+                 rows_family: Optional[Sequence[str]], pops,
+                 warm: bool) -> None:
+    """Feed every solved row into the schedule memo, from the host copies
+    of the results.  The sampling budget is reconstructed from
+    (generations, evolve_last): the fingerprint depends only on that
+    pair, so any budget that plans to the same protocol shares the
+    entry."""
+    from repro_torch.memo.engine import row_view
+    P = strategy.ask_size
+    budget = generations * P + int(evolve_last)
+    for i in range(rr.rows):
+        fit = row_view(FitnessParams(*(x[i] for x in rows_params)),
+                       num_accels=strategy.num_accels, objective=objective,
+                       device=device)
+        memo.record(
+            fit, strategy, budget, int(rows_seeds[i]),
+            {"best_fitness": rr.best_fitness[i],
+             "best_accel": rr.best_accel[i],
+             "best_prio": rr.best_prio[i],
+             "history_best": rr.history_best[i]},
+            population=(pops[0][i], pops[1][i]) if pops is not None else None,
+            family="" if rows_family is None else rows_family[i],
+            warm=True if warm else None)
 
 
 def run_sweep(scenarios: Union[Sequence[FitnessFn], FitnessParams],
@@ -284,7 +382,8 @@ def run_sweep(scenarios: Union[Sequence[FitnessFn], FitnessParams],
               num_accels: Optional[int] = None,
               sweep: SweepConfig | None = None,
               strategy: Union[SearchStrategy, str, None] = None,
-              memo=None, *,
+              memo=None,
+              memo_family: Union[str, Sequence[str]] = "", *,
               device: Union[str, torch.device] = "cuda") -> SweepResult:
     """Run an S x K (scenario x seed) search grid as batched rows on
     ``device``.
@@ -297,12 +396,13 @@ def run_sweep(scenarios: Union[Sequence[FitnessFn], FitnessParams],
     come back with ``(S, K)`` leading axes and row ``[s, k]`` bitwise
     equal to a standalone ``run_strategy(strategy, scenarios[s],
     seed=seeds[k])`` on the same device, whatever the chunking
-    (``sweep``, :class:`SweepConfig`).  ``memo`` (the reference's
-    schedule memo) waits for ROADMAP Queue 1 item 8.
+    (``sweep``, :class:`SweepConfig`).
+
+    ``memo`` (a ``repro_torch.memo.ScheduleMemo``) records every solved
+    row for exact-hit replay / warm-start transfer; ``memo_family`` tags
+    the rows' transfer family — one string for the whole grid or one per
+    scenario.
     """
-    if memo is not None:
-        raise NotImplementedError("the sweep's schedule memo is ROADMAP "
-                                  "Queue 1 item 8")
     params, num_accels, objective = normalize_scenarios(scenarios,
                                                         num_accels)
     strategy = _resolve_strategy(strategy, cfg)
@@ -320,9 +420,19 @@ def run_sweep(scenarios: Union[Sequence[FitnessFn], FitnessParams],
 
     seeds = np.asarray(list(seeds), dtype=np.int64)
     rows_params, rows_seeds, N = _flatten_grid(params, seeds)
+    if isinstance(memo_family, str):
+        rows_family = [memo_family] * N
+    else:                    # one family per scenario, repeated per seed
+        memo_family = list(memo_family)
+        if len(memo_family) != S:
+            raise ValueError(
+                f"memo_family must be one string or one per scenario "
+                f"({S}); got {len(memo_family)}")
+        rows_family = [f for f in memo_family for _ in seeds]
     rr = run_rows(rows_params, rows_seeds, strategy=strategy,
                   generations=generations, evolve_last=evolve_last,
-                  objective=objective, sweep=sweep, device=device)
+                  objective=objective, sweep=sweep, device=device,
+                  memo=memo, rows_family=rows_family)
 
     def grid(x, trailing):
         return x.reshape((S, len(seeds)) + trailing)

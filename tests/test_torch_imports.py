@@ -41,5 +41,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_port_package_is_walked():
     files = _port_files()
-    assert os.path.join(PORT, "kernels", "makespan.py") in files
+    for part in (("kernels", "makespan.py"), ("memo", "engine.py"),
+                 ("memo", "store.py"), ("memo", "fingerprint.py"),
+                 ("obs", "trace.py"), ("core", "warmstart.py")):
+        assert os.path.join(PORT, *part) in files
     assert len(files) > 20

@@ -226,8 +226,11 @@ def test_run_rows_and_host_only_rejection():
     for name in available(device_resident=False):
         with pytest.raises(ValueError, match="host-only"):
             run_sweep(fns, budget=BUDGET, strategy=name, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        run_sweep(fns, budget=BUDGET, memo=object(), device="cpu")
+    # the schedule memo is ported: the sweep records its rows
+    from repro_torch.memo import ScheduleMemo
+    memo = ScheduleMemo()
+    run_sweep(fns, budget=BUDGET, cfg=CFG, memo=memo, device="cpu")
+    assert len(memo) == 2 and memo.stats.records == 2
     with pytest.raises(NotImplementedError, match="item 13"):
         run_sweep(fns, budget=BUDGET, device="cpu",
                   sweep=SweepConfig(transfer_guard=True))
