@@ -16,8 +16,9 @@ Phases, in order; any failure raises and exits non-zero:
               cases, plus the float64 oracle, bitwise population-size
               invariance and a per-row bw_sys launch (4 rows of 100, four
               bandwidths) bitwise equal to four one-row launches; the selective-scan kernel at the reference
-              tests' shapes (float32 and bf16 inputs) and at the two
-              serving shapes, plus bitwise batch-row independence; the
+              tests' shapes (float32 and bf16 inputs), at the two
+              serving shapes and at falcon-mamba's width with phase 14's
+              prompt lengths, plus bitwise batch-row independence; the
               flash kernel at the reference tests' shapes, ragged S, the
               two evaluation shapes and the bf16 kernel's edges
               (FLASH_EDGES), plus bitwise batch-row independence
@@ -117,10 +118,38 @@ Phases, in order; any failure raises and exits non-zero:
               Table V (benchmarks/tableV_warmstart.py:35-80) on S4 at
               1 GB/s, Mix G=100, P=100, epochs (0, 1, 30, 100),
               instances 1-4 must meet gain0 > 1.1 and full_frac > 0.75
+ 14. launch   the serving launcher (repro_torch.launch.serve, the
+              reference's src/repro/launch/serve.py) at full published
+              width in bf16 through the kernels: build_tenants(...,
+              full=True) for granite-3-2b (dense), qwen2-moe-a2.7b (MoE,
+              2,433,373,388 active of 14,835,091,456 params) and
+              falcon-mamba-7b, then its flow for --requests 6 --execute
+              --seed 0: MAGMA, herald_like and ai_mt_like schedules and
+              the MAGMA schedule executed; every schedule places every
+              job once, with one makespan launch per MAGMA generation and
+              one per heuristic, the scan launched once per falcon
+              prefill layer, no flash launch, every decode window
+              answered inside its tenant's vocabulary; the makespan
+              kernel against its plain version on one population of the
+              engine's own tables (G=15, A=8, P=100); each tenant's
+              prefill walls and ms per decoded token beside its HBM
+              bound, the MoE prefills' dropped share; the reference's
+              decode criterion (decode == teacher-forced forward to
+              relative 5e-3, MoE at a drop-free capacity) held at 4
+              layers in float32 for granite and qwen2-moe and reported
+              at full depth in bf16, with the routed experts that differ
+              between decode and forward counted.  It runs right after
+              phase 3, before the process's first torch.profiler session:
+              one session leaves later host-bound decode steps slower.
+              After phase 13 granite and qwen2-moe are rebuilt, the same
+              fixed decode probe is read again (after phases 5, 8, 11 and
+              12's profiler sessions) and one qwen2-moe decoded token is
+              profiled
 
 The counts of every kernel are set to 0 before each main path (the M3E
 searches, the served batch, phases 9-10 together, "train_eval", the
-comparison, "compare", and the memo phase, "memo") and read after it.
+comparison, "compare", the memo phase, "memo", and the launcher,
+"launch") and read after it.
 It prints a JSON line with one entry per kernel, the card's name and
 power limit, and last the line ``{"ok": true, "device": {...}}``.
 """
@@ -189,6 +218,16 @@ MEMO_NEAR_GROUPS = 5         # Mix group 0 donates to groups 1-4
 TABLE_V_SETTING, TABLE_V_BW = "S4", 1          # bw_sys in GB/s
 TABLE_V_POP, TABLE_V_INSTS = 100, 4
 TABLE_V_EPOCHS = (0, 1, 30, 100)
+# phase 14: the serving launcher (src/repro/launch/serve.py:37-38, :59) at
+# full width: its default tenants, its default budget and window
+LAUNCH_ARCHS = ("granite-3-2b", "qwen2-moe-a2.7b", "falcon-mamba-7b")
+LAUNCH_REQUESTS, LAUNCH_SEED = 6, 0
+LAUNCH_PROBE_TOKENS = 16     # greedy tokens of the per-token decode probe
+QWEN_ACTIVE_PARAMS = 2_433_373_388   # repro.models.registry's own count
+# tests/test_models.py::test_decode_matches_full_forward: B=2, S=24, MoE at
+# a drop-free capacity factor, relative 5e-3 (over the real vocabulary:
+# the padded entries' -1e30 would set the scale)
+DECODE_B, DECODE_S, DECODE_REL = 2, 24, 5e-3
 
 
 def check(cond, msg):
@@ -695,8 +734,6 @@ def profile_train_step(dev):
     warm-up step) under torch.profiler: wall, device busy share, top
     device ops."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.models.registry import get_model
     from repro_torch.train.data import TokenStream
@@ -712,36 +749,19 @@ def profile_train_step(dev):
         total_steps=TRAIN_STEPS))
     state, _ = step(init_state(model), stream.batch_at(0))
     batch = stream.batch_at(1)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    activities = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    sync()
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    prof = device_profile(dev, lambda: step(state, batch))
     del state, model
-    if not on_card:
+    if prof is None:
         print("[profile] the profiler saw no device time: device busy share "
               "not measured")
         return None
-    busy_ms = sum(e.device_time_total for e in on_card) / 1e3
-    by_name = {}
-    for e in on_card:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(f"[profile] one {TRAIN_ARCH} training step ({TRAIN_BATCH}x"
-          f"{TRAIN_SEQ} tokens): wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}) over {len(on_card)} "
-          f"device ops")
-    for k, v in top:
+          f"{TRAIN_SEQ} tokens): wall {prof['wall_ms']:.3f} ms, device busy "
+          f"{prof['device_busy_ms']:.3f} ms ({prof['device_busy_share']:.1%})"
+          f" over {prof['device_ops']} device ops")
+    for k, v in prof["top_kernels_ms"]:
         print(f"[profile]   {v:10.3f} ms  {k[:100]}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / wall_ms,
-            "device_ops": len(on_card),
-            "top_kernels_ms": [[k[:80], v] for k, v in top]}
+    return prof
 
 
 def compare_phase(dev, mk, budget=10_000, group_size=100):
@@ -1220,6 +1240,454 @@ def memo_phase(dev, mk, budget=10_000, group_size=100):
     return out
 
 
+def device_profile(dev, fn, top_n=10):
+    """``fn()`` under torch.profiler: (wall ms, device busy ms, device ops,
+    the ``top_n`` device ops by time), or None where the profiler saw no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    sync()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not on_card:
+        return None
+    by_name = {}
+    for e in on_card:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_ops": len(on_card),
+            "top_kernels_ms": [[k[:80], v] for k, v in top]}
+
+
+def drop_free(cfg):
+    """``cfg`` with a MoE capacity no routing can overflow.  The
+    reference's test takes capacity_factor 8.0, its smoke config's
+    n_experts: C = ceil(T k cf / n_experts) = T k there, and an expert
+    receives at most T of a group's T k pairs.  At full width (60 experts,
+    top-4) 8.0 gives C = 13 of 96 pairs, and random weights send most
+    tokens to a few experts, so the same guarantee takes cf = n_experts."""
+    return cfg.replace(capacity_factor=float(max(cfg.n_experts, 1)))
+
+
+def decode_vs_forward(model, dev, seed):
+    """The reference's decode criterion on ``model``: DECODE_S tokens
+    decoded one by one from an empty cache against the teacher-forced
+    forward's logits; max abs difference over the forward's max abs, over
+    the real vocabulary.  Returns (that ratio, routes): for a MoE model
+    the routed experts that differ between the two runs, as (token,
+    layer) pairs whose top-k set differs and as expert choices, each
+    beside its total; None for a dense model."""
+    import torch
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (DECODE_B, DECODE_S)), device=dev)
+    picked, plain_moe = [], L.moe
+
+    def recording_moe(p, x, **kw):
+        xg = x.reshape(1, -1, x.shape[-1]) if kw["group_tokens"] else x
+        r = L.moe_routing(p, xg, n_experts=kw["n_experts"],
+                          top_k=kw["top_k"],
+                          capacity_factor=kw["capacity_factor"])
+        picked.append(r.top_e.reshape(x.shape[0], x.shape[1], -1))
+        return plain_moe(p, x, **kw)
+
+    L.moe = recording_moe
+    try:
+        with torch.no_grad():
+            ref = model._logits(model.hidden_states(
+                model.embed_inputs({"tokens": tokens}))[0])
+            cache = model.init_cache(DECODE_B, DECODE_S)
+            outs = []
+            for t in range(DECODE_S):
+                logits, cache = model.decode_step(cache, tokens[:, t:t + 1],
+                                                  t)
+                outs.append(logits[:, 0])
+    finally:
+        L.moe = plain_moe
+    dec = torch.stack(outs, dim=1)[..., :cfg.vocab]
+    ref = ref[..., :cfg.vocab]
+    check(bool(torch.isfinite(dec).all()), f"{cfg.name}: non-finite decode")
+    rel = float((dec - ref).abs().max()) / (float(ref.abs().max()) + 1e-9)
+    if not picked:
+        return rel, None
+    n = cfg.num_layers               # the forward's calls, then decode's
+    fwd = torch.stack(picked[:n])                          # (n, B, S, K)
+    step = torch.stack(picked[n:]).reshape(DECODE_S, n, DECODE_B, -1)
+    step = step.permute(1, 2, 0, 3)                        # (n, B, S, K)
+    shared = (fwd[..., :, None] == step[..., None, :]).any(-1).sum(-1)
+    k = fwd.shape[-1]
+    return rel, {"token_layers_differing": int((shared < k).sum()),
+                 "token_layers": shared.numel(),
+                 "choices_differing": int((k - shared).sum()),
+                 "choices": fwd.numel()}
+
+
+def routes_line(routes):
+    if routes is None:
+        return ""
+    return (f"; routed experts differing from the forward's: "
+            f"{routes['token_layers_differing']} of "
+            f"{routes['token_layers']} (token, layer) pairs, "
+            f"{routes['choices_differing']} of {routes['choices']} choices")
+
+
+def decode_probe_ms(model, prompt, dev, n=LAUNCH_PROBE_TOKENS, warmup=2):
+    """Median wall (ms) of ``n`` greedy tokens decoded one by one after
+    ``prompt``'s prefill and ``warmup`` tokens: phase 14 reads it before
+    the process's first profiler session and again after phase 13."""
+    import torch
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    seq = prompt.shape[1]
+    with torch.no_grad():
+        logits, cache = model.prefill({"tokens": prompt}, seq + warmup + n)
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        walls = []
+        for pos in range(seq, seq + warmup + n):
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(cache, cur, pos)
+            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            sync()
+            walls.append(time.perf_counter() - t0)
+    return float(np.median(walls[warmup:])) * 1e3
+
+
+def launch_phase(dev, mk, ssm, fa, full=True):
+    """Phase 14: the serving launcher's flow (``repro_torch.launch.serve``)
+    at full published width on ``dev``: granite-3-2b (dense),
+    qwen2-moe-a2.7b (MoE) and falcon-mamba-7b (SSM) in bf16 through the
+    kernels, LAUNCH_REQUESTS requests, MAGMA against herald_like and
+    ai_mt_like, then the MAGMA schedule executed.  The kernels' counts are
+    set to 0 just before the launcher runs and read just after.  Checks
+    every schedule's coverage and makespan launches (one per MAGMA
+    generation, one per heuristic), the scan's (one per falcon prefill
+    layer), no flash launch, and every decode window's tokens; holds the
+    makespan kernel against its plain version on the engine's own tables;
+    prints each tenant's prefill walls and ms per decoded token beside its
+    HBM bound, the decode probe, and the MoE prefill's dropped share; then
+    the reference's decode criterion, reported at full depth in bf16 and
+    held at 4 layers in float32.  Run it before any profiler session of
+    the process.  ``full=False`` takes the smoke configs (a CPU
+    rehearsal).  Returns the phase's summary and, per tenant, the prompt
+    its decode probe took (for ``launch_profile``)."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.bw_allocator import queue_tables, simulate_tables
+    from repro_torch.core.encoding import decode, random_population
+    from repro_torch.core.fitness import FitnessFn
+    from repro_torch.core.strategies import plan_generations
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import (count_active_params,
+                                             count_params, get_model)
+    from repro_torch.serve.engine import MultiTenantEngine
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    tenants = launcher.build_tenants(LAUNCH_ARCHS, LAUNCH_SEED, device=dev,
+                                     full=full)
+    sync()
+    out["build_s"] = time.perf_counter() - t0
+    weight_bytes = {}
+    for t in tenants:
+        n = count_params(t.cfg)
+        check(sum(p.numel() for p in t.model.parameters()) == n,
+              f"{t.name}: parameter count")
+        weight_bytes[t.name] = sum(p.numel() * p.element_size()
+                                   for p in t.model.parameters())
+        print(f"[launch] {t.name} ({t.cfg.family}): {t.cfg.num_layers} "
+              f"layers, d_model {t.cfg.d_model}, {n:,} params in "
+              f"{t.cfg.dtype} ({weight_bytes[t.name] / 1e9:.2f} GB)")
+    qwen = dict((t.name, t) for t in tenants)["qwen2-moe-a2.7b"]
+    active = count_active_params(qwen.cfg)
+    check(not full or active == QWEN_ACTIVE_PARAMS,
+          f"qwen2-moe-a2.7b: {active:,} active params, want "
+          f"{QWEN_ACTIVE_PARAMS:,}")
+    held = (torch.cuda.memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+    print(f"[launch] built in {out['build_s']:.3f} s; qwen2-moe-a2.7b "
+          f"active params {active:,}; device memory held {held:.2f} GiB")
+
+    # the launcher's flow: every schedule's launches, every call's wall
+    parts, walls = [], {t.name: {"prefill": [], "decode": []}
+                        for t in tenants}
+    plain_schedule = MultiTenantEngine.schedule
+
+    def counted_schedule(self, jobs, method=None, **kw):
+        before = mk.LAUNCHES["makespan"]
+        res = plain_schedule(self, jobs, method=method, **kw)
+        parts.append((method or self.method,
+                      mk.LAUNCHES["makespan"] - before, res))
+        return res
+
+    def timed(fn, phase, name):
+        def run(*args, **kwargs):
+            sync()
+            t1 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            sync()
+            walls[name][phase].append(time.perf_counter() - t1)
+            return res
+        return run
+
+    for t in tenants:
+        t.model.prefill = timed(t.model.prefill, "prefill", t.name)
+        t.model.decode_step = timed(t.model.decode_step, "decode", t.name)
+    MultiTenantEngine.schedule = counted_schedule
+    try:
+        mk.reset_launches()
+        ssm.reset_launches()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        res = launcher.run(tenants, requests=LAUNCH_REQUESTS, execute=True,
+                           seed=LAUNCH_SEED, device=dev,
+                           log_fn=lambda m: print(m.replace("[serve]",
+                                                            "[launch]")))
+        sync()
+        out["run_wall_s"] = time.perf_counter() - t0
+        counts = {"makespan": mk.LAUNCHES["makespan"],
+                  "ssm_scan": ssm.LAUNCHES["ssm_scan"],
+                  "flash_attention": fa.LAUNCHES["flash_attention"]}
+    finally:
+        MultiTenantEngine.schedule = plain_schedule
+        for t in tenants:
+            del t.model.prefill, t.model.decode_step
+    jobs, engine = res["jobs"], res["engine"]
+    uids = sorted(j.uid for j in jobs)
+    generations = plan_generations(engine.budget, 100)[0]
+    want_parts = [("magma", generations), ("herald_like", 1),
+                  ("ai_mt_like", 1), ("magma", generations)]
+    check([(m, n) for m, n, _ in parts] == want_parts,
+          f"launch: schedules and their makespan launches "
+          f"{[(m, n) for m, n, _ in parts]}, want {want_parts}")
+    for method, _, sched in parts:
+        check(sorted(u for q in sched["queues"] for u in q) == uids,
+              f"launch: the {method} schedule does not place every job once")
+    check(parts[-1][2] is res["executed"], "launch: the executed schedule "
+                                           "is not the last one")
+    prefills = [j for j in jobs if j.phase == "prefill"]
+    layers = {t.name: t.cfg.num_layers for t in tenants}
+    want_ssm = sum(layers[j.tenant] for j in prefills
+                   if j.tenant == "falcon-mamba-7b") if full else 0
+    want = {"makespan": sum(n for _, n in want_parts), "ssm_scan": want_ssm,
+            "flash_attention": 0}
+    check(counts == want, f"launch path launches {counts}, want {want}")
+    decodes = {j.uid: j for j in jobs if j.phase == "decode"}
+    check(sorted(res["outputs"]) == sorted(decodes),
+          "launch: the outputs do not cover every decode window")
+    for uid, toks in res["outputs"].items():
+        vocab = engine.tenants[decodes[uid].tenant].cfg.vocab
+        check(toks.shape == (1, decodes[uid].tokens)
+              and bool(((toks >= 0) & (toks < vocab)).all()),
+              f"launch: decode job {uid} gave {toks.shape} tokens")
+    out.update(counts=counts, jobs=len(jobs),
+               requests=[list(r) for r in res["requests"]],
+               generated=sum(j.tokens for j in decodes.values()),
+               schedules=[{"method": m, "makespan_launches": n,
+                           "makespan_s": sc["makespan_s"],
+                           "throughput_flops": sc["throughput_flops"],
+                           "search_wall_s": sc["result"].wall_time_s}
+                          for m, n, sc in parts])
+    print(f"[launch] {len(res['requests'])} requests "
+          f"{res['requests']}, {len(jobs)} jobs, "
+          f"{out['generated']} generated tokens; launcher wall "
+          f"{out['run_wall_s']:.3f} s; launches {counts}")
+
+    # the makespan kernel at the launcher's shape, on one population of the
+    # engine's own tables (these launches are not the path's)
+    fit = FitnessFn(engine.analyze(jobs), bw_sys=engine.system_bw,
+                    device=dev)
+    pop = random_population(torch.Generator(device=dev).manual_seed(
+        LAUNCH_SEED), 100, fit.group_size, fit.num_accels, dev)
+    sched = decode(pop.accel, pop.prio, fit.num_accels)
+    qlat, qbw = queue_tables(sched, fit.params.lat, fit.params.bw)
+    qlat, qbw = qlat.contiguous(), qbw.contiguous()
+    what = (f"launcher tables G={fit.group_size} A={fit.num_accels} "
+            "P=100")
+    got = mk.makespan(qlat, qbw, sched.count, fit.params.bw_sys)
+    sync()
+    out["makespan_check"] = compare(
+        got, simulate_tables(qlat, qbw, sched.count, fit.params.bw_sys),
+        what)
+    print(f"[check] {what}: max abs {out['makespan_check'][0]:.3e} "
+          f"max rel {out['makespan_check'][1]:.3e}")
+
+    # each tenant's prefill and decode walls beside its HBM bound
+    out["tenants"] = {}
+    for t in tenants:
+        w = walls[t.name]
+        bound = weight_bytes[t.name] / HBM_BYTES_PER_S * 1e3
+        row = {"prompts": [j.seq for j in prefills if j.tenant == t.name],
+               "prefill_s": w["prefill"],
+               "decode_ms_median": float(np.median(w["decode"])) * 1e3,
+               "decode_ms_mean": float(np.mean(w["decode"])) * 1e3,
+               "decoded": len(w["decode"]), "bound_ms": bound}
+        if t.cfg.n_experts:
+            row["routed_bound_ms"] = (count_active_params(t.cfg) * 2
+                                      / HBM_BYTES_PER_S * 1e3)
+        out["tenants"][t.name] = row
+        print(f"[launch] {t.name}: prefill of "
+              + ", ".join(f"{p} tokens {s * 1e3:.3f} ms"
+                          for p, s in zip(row["prompts"], row["prefill_s"]))
+              + f"; decode {row['decode_ms_median']:.3f} ms per token "
+              f"(median of {row['decoded']}, mean {row['decode_ms_mean']:.3f})"
+              f", HBM bound {bound:.3f} ms (weights once)"
+              + (f", {row['routed_bound_ms']:.3f} ms for the routed experts "
+                 "alone" if t.cfg.n_experts else ""))
+
+    # the MoE prefills' tokens dropped over capacity, and the busiest
+    # expert's share of a layer's (token, expert) pairs
+    dropped, busiest = [0, 0], []
+    plain_moe = L.moe
+
+    def counting_moe(p, x, **kw):
+        group = kw.get("group_tokens", False)
+        xg = x.reshape(1, -1, x.shape[-1]) if group else x
+        r = L.moe_routing(p, xg, n_experts=kw["n_experts"],
+                          top_k=kw["top_k"],
+                          capacity_factor=kw["capacity_factor"])
+        dropped[0] += int((~r.keep).sum())
+        dropped[1] += r.keep.numel()
+        busiest.append(float(torch.bincount(r.top_e.reshape(-1)).max())
+                       / r.keep.numel())
+        return plain_moe(p, x, **kw)
+
+    L.moe = counting_moe
+    try:
+        for j in prefills:
+            if j.tenant == qwen.name:
+                qwen.model.prefill({"tokens": torch.as_tensor(
+                    np.asarray(res["prompts"][j.uid]), device=dev)}, j.seq)
+    finally:
+        L.moe = plain_moe
+    out["moe_prefill_dropped_share"] = dropped[0] / dropped[1]
+    out["moe_busiest_expert_share"] = [min(busiest), max(busiest)]
+    print(f"[launch] qwen2-moe-a2.7b prefills: {dropped[0]} of {dropped[1]} "
+          f"(token, expert) pairs dropped over capacity "
+          f"({out['moe_prefill_dropped_share']:.4%}), capacity factor "
+          f"{qwen.cfg.capacity_factor}; the busiest expert takes "
+          f"{min(busiest):.2%}-{max(busiest):.2%} of a layer's pairs "
+          f"(1/{qwen.cfg.n_experts} = {1 / qwen.cfg.n_experts:.2%} if "
+          "balanced)")
+
+    # the fixed decode probe, before any profiler session of the process
+    probe_prompts = {}
+    for t in tenants[:2]:
+        first = next(j for j in prefills if j.tenant == t.name)
+        probe_prompts[t.name] = torch.as_tensor(
+            np.asarray(res["prompts"][first.uid]), device=dev)
+        ms = decode_probe_ms(t.model, probe_prompts[t.name], dev)
+        out["tenants"][t.name]["probe_ms"] = ms
+        print(f"[launch] {t.name} decode probe ({first.seq}-token prompt, "
+              f"median of {LAUNCH_PROBE_TOKENS} tokens) before any profiler "
+              f"session: {ms:.3f} ms per token")
+
+    # the reference's decode criterion: reported at full depth in bf16...
+    out["decode_rel_full_depth"] = {}
+    for t in tenants:
+        if t.cfg.family not in ("dense", "moe"):
+            continue
+        cfg = t.model.cfg
+        t.model.cfg = drop_free(cfg)
+        rel, routes = decode_vs_forward(t.model, dev, seed=21)
+        t.model.cfg = cfg
+        out["decode_rel_full_depth"][t.name] = rel
+        if routes is not None:
+            out["decode_routes_full_depth"] = routes
+        print(f"[launch] {t.name} full depth, {cfg.dtype}: decode vs "
+              f"teacher-forced logits, max abs diff / max abs {rel:.3e} "
+              f"(reported; the f32 limit is {DECODE_REL})"
+              + routes_line(routes))
+    del tenants, engine, res, parts, qwen
+    free(dev)
+
+    # ... and held at 4 layers in float32
+    out["decode_rel_f32_4_layers"] = {}
+    for arch in LAUNCH_ARCHS[:2]:
+        base = get_config(arch) if full else get_smoke_config(arch)
+        cfg = drop_free(base.replace(num_layers=4, dtype="float32"))
+        model = get_model(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(7))
+        rel, routes = decode_vs_forward(model, dev, seed=22)
+        del model
+        free(dev)
+        out["decode_rel_f32_4_layers"][arch] = rel
+        if routes is not None:
+            out["decode_routes_f32_4_layers"] = routes
+        check(rel < DECODE_REL, f"{arch} 4 layers f32: decode vs "
+                                f"teacher-forced {rel:.3e}, limit "
+                                f"{DECODE_REL}")
+        print(f"[launch] {arch} full width, 4 layers, f32: decode vs "
+              f"teacher-forced logits {rel:.3e} (limit {DECODE_REL})"
+              + routes_line(routes))
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[launch] phase wall {out['phase_wall_s']:.3f} s")
+    return out, probe_prompts
+
+
+def launch_profile(dev, probe_prompts, launch_out):
+    """The end of phase 14, after phase 13: granite-3-2b and
+    qwen2-moe-a2.7b rebuilt as phase 14 built them, the decode probe read
+    again on the same prompts (now after the profiler sessions of phases
+    5, 8, 11 and 12) beside phase 14's reading, then one qwen2-moe decoded
+    token under the profiler: the device's busy share and its top ops.
+    Adds its readings to ``launch_out``."""
+    import torch
+    from repro_torch.launch import serve as launcher
+    t_part = time.perf_counter()
+    tenants = launcher.build_tenants(LAUNCH_ARCHS[:2], LAUNCH_SEED,
+                                     device=dev, full=True)
+    for t in tenants:
+        ms = decode_probe_ms(t.model, probe_prompts[t.name], dev)
+        row = launch_out["tenants"][t.name]
+        row["probe_ms_after_profilers"] = ms
+        print(f"[launch] {t.name} decode probe after the profiler sessions "
+              f"of phases 5, 8, 11 and 12: {ms:.3f} ms per token (before "
+              f"any: {row['probe_ms']:.3f})")
+    qwen = tenants[1].model
+    prompt = probe_prompts[tenants[1].name]
+    seq = prompt.shape[1]
+    with torch.no_grad():
+        logits, cache = qwen.prefill({"tokens": prompt}, seq + 4)
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        for pos in range(seq, seq + 2):                 # warm-up tokens
+            logits, cache = qwen.decode_step(cache, cur, pos)
+            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        prof = device_profile(dev, lambda: qwen.decode_step(cache, cur,
+                                                            seq + 2))
+    launch_out["profile_qwen_token"] = prof
+    if prof is None:
+        print("[profile] the profiler saw no device time: device busy share "
+              "not measured")
+    else:
+        print(f"[profile] one qwen2-moe-a2.7b decoded token: wall "
+              f"{prof['wall_ms']:.3f} ms, device busy "
+              f"{prof['device_busy_ms']:.3f} ms "
+              f"({prof['device_busy_share']:.1%}) over {prof['device_ops']} "
+              "device ops")
+        for k, v in prof["top_kernels_ms"]:
+            print(f"[profile]   {v:10.3f} ms  {k[:100]}")
+    del tenants, qwen, cache, logits
+    free(dev)
+    launch_out["profile_part_wall_s"] = time.perf_counter() - t_part
+    print(f"[launch] rebuilt probe and profile wall "
+          f"{launch_out['profile_part_wall_s']:.3f} s")
+
+
 def main():
     import torch
 
@@ -1322,8 +1790,10 @@ def main():
         main_cases[setting] = (fit, pop, qlat, qbw, count, bw_sys)
         kernel_vs_plain(qlat, qbw, count, bw_sys,
                         f"Mix G=100 {setting} A={fit.num_accels} P=100")
+    # the last is phase 14's: the launcher's 15 jobs on 8 submeshes
     for seed, (G, A, P, bw_sys) in enumerate([(37, 5, 7, 3.0), (130, 3, 8, 10.0),
-                                              (12, 9, 5, 1.0)]):
+                                              (12, 9, 5, 1.0),
+                                              (15, 8, 100, 4.0)]):
         qlat, qbw, count, _ = random_tables(seed, P, G, A)
         kernel_vs_plain(qlat, qbw, count, bw_sys, f"G={G} A={A} P={P}")
     qlat, qbw, count, _ = random_tables(10, 2, 1, 3)
@@ -1390,7 +1860,11 @@ def main():
                  (2, 16, 128, 8, torch.float32), (1, 64, 384, 64, torch.float32),
                  (1, 32, 128, 16, torch.bfloat16),
                  (1, PROMPT, 8192, 16, torch.bfloat16),
-                 (1, PROMPT, 4096, 64, torch.bfloat16)]
+                 (1, PROMPT, 4096, 64, torch.bfloat16),
+                 # falcon-mamba's prefills in phase 14: L not a multiple of
+                 # the kernel's 512-step chunk
+                 (1, 201, 8192, 16, torch.bfloat16),
+                 (1, 354, 8192, 16, torch.bfloat16)]
     for i, (Bt, L, D, N, low) in enumerate(ssm_cases):
         args = ssm_inputs(dev, 100 + i, Bt, L, D, N, low)
         y, h = ssm.ssm_scan(*args)
@@ -1419,6 +1893,16 @@ def main():
     print("[check] ssm_scan Bt=2 rows == two Bt=1 launches, bitwise")
     flash_errs, flash_main = flash_checks(dev, fa, flash_attention_ref,
                                           torch.cuda.synchronize)
+
+    # -- 14. launch: the serving launcher at full width -------------------
+    # taken here, before the process's first profiler session (phase 5):
+    # one session slows every later host-bound decode step; the profiled
+    # token comes last (launch_profile)
+    launch_out, probe_prompts = launch_phase(dev, mk, ssm, fa)
+    launch_counts = launch_out["counts"]
+    errs.append(launch_out["makespan_check"])
+    print(f"[launch] launch path launches: {launch_counts}")
+    free(dev)
 
     # -- 4. main path -----------------------------------------------------
     setting, budget, bw_sys_main = "S4", 10_000, 256 * GB
@@ -1783,6 +2267,11 @@ def main():
           "other")
     print(f"[memo] memo path launches: {memo_counts}")
 
+    # -- 14, its end: the decode probe again, one profiled MoE token -----
+    free(dev)
+    launch_profile(dev, probe_prompts, launch_out)
+    del probe_prompts
+
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
     k_ms, p_ms, b_ms, b_by, shape, kh_ms = ssm_times["falcon"]
@@ -1793,12 +2282,13 @@ def main():
         "source": "src/repro_torch/kernels/csrc/makespan.cu",
         "replaces": "src/repro/kernels/makespan.py:36",
         "launches": launches + serve_counts[1] + compare_counts["makespan"]
-        + memo_counts["makespan"],
+        + memo_counts["makespan"] + launch_counts["makespan"],
         "launches_by_path": {"m3e_search": launches,
                              "serve": serve_counts[1],
                              "train_eval": train_eval_counts["makespan"],
                              "compare": compare_counts["makespan"],
-                             "memo": memo_counts["makespan"]},
+                             "memo": memo_counts["makespan"],
+                             "launch": launch_counts["makespan"]},
         "launches_per_search": launches // 4,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1815,10 +2305,11 @@ def main():
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:28",
-        "launches": serve_counts[0],
+        "launches": serve_counts[0] + launch_counts["ssm_scan"],
         "launches_by_path": {"m3e_search": 0, "serve": serve_counts[0],
                              "train_eval": train_eval_counts["ssm_scan"],
-                             "compare": 0, "memo": 0},
+                             "compare": 0, "memo": 0,
+                             "launch": launch_counts["ssm_scan"]},
         "max_abs_err": max(e[0] for e in ssm_errs),
         "max_rel_err": max(e[1] for e in ssm_errs),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1829,7 +2320,8 @@ def main():
         "ptxas": ptxas_json(ptxas["ssm_scan"]),
         "shape_zamba2": dict(zip(("Bt", "L", "D", "N"), z_shape)),
         "serve": serve_out, "model_f32_logits_max_abs_diff": model_diff,
-        "full_depth_bf16": full_depth, "profile": serve_profile, "ok": True,
+        "full_depth_bf16": full_depth, "profile": serve_profile,
+        "launch": launch_out, "ok": True,
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1838,7 +2330,8 @@ def main():
         "launches_by_path": {"m3e_search": 0, "serve": 0,
                              "train_eval": train_eval_counts[
                                  "flash_attention"], "compare": 0,
-                             "memo": 0},
+                             "memo": 0,
+                             "launch": launch_counts["flash_attention"]},
         "launches_per_eval": {k: v["flash_launches"] for k, v in
                               evals.items()},
         "max_abs_err": max(e[0] for e in flash_errs),

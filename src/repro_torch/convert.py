@@ -60,12 +60,21 @@ def _fill(module: torch.nn.Module, tree, index=None) -> None:
         p.data.copy_(torch.as_tensor(leaf.astype(np.float32)).to(p.dtype))
 
 
+def _fill_tree(module: torch.nn.Module, tree, index=None) -> None:
+    """``_fill`` of ``module`` and, under the same names, of every
+    submodule below it (a transformer layer's ``attn`` and ``mlp``, or its
+    ``moe`` and the ``moe``'s ``shared`` MLP)."""
+    _fill(module, tree, index)
+    for name, sub in module.named_children():
+        _fill_tree(sub, _field(tree, name), index)
+
+
 def model_from_numpy(cfg, values, device):
     """The port's ``MambaLM`` / ``HybridLM`` / ``TransformerLM`` for ``cfg``
     holding the weights of a JAX model's value tree
     (``module.split(model.init(key))[0]`` with numpy leaves).  The stacked
-    ``(L, ...)`` layer leaves are sliced into the per-layer modules (a
-    transformer layer's ``attn`` and ``mlp`` into its submodules); the
+    ``(L, ...)`` layer leaves are sliced into the per-layer modules and
+    their submodules, down to a MoE layer's shared experts; the
     hybrid's shared attention and MLP leaves, stacked ``(1, ...)``, give
     their one block."""
     from repro_torch.models.registry import get_model
@@ -75,9 +84,7 @@ def model_from_numpy(cfg, values, device):
     _fill(model, values)                    # embed, final_norm
     lyr = values["layers"]
     for i, lp in enumerate(model.layers):
-        _fill(lp, lyr, index=i)
-        for name, sub in lp.named_children():   # the transformer's attn, mlp
-            _fill(sub, _field(lyr, name), index=i)
+        _fill_tree(lp, lyr, index=i)
     if cfg.family == "hybrid":
         shared = values["shared"]
         sh = model.shared

@@ -4,9 +4,9 @@ The same fields as ``repro.models.config.ModelConfig``, so that one config
 means the same model in both packages.  ``dtype_torch`` takes the place of
 ``dtype_jnp``.  Some fields steer only the JAX package's lowering or its
 sharding (``scan_layers``, ``fsdp``, ``attn_batch_shard``,
-``ssm_time_chunk``, ``moe_group_decode``): they are kept for parity and
-mean nothing to the port yet.  ``use_flash`` selects the hand-written
-kernels (the selective scan and the forward-only flash attention),
+``ssm_time_chunk``): they are kept for parity and mean nothing to the
+port yet.  ``use_flash`` selects the hand-written kernels (the selective
+scan and the forward-only flash attention),
 ``remat`` recomputes each transformer block in the backward pass, and
 ``ce_seq_chunk`` chunks the cross-entropy, as in the JAX package.
 """
@@ -56,11 +56,13 @@ class ModelConfig:
     # attention memory control: process queries in chunks of this size when
     # S > 2*chunk (exact, O(S*chunk) memory; SWA also slices the KV range)
     attn_q_chunk: int = 1024
-    # decode MoE grouping, attention batch re-sharding and FSDP: JAX-package
-    # options, kept for parity
+    # decode_step's default MoE routing group: the whole batch (True) or
+    # each row (False)
     moe_group_decode: bool = False
     # fused cross-entropy: the loss's logits in sequence chunks of this size
     ce_seq_chunk: int = 0
+    # attention batch re-sharding and FSDP: JAX-package options, kept for
+    # parity
     attn_batch_shard: bool = False
     fsdp: bool = True
     # numerics / lowering

@@ -1,6 +1,6 @@
-"""The building blocks of the port's language models: the SSM and hybrid
-families that the serving engine runs, and the dense transformer that the
-trainer trains and evaluates.
+"""The building blocks of the port's language models: the SSM, hybrid,
+dense and MoE families that the serving engine runs, and the dense
+transformer that the trainer trains and evaluates.
 
 Plain functions on tensors, as in ``repro.models.layers``, with the same
 layouts (activations ``(B, S, d)``, heads ``(B, S, H, hd)``, weights
@@ -9,7 +9,7 @@ The parameters live in small ``nn.Module``s (``AttnParams``,
 ``MlpParams``) whose fields are the JAX package's ``NamedTuple`` fields
 without the leading layer axis.  These are plain matrix products that the
 JAX package computes outside any Pallas kernel, so ``torch.matmul`` and
-``einsum`` compute them here too.
+``einsum`` compute them here too, the MoE's expert products included.
 
 Attention: GQA, RoPE, causal masking, sliding windows and a ring-buffer
 KV cache for decode (capacity ``seq_len`` for full attention).
@@ -22,6 +22,10 @@ plain route, and a grad-enabled call of the kernel route raises.
 ``decode_attention`` writes the new slot into the cache it is given, in
 place, where the JAX package returns a new cache: the caller never reads
 the old one, and a copy per token would move the whole cache.
+
+MoE: routed top-k with per-group capacity and scatter dispatch into an
+``(G, E, C, d)`` buffer, as in the JAX package; dropped tokens (over
+capacity) contribute nothing.
 """
 from __future__ import annotations
 
@@ -308,6 +312,139 @@ class MlpParams(nn.Module):
 def mlp(p: MlpParams, x: torch.Tensor) -> torch.Tensor:
     h = F.silu((x @ p.w_gate).float()).to(x.dtype) * (x @ p.w_up)
     return h @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (routed top-k, per-group capacity, scatter dispatch)
+# ---------------------------------------------------------------------------
+class MoeParams(nn.Module):
+    """The reference's ``init_moe``: w_router (d, E) in float32 whatever
+    the model's dtype, w_gate and w_up (E, d, ff), w_down (E, ff, d), and
+    ``shared``, the shared experts as one fused ``MlpParams`` (None
+    without shared experts).  ``n_experts`` routed experts are stored as
+    E = max(n_experts, pad_experts_to); the padding experts are never
+    routed."""
+
+    def __init__(self, gen, d_model: int, n_experts: int, expert_ff: int,
+                 n_shared: int, dtype, device, pad_experts_to: int = 0):
+        super().__init__()
+        E = max(n_experts, pad_experts_to)
+        std = d_model ** -0.5
+        self.shared = (MlpParams(gen, d_model, n_shared * expert_ff, dtype,
+                                 device) if n_shared else None)
+        self.w_router = param(gen, (d_model, E), torch.float32, device,
+                              stddev=std)
+        self.w_gate = param(gen, (E, d_model, expert_ff), dtype, device,
+                            stddev=std)
+        self.w_up = param(gen, (E, d_model, expert_ff), dtype, device,
+                          stddev=std)
+        self.w_down = param(gen, (E, expert_ff, d_model), dtype, device,
+                            stddev=expert_ff ** -0.5)
+
+
+class MoeRouting(NamedTuple):
+    """Where ``moe`` sends each of a group's T*k (token, choice) pairs, in
+    token-major order."""
+    top_p: torch.Tensor      # (G, T, K) renormalised router weights
+    top_e: torch.Tensor      # (G, T, K) chosen experts, best first
+    aux: torch.Tensor        # () float32 Switch load-balance loss
+    slot: torch.Tensor       # (G, T*K) slot in the expert, min(pos, C-1)
+    keep: torch.Tensor       # (G, T*K) pos < C: the pair is not dropped
+    capacity: int            # C, slots per expert and group
+
+
+def moe_routing(p: MoeParams, xg: torch.Tensor, *, n_experts: int,
+                top_k: int, capacity_factor: float = 1.25) -> MoeRouting:
+    """The router of ``moe`` on its routing groups ``xg`` (G, T, d):
+    float32 logits (padding experts at -1e30), softmax, top-k
+    renormalised, the aux loss, and each pair's capacity slot.  The top-k
+    is a stable sort, so tied experts come lowest index first, as
+    ``lax.top_k`` gives them."""
+    G, T = xg.shape[0], xg.shape[1]
+    E = p.w_gate.shape[0]
+    logits = xg.float() @ p.w_router                         # (G, T, E)
+    if E > n_experts:
+        pad = torch.arange(E, device=xg.device) >= n_experts
+        logits = logits.masked_fill(pad, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :top_k], top_e[..., :top_k]   # (G, T, K)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # load-balance aux loss (Switch-style): E * sum(f_e * p_e)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(top_e, E).sum(2).float().mean(dim=(0, 1)) / top_k
+    aux = n_experts * torch.sum(me * ce)
+
+    C = max(1, math.ceil(T * top_k * capacity_factor / n_experts))
+    e_flat = top_e.reshape(G, T * top_k)                     # (G, TK)
+    oh = F.one_hot(e_flat, E)                                # (G, TK, E)
+    pos = torch.cumsum(oh, dim=1) - oh
+    pos_sel = torch.gather(pos, -1, e_flat[..., None])[..., 0]
+    return MoeRouting(top_p, top_e, aux, pos_sel.clamp_max(C - 1),
+                      pos_sel < C, C)
+
+
+def expert_matmul_f32(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``buf`` (G, E, C, d) @ ``w`` (E, d, f) -> (G, E, C, f) in float32:
+    the products of the input dtype's values summed in float32 and never
+    rounded to the input dtype.  On the card a bf16/f16 product asks
+    cuBLAS for float32 output (``out_dtype``), so no float32 copy of the
+    experts' weights is made; the CPU has no such product and widens both
+    operands."""
+    G, E, C, d = buf.shape
+    a = buf.transpose(0, 1).reshape(E, G * C, d)
+    if a.dtype == torch.float32:
+        h = torch.bmm(a, w)
+    elif a.is_cuda:
+        h = torch.bmm(a, w, out_dtype=torch.float32)
+    else:
+        h = torch.bmm(a.float(), w.float())
+    return h.reshape(E, G, C, -1).transpose(0, 1)
+
+
+def moe(p: MoeParams, x: torch.Tensor, *, n_experts: int, top_k: int,
+        capacity_factor: float = 1.25, group_tokens: bool = False):
+    """Routed MoE.  x: (B, S, d) -> (y, aux_loss).
+
+    Routing groups are batch rows; with ``group_tokens`` the whole (B*S)
+    token stream forms one routing group.  Only the first ``n_experts``
+    experts are routable.  Each group's expert e holds C =
+    ceil(T*k*cf / n_experts) tokens, taken in token-major (T*k) order;
+    the rest are dropped (``moe_routing``).  The reference adds each
+    token into its slot; a kept (e, slot) pair is unique and a dropped
+    one adds zero, so a masked write of the kept pairs gives the same
+    buffer.  The gate product comes out in float32 before the SiLU, as
+    the reference's ``preferred_element_type=float32`` asks
+    (``expert_matmul_f32``); the up and down products are in the input
+    dtype."""
+    B, S, d = x.shape
+    E = p.w_gate.shape[0]
+    xg = x.reshape(1, B * S, d) if group_tokens else x
+    G, T = xg.shape[0], xg.shape[1]
+    r = moe_routing(p, xg, n_experts=n_experts, top_k=top_k,
+                    capacity_factor=capacity_factor)
+    C = r.capacity
+    e_flat = r.top_e.reshape(G, T * top_k)
+
+    # kept pairs to their (g, e, slot) row, dropped ones to a spare last row
+    g_idx = torch.arange(G, device=x.device)[:, None]
+    dest = torch.where(r.keep, (g_idx * E + e_flat) * C + r.slot, G * E * C)
+    buf = torch.zeros((G * E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf[dest.reshape(-1)] = xg.repeat_interleave(top_k, dim=1).reshape(-1, d)
+    buf = buf[:-1].reshape(G, E, C, d)
+
+    h = F.silu(expert_matmul_f32(buf, p.w_gate))
+    h = h.to(x.dtype) * torch.einsum("gecd,edf->gecf", buf, p.w_up)
+    y_buf = torch.einsum("gecf,efd->gecd", h, p.w_down)
+
+    y_tok = y_buf[g_idx, e_flat, r.slot] * r.keep[..., None].to(x.dtype)
+    y = (y_tok.reshape(G, T, top_k, d)
+         * r.top_p[..., None].to(y_tok.dtype)).sum(dim=2)
+    y = y.reshape(B, S, d)
+    if p.shared is not None:
+        y = y + mlp(p.shared, x)
+    return y, r.aux
 
 
 # ---------------------------------------------------------------------------

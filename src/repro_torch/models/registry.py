@@ -1,10 +1,11 @@
 """Architecture registry: config -> model, and the parameter counts that
 the serving engine's cost model and the trainer's FLOP count read.
 
-The SSM and hybrid families serve (``MambaLM``, ``HybridLM``); the dense
-and VLM families train and evaluate (``TransformerLM``, whose attention has
-a forward-only flash kernel, as in the JAX package).  MoE and encdec raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The SSM, hybrid, dense and MoE families serve (``MambaLM``, ``HybridLM``,
+``TransformerLM``); the dense and VLM families also train and evaluate
+(``TransformerLM``, whose attention has a forward-only flash kernel, as in
+the JAX package).  encdec raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -16,17 +17,16 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba import HybridLM, MambaLM
 from repro_torch.models.module import count_params as _count
-from repro_torch.models.transformer import (ENCDEC_LATER, MOE_LATER,
-                                            TransformerLM)
+from repro_torch.models.transformer import ENCDEC_LATER, TransformerLM
 
 MODEL_FAMILIES = {
     "dense": TransformerLM,
+    "moe": TransformerLM,
     "vlm": TransformerLM,
     "ssm": MambaLM,
     "hybrid": HybridLM,
 }
 _LATER = {
-    "moe": MOE_LATER,
     "encdec": ENCDEC_LATER,
 }
 
@@ -50,10 +50,17 @@ def count_params(cfg: ModelConfig) -> int:
     return _count(get_model(cfg, device="meta"))
 
 
+@functools.lru_cache(maxsize=64)
 def count_active_params(cfg: ModelConfig) -> int:
-    """Params touched per token.  The ported families have no routed
-    experts, so every parameter is active."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "active parameters of a MoE model: " + _LATER["moe"])
-    return count_params(cfg)
+    """Params touched per token (MoE: top_k of n_experts routed).  As in
+    the reference, the routed weights are counted over the padded expert
+    axis but scaled by ``top_k / n_experts``: the serving engine's job
+    costs read this number, so it is kept as the reference computes it."""
+    total = count_params(cfg)
+    if cfg.n_experts == 0:
+        return total
+    moe = get_model(cfg, device="meta").layers[0].moe
+    routed = cfg.num_layers * sum(w.numel() for w in
+                                  (moe.w_gate, moe.w_up, moe.w_down))
+    active_routed = routed * cfg.top_k / max(cfg.n_experts, 1)
+    return int(total - routed + active_routed)

@@ -1,23 +1,29 @@
-"""Decoder-only transformer LM, dense and VLM-prefix families (granite,
-danube, stablelm, phi3, llava), ported from ``repro.models.transformer``
-for training and evaluation.
+"""Decoder-only transformer LM, dense, MoE and VLM-prefix families
+(granite, danube, stablelm, phi3, qwen2-moe, moonshot, llava), ported
+from ``repro.models.transformer`` for training, evaluation and serving.
 
 The JAX package scans one stacked block over the layers; here each layer
-is a ``DenseBlock`` module in a ``ModuleList`` (the JAX ``layers`` value
+is a ``Block`` module in a ``ModuleList`` (the JAX ``layers`` value
 tree's fields without the leading layer axis), and the forward pass is a
-Python loop over them.  ``cfg.remat`` recomputes each block in the
-backward pass (``torch.utils.checkpoint``) when autograd records, as
+Python loop over them.  A MoE model's block holds ``moe`` where a dense
+one holds ``mlp``, with the routed experts padded to a multiple of 16 as
+in the JAX package.  ``cfg.remat`` recomputes each block in the backward
+pass (``torch.utils.checkpoint``) when autograd records, as
 ``jax.checkpoint`` does in the reference.  ``cfg.use_flash`` sends
 ``full_attention`` through the flash-attention kernel, which is
 forward-only as in the JAX package: evaluate with it under
-``torch.no_grad()``, train without it.
+``torch.no_grad()``, train without it.  Serving (``prefill`` /
+``decode_step``) runs ``prefill_attention`` / ``decode_attention``, plain
+products in both packages; the KV cache is one ``KVCache`` whose leaves
+carry the layer axis first, as the reference's scan stacks them, and
+``decode_step`` writes it in place.
 
-Not ported yet: MoE (``cfg.n_experts``), ``EncDecLM`` and the serving
-methods (``init_cache`` / ``prefill`` / ``decode_step``); they raise
-``NotImplementedError`` naming their ROADMAP item.
+Not ported yet: ``EncDecLM``; it raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -28,14 +34,15 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import ones_init, param, weights_generator
 
-MOE_LATER = "ROADMAP Queue 1 item 11 (TransformerLM with MoE, layers.moe)"
-SERVING_LATER = ("ROADMAP Queue 1 item 11 (TransformerLM serving: "
-                 "init_cache, prefill, decode_step)")
 ENCDEC_LATER = "ROADMAP Queue 1 item 11 (EncDecLM, layers.cross_attention)"
 
 
-class DenseBlock(nn.Module):
-    """One layer: attn_norm, attn, mlp_norm, mlp."""
+def _pad_experts(n: int, multiple: int = 16) -> int:
+    return int(math.ceil(n / multiple) * multiple)
+
+
+class Block(nn.Module):
+    """One layer: attn_norm, attn, mlp_norm, and mlp (dense) or moe."""
 
     def __init__(self, gen, cfg: ModelConfig, device):
         super().__init__()
@@ -44,32 +51,48 @@ class DenseBlock(nn.Module):
         self.attn = L.AttnParams(gen, cfg.d_model, cfg.n_heads,
                                  cfg.n_kv_heads, cfg.hd, dt, device)
         self.mlp_norm = L.init_rmsnorm(gen, cfg.d_model, dt, device)
-        self.mlp = L.MlpParams(gen, cfg.d_model, cfg.d_ff, dt, device)
+        if cfg.n_experts > 0:
+            self.moe = L.MoeParams(gen, cfg.d_model, cfg.n_experts,
+                                   cfg.expert_ff, cfg.n_shared_experts, dt,
+                                   device,
+                                   pad_experts_to=_pad_experts(cfg.n_experts))
+        else:
+            self.mlp = L.MlpParams(gen, cfg.d_model, cfg.d_ff, dt, device)
 
 
 class TransformerLM(nn.Module):
-    """granite / danube / stablelm / phi3 / llava (dense and VLM)."""
+    """granite / danube / stablelm / phi3 / qwen2-moe / moonshot / llava."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.n_experts > 0:
-            raise NotImplementedError(f"{cfg.name}: MoE layers are not "
-                                      f"ported yet: {MOE_LATER}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.vocab_padded = L.pad_vocab(cfg.vocab)
+        self.is_moe = cfg.n_experts > 0
         gen = weights_generator(device, generator)
         dt = cfg.dtype_torch
         self.embed = L.init_embedding(gen, self.vocab_padded, cfg.d_model, dt,
                                       device)
-        self.layers = nn.ModuleList(DenseBlock(gen, cfg, device)
+        self.layers = nn.ModuleList(Block(gen, cfg, device)
                                     for _ in range(cfg.num_layers))
         self.final_norm = param(gen, (cfg.d_model,), dt, device,
                                 init=ones_init)
 
     # -- forward --------------------------------------------------------------
-    def _block(self, lp: DenseBlock, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, lp: Block, h: torch.Tensor, moe_group: bool = False
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The block's MLP or MoE on the normed ``h``: (out, aux loss, None
+        for the dense family)."""
+        cfg = self.cfg
+        if self.is_moe:
+            return L.moe(lp.moe, h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor,
+                         group_tokens=moe_group)
+        return L.mlp(lp.mlp, h), None
+
+    def _block(self, lp: Block, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.cfg
         h = L.rms_norm(lp.attn_norm, x)
         h = L.full_attention(lp.attn, h, n_heads=cfg.n_heads,
@@ -79,20 +102,23 @@ class TransformerLM(nn.Module):
                              use_flash=cfg.use_flash,
                              q_chunk=cfg.attn_q_chunk)
         x = x + h
-        h = L.rms_norm(lp.mlp_norm, x)
-        return x + L.mlp(lp.mlp, h)
+        h, aux = self._ffn(lp, L.rms_norm(lp.mlp_norm, x))
+        return x + h, aux
 
     def hidden_states(self, x: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Run the layer stack over embedded inputs x: (B, S, d).  Returns
-        (final-normed states, aux loss); the dense family's aux is 0."""
+        (final-normed states, aux loss summed over the layers; 0 for the
+        dense family)."""
         recompute = self.cfg.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in self.layers:
             if recompute:
-                x = checkpoint(self._block, lp, x, use_reentrant=False)
+                x, a = checkpoint(self._block, lp, x, use_reentrant=False)
             else:
-                x = self._block(lp, x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                x, a = self._block(lp, x)
+            if a is not None:
+                aux = aux + a
         return L.rms_norm(self.final_norm, x), aux
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
@@ -125,15 +151,57 @@ class TransformerLM(nn.Module):
                          self.vocab_padded, self.cfg.ce_seq_chunk)
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
-    # -- serving (not ported yet) --------------------------------------------
+    # -- serving --------------------------------------------------------------
     def cache_capacity(self, seq_len: int) -> int:
-        raise NotImplementedError(SERVING_LATER)
+        window = self.cfg.sliding_window
+        return window if window and seq_len > window else seq_len
 
-    def init_cache(self, batch: int, seq_len: int):
-        raise NotImplementedError(SERVING_LATER)
+    def init_cache(self, batch: int, seq_len: int) -> L.KVCache:
+        cfg = self.cfg
+        one = L.init_kv_cache(batch, self.cache_capacity(seq_len),
+                              cfg.n_kv_heads, cfg.hd, cfg.dtype_torch,
+                              self.device)
+        return L.KVCache(*(a[None].repeat((cfg.num_layers,) + (1,) * a.dim())
+                           for a in one))
 
+    @torch.no_grad()
     def prefill(self, batch, seq_len: int):
-        raise NotImplementedError(SERVING_LATER)
+        """Embed and run the layers, filling a cache of
+        ``cache_capacity(seq_len)`` slots.  Returns (last logits, cache)."""
+        cfg = self.cfg
+        x = self.embed_inputs(batch)
+        cap = self.cache_capacity(seq_len)
+        kvs = []
+        for lp in self.layers:
+            a_out, kv = L.prefill_attention(
+                lp.attn, L.rms_norm(lp.attn_norm, x), cap,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                rope_theta=cfg.rope_theta, window=cfg.sliding_window,
+                q_chunk=cfg.attn_q_chunk)
+            x = x + a_out
+            x = x + self._ffn(lp, L.rms_norm(lp.mlp_norm, x))[0]
+            kvs.append(kv)
+        h = L.rms_norm(self.final_norm, x[:, -1:])
+        cache = L.KVCache(*(torch.stack(leaf) for leaf in zip(*kvs)))
+        return self._logits(h), cache
 
-    def decode_step(self, cache, tokens, cur_pos: int, moe_group=None):
-        raise NotImplementedError(SERVING_LATER)
+    @torch.no_grad()
+    def decode_step(self, cache: L.KVCache, tokens, cur_pos: int,
+                    moe_group: Optional[bool] = None):
+        """tokens: (B, 1); cur_pos: int.  -> (logits (B, 1, V), cache),
+        the cache written in place.  ``moe_group`` (default
+        ``cfg.moe_group_decode``) routes the batch as one group."""
+        cfg = self.cfg
+        if moe_group is None:
+            moe_group = cfg.moe_group_decode
+        x = L.embed(self.embed, tokens)
+        for i, lp in enumerate(self.layers):
+            a_out, _ = L.decode_attention(
+                lp.attn, L.rms_norm(lp.attn_norm, x),
+                L.KVCache(cache.k[i], cache.v[i], cache.pos[i]), cur_pos,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                rope_theta=cfg.rope_theta, window=cfg.sliding_window)
+            x = x + a_out
+            x = x + self._ffn(lp, L.rms_norm(lp.mlp_norm, x), moe_group)[0]
+        h = L.rms_norm(self.final_norm, x)
+        return self._logits(h), cache

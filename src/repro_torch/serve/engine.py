@@ -15,10 +15,13 @@ feature, with the JAX package's hardware adaptation (its DESIGN.md §3):
 The cost model stays the TPU one so that the tables, and with them the
 schedules, are the JAX engine's bit for bit.  The engine batches requests
 into job groups, profiles them against every submesh, runs MAGMA (the
-port's ``run_strategy``, on ``device``) and returns the mapping and its
-BW-allocator makespan.  ``schedule(..., execute=True)`` also runs the
-jobs: each tenant's model serves its prefills and decode windows on the
-tenant's device, through the CUDA selective-scan kernel on the card.
+port's ``run_strategy``, on ``device``) or any other registered method
+(the host heuristics and RL included) and returns the mapping and its
+BW-allocator makespan; ``schedule_front`` co-searches several objectives
+and returns the frontier of complete schedules.  ``schedule(...,
+execute=True)`` also runs the jobs: each tenant's model (dense, MoE, SSM
+or hybrid) serves its prefills and decode windows on the tenant's device,
+the SSM prefills through the CUDA selective-scan kernel on the card.
 
 The JAX engine sends device-resident methods through its stream service,
 which its own docstring states is bit-identical to a direct
@@ -38,6 +41,7 @@ from repro_torch.core.bw_allocator import simulate_numpy
 from repro_torch.core.encoding import decode_to_lists
 from repro_torch.core.fitness import FitnessFn
 from repro_torch.core.job_analyzer import table_from_arrays
+from repro_torch.core.pareto import pareto_front
 from repro_torch.costmodel.tpu import TPUSubmesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import count_active_params
@@ -89,7 +93,8 @@ class TenantSLO:
 
 @dataclasses.dataclass
 class Tenant:
-    """A served model: ``model`` (``MambaLM`` / ``HybridLM``) holds its
+    """A served model: ``model`` (``TransformerLM`` for the dense and MoE
+    families, ``MambaLM`` / ``HybridLM`` for SSM and hybrid) holds its
     weights on its device."""
     name: str
     cfg: ModelConfig
@@ -241,6 +246,46 @@ class MultiTenantEngine:
         if execute:
             out["outputs"] = self.execute(jobs, queues, prompts)
         return out
+
+    def schedule_front(self, jobs: Sequence[ServeJob],
+                       objectives: Sequence[str] = ("latency", "energy",
+                                                    "edp"),
+                       method: str = "nsga2") -> Dict:
+        """Co-search several serving objectives at once -> the frontier.
+
+        Same profile tables as :meth:`schedule` (the energy column comes
+        from whole-slice board power) and a vector objective; the search
+        keeps its converged population and ``pareto_front`` extracts the
+        front from it, as ``M3E.search_front`` does.  Returns the
+        ``ParetoFront`` plus, for each front point, the decoded queues and
+        simulated makespan: every candidate is a complete schedule."""
+        from repro_torch.core.strategies import get_strategy, run_strategy
+        table = self.analyze(jobs)
+        fit = FitnessFn(table, bw_sys=self.system_bw,
+                        objective=tuple(objectives), device=self.device)
+        strategy = get_strategy(method)
+        if not getattr(strategy, "multi_objective", False):
+            raise ValueError(
+                f"method {method!r} is single-objective; schedule_front "
+                "needs a multi_objective strategy such as 'nsga2'")
+        res = run_strategy(strategy, fit, budget=self.budget, seed=self.seed,
+                           keep_population=True, device=self.device)
+        front = pareto_front(fit, res.final_population,
+                             n_samples=res.n_samples,
+                             wall_time_s=res.wall_time_s)
+        points = []
+        for k in range(len(front)):
+            pt = front.point(k)
+            local = decode_to_lists(pt["accel"], pt["prio"],
+                                    len(self.submeshes))
+            makespan = simulate_numpy(local, table.lat, table.bw,
+                                      self.system_bw)
+            points.append({
+                "objectives": {n: pt[n] for n in front.names},
+                "queues": [[int(jobs[i].uid) for i in q] for q in local],
+                "makespan_s": float(makespan),
+            })
+        return {"front": front, "points": points, "table": table}
 
     # -- execution (functional correctness on the scheduled order) -------------
     def execute(self, jobs: Sequence[ServeJob], queues: List[List[int]],

@@ -43,6 +43,7 @@ def test_port_package_is_walked():
     files = _port_files()
     for part in (("kernels", "makespan.py"), ("memo", "engine.py"),
                  ("memo", "store.py"), ("memo", "fingerprint.py"),
-                 ("obs", "trace.py"), ("core", "warmstart.py")):
+                 ("obs", "trace.py"), ("core", "warmstart.py"),
+                 ("launch", "serve.py"), ("launch", "train.py")):
         assert os.path.join(PORT, *part) in files
     assert len(files) > 20

@@ -781,7 +781,11 @@ def measure_near_hit_ratios(setting="S4", bw=256, G=100, budget=10_000,
     and with the other package's donor (the same population through the
     other package's ``init``); the geomean of each column; and the
     geomean best fitness of the warm search's first generation (the
-    transfer itself).  Prints one line per seed and one per sibling."""
+    transfer itself); and the spread: each column's standard deviation
+    of log ratios, and the port/reference geomean ratio with a 95%
+    interval (normal, unpaired: the packages' seeds draw other streams),
+    each with its own donor and with the same donor.  Prints one line per
+    seed and a few per sibling."""
     from repro.core.strategies import WarmStart as RefWarmStart
     from repro_torch.core.m3e import geomean
     groups = build_task_groups("Mix", group_size=G, num_groups=5, seed=0)
@@ -840,10 +844,22 @@ def measure_near_hit_ratios(setting="S4", bw=256, G=100, budget=10_000,
               + ", ".join(f"{c} {geomean(v):.4f}" for c, v in cols.items())
               + f"; first warm generation port {p0:.4e}, reference "
               f"{r0:.4e}")
+        logs = {c: np.log(np.asarray(v)) for c, v in cols.items()}
+        print("    log sd " + ", ".join(f"{c} {v.std(ddof=1):.4f}"
+                                        for c, v in logs.items()))
+        for what, a, b in (("own donors", "port", "ref"),
+                           ("port's donor", "port", "ref_portdonor"),
+                           ("reference's donor", "port_refdonor", "ref")):
+            d = logs[a].mean() - logs[b].mean()
+            se = np.sqrt(logs[a].var(ddof=1) / len(seeds)
+                         + logs[b].var(ddof=1) / len(seeds))
+            print(f"    port/reference, {what}: {np.exp(d):.4f} "
+                  f"[{np.exp(d - 1.96 * se):.4f}, "
+                  f"{np.exp(d + 1.96 * se):.4f}]")
 
 
 if __name__ == "__main__":
     # PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_memo.py
-    measure_near_hit_ratios()
-    measure_near_hit_ratios(seeds=tuple(range(8, 16)))
+    # ~8 minutes for the 64 seeds that settle the 256 GB/s comparison
+    measure_near_hit_ratios(seeds=tuple(range(64)))
     measure_near_hit_ratios(bw=1)

@@ -1,16 +1,22 @@
 """Port parity: the multi-tenant serving engine.
 
 Two smoke tenants, falcon-mamba-7b (SSM) and zamba2-1.2b (hybrid), in
-float32.  The reference initialises them; their weights are carried into
-the port with ``repro_torch.convert.model_from_numpy``.  Both engines see
-the same requests, and the same numpy-drawn prompts.
+float32; and the serving launcher's mix, granite-3-2b (dense),
+qwen2-moe-a2.7b (MoE) and falcon-mamba-7b.  The reference initialises
+them; their weights are carried into the port with
+``repro_torch.convert.model_from_numpy``.  Both engines see the same
+requests, and the same numpy-drawn prompts.
 
   - Job costs and the ``analyze`` tables (lat, bw, energy, flops) are
     bitwise the JAX engine's: the TPU cost model is a copy.
   - ``execute`` on the same jobs, queues and prompts gives the JAX
     engine's greedy tokens exactly.
   - The port's engine schedules through its own ``run_strategy`` on the
-    CPU here; every job is scheduled once.
+    CPU here; every job is scheduled once.  The one-shot heuristics
+    (``herald_like``, ``ai_mt_like``) give the reference's queues and
+    makespans exactly.
+  - ``schedule_front`` returns a non-dominated set of complete schedules,
+    as the reference's ``tests/test_serve.py`` holds it.
 """
 import numpy as np
 import pytest
@@ -68,7 +74,34 @@ def _prompts(jobs, seed=0):
             for j in jobs if j.phase == "prefill"}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+MIXED = ["granite-3-2b", "qwen2-moe-a2.7b", "falcon-mamba-7b"]
+MIXED_REQUESTS = [("granite-3-2b", 14, 6), ("qwen2-moe-a2.7b", 11, 5),
+                  ("falcon-mamba-7b", 9, 3), ("qwen2-moe-a2.7b", 17, 4),
+                  ("granite-3-2b", 8, 2)]
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    """(JAX tenants, port tenants) of the launcher's three families,
+    sharing the reference's smoke weights."""
+    jt, pt = [], []
+    for i, arch in enumerate(MIXED):
+        jcfg = jsmoke(arch).replace(dtype="float32")
+        jm = jget_model(jcfg)
+        values, _ = jmodule.split(jm.init(jax.random.PRNGKey(10 + i)))
+        values = jax.tree.map(np.asarray, values)
+        jt.append(jengine.Tenant(arch, jcfg, values, jm))
+        cfg = get_smoke_config(arch).replace(dtype="float32", use_flash=True)
+        pt.append(engine.Tenant(arch, cfg,
+                                model_from_numpy(cfg, values, "cpu")))
+    return (jengine.MultiTenantEngine(jt, jengine.default_submeshes(),
+                                      **ENGINE_KW),
+            engine.MultiTenantEngine(pt, engine.default_submeshes(),
+                                     device="cpu", **ENGINE_KW))
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["granite-3-2b", "qwen2-moe-a2.7b",
+                                          "moonshot-v1-16b-a3b"])
 @pytest.mark.parametrize("phase,seq,tokens", [
     ("prefill", 512, 512), ("prefill", 17, 17), ("decode", 520, 8),
     ("decode", 33, 1)])
@@ -190,3 +223,73 @@ def test_tenant_slo_strictest():
     slo0 = eng.slo_for([j for j in jobs if j.tenant == ARCHS[0]])
     assert slo0.priority == "batch" and slo0.deadline_s == 9.0
     assert eng.slo_for([]) == engine.TenantSLO()
+
+
+# ---------------------------------------------------------------------------
+# dense and MoE tenants beside an SSM one (the serving launcher's mix)
+# ---------------------------------------------------------------------------
+def test_mixed_jobs_and_analyze_tables_bitwise(mixed):
+    jeng, eng = mixed
+    jjobs, jobs = jeng.jobs_for_requests(MIXED_REQUESTS), \
+        eng.jobs_for_requests(MIXED_REQUESTS)
+    assert [vars(j) for j in jobs] == [vars(j) for j in jjobs]
+    jtab, tab = jeng.analyze(jjobs), eng.analyze(jobs)
+    for name in ("lat", "bw", "energy", "flops"):
+        got, want = getattr(tab, name), getattr(jtab, name)
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+
+
+@pytest.mark.parametrize("method", ["herald_like", "ai_mt_like"])
+def test_heuristic_schedules_equal_the_reference(mixed, method):
+    jeng, eng = mixed
+    jjobs, jobs = jeng.jobs_for_requests(MIXED_REQUESTS * 2), \
+        eng.jobs_for_requests(MIXED_REQUESTS * 2)
+    want, got = jeng.schedule(jjobs, method=method), \
+        eng.schedule(jobs, method=method)
+    assert got["queues"] == want["queues"]
+    assert got["local_queues"] == want["local_queues"]
+    assert got["makespan_s"] == want["makespan_s"]
+    assert got["throughput_flops"] == want["throughput_flops"]
+
+
+def test_mixed_execute_gives_the_reference_tokens(mixed):
+    jeng, eng = mixed
+    jjobs, jobs = jeng.jobs_for_requests(MIXED_REQUESTS), \
+        eng.jobs_for_requests(MIXED_REQUESTS)
+    prompts = _prompts(jobs, 3)
+    out = eng.schedule(jobs, execute=True, prompts=prompts)
+    want = jeng.execute(jjobs, out["queues"], prompts)
+    decode_uids = sorted(j.uid for j in jobs if j.phase == "decode")
+    assert sorted(out["outputs"]) == sorted(want) == decode_uids
+    for uid in decode_uids:
+        np.testing.assert_array_equal(out["outputs"][uid], want[uid])
+
+
+def test_schedule_front_serves_the_frontier(mixed):
+    """As the reference's ``tests/test_serve.py`` checks its own: the
+    profile table carries a real energy column, and ``schedule_front``
+    returns a non-dominated set of complete schedules."""
+    from repro_torch.core.pareto import non_dominated_mask
+
+    _, eng = mixed
+    reqs = [("granite-3-2b", 128, 8)] * 3 + [("falcon-mamba-7b", 64, 8)] * 3
+    jobs = eng.jobs_for_requests(reqs)
+    table = eng.analyze(jobs)
+    assert table.energy is not None and (table.energy > 0).all()
+    subs = [s.name for s in eng.submeshes]
+    tp16, tp4 = subs.index("tp16_a"), subs.index("tp4_a")
+    assert (table.lat[:, tp16] < table.lat[:, tp4]).all()
+    assert (table.energy[:, tp16] > table.energy[:, tp4]).all()
+
+    out = eng.schedule_front(jobs)
+    front = out["front"]
+    assert front.names == ("latency", "energy", "edp")
+    assert len(front) >= 1 and len(out["points"]) == len(front)
+    assert non_dominated_mask(front.objectives).all()
+    all_uids = sorted(j.uid for j in jobs)
+    for pt in out["points"]:
+        assert sorted(u for q in pt["queues"] for u in q) == all_uids
+        assert pt["makespan_s"] > 0 and np.isfinite(pt["makespan_s"])
+        assert set(pt["objectives"]) == {"latency", "energy", "edp"}
+    with pytest.raises(ValueError, match="single-objective"):
+        eng.schedule_front(jobs, method="magma")
