@@ -17,10 +17,14 @@ Phases, in order; any failure raises and exits non-zero:
               invariance and a per-row bw_sys launch (4 rows of 100, four
               bandwidths) bitwise equal to four one-row launches; the selective-scan kernel at the reference
               tests' shapes (float32 and bf16 inputs), at the two
-              serving shapes and at falcon-mamba's width with phase 14's
-              prompt lengths, plus bitwise batch-row independence; the
-              flash kernel at the reference tests' shapes, ragged S, the
-              two evaluation shapes and the bf16 kernel's edges
+              serving shapes, at falcon-mamba's width with phase 14's
+              prompt lengths and at phase 15's two evaluation shapes
+              ((1, 2048, 8192, 16) and (4, 2048, 4096, 64), float32 and
+              bf16), plus bitwise batch-row independence (Bt=2, and the
+              Bt=4 evaluation shape); the flash kernel at the reference
+              tests' shapes, ragged S, the three evaluation shapes
+              (granite, danube, and zamba2's shared block at (4, 2048,
+              32/32 heads, 64)) and the bf16 kernel's edges
               (FLASH_EDGES), plus bitwise batch-row independence
   4. main     the M3E mapper end to end: S4 with a Mix group of 100 jobs,
               bw_sys = 256 GB/s, MAGMA with the paper's 10K-sample budget
@@ -145,11 +149,35 @@ Phases, in order; any failure raises and exits non-zero:
               fixed decode probe is read again (after phases 5, 8, 11 and
               12's profiler sessions) and one qwen2-moe decoded token is
               profiled
+ 15. families the SSM, hybrid and encoder-decoder families, right after
+              phase 14 (also before the first profiler session): trained
+              in bf16 with use_flash=False -- zamba2-1.2b (--steps 2
+              --batch 1 --seq 512) and seamless-m4t-medium (--steps 4
+              --batch 2 --seq 1024) at full width and depth through
+              repro_torch.launch.train, falcon-mamba-7b at full width
+              with 4 layers through train.loop.train (full depth with
+              AdamW state does not fit one card) -- with per-step loss,
+              grad norm, ms, tokens/s and peak memory, finite losses,
+              non-zero grad norms, every weight matrix changed and no
+              kernel launched; evaluated with use_flash=True under
+              torch.no_grad() on batch_at(10_000): falcon-mamba-7b at
+              full depth B=1 S=2048 (64 scan launches), the trained
+              zamba2 B=4 S=2048 (38 scan and 7 flash launches), the
+              trained seamless B=2 S=1024 (none); the kernel route
+              against the plain route at full width in float32
+              (falcon-mamba 4 layers, zamba2 7 layers: within
+              EVAL_F32_ATOL) and at full depth in bf16 at S=512
+              (reported); the scan kernel's device and host-issued times
+              at both evaluation shapes and the flash kernel's and SDPA's
+              at zamba2's, beside their bounds.  After phase 14's profiled
+              token one zamba2 training step and the zamba2 and
+              falcon-mamba evaluations are profiled: the device's busy
+              share, its ops, the host's wall per op and the kernels' part
 
 The counts of every kernel are set to 0 before each main path (the M3E
 searches, the served batch, phases 9-10 together, "train_eval", the
-comparison, "compare", the memo phase, "memo", and the launcher,
-"launch") and read after it.
+comparison, "compare", the memo phase, "memo", the launcher, "launch",
+and phase 15's training and evaluation, "families") and read after it.
 It prints a JSON line with one entry per kernel, the card's name and
 power limit, and last the line ``{"ok": true, "device": {...}}``.
 """
@@ -228,6 +256,20 @@ QWEN_ACTIVE_PARAMS = 2_433_373_388   # repro.models.registry's own count
 # a drop-free capacity factor, relative 5e-3 (over the real vocabulary:
 # the padded entries' -1e30 would set the scale)
 DECODE_B, DECODE_S, DECODE_REL = 2, 24, 5e-3
+# phase 15: the SSM, hybrid and encoder-decoder families trained and
+# evaluated: (arch, steps, batch, seq, layers or None for full depth);
+# falcon-mamba-7b is cut to 4 layers (its full depth with AdamW state
+# does not fit one card)
+FAMILY_TRAIN = (("zamba2-1.2b", 2, 1, 512, None),
+                ("seamless-m4t-medium", 4, 2, 1024, None),
+                ("falcon-mamba-7b", 2, 1, 512, 4))
+# (arch, batch, seq) of each use_flash=True evaluation
+FAMILY_EVAL = (("falcon-mamba-7b", 1, 2048), ("zamba2-1.2b", 4, 2048),
+               ("seamless-m4t-medium", 2, 1024))
+# f32 kernel-vs-plain comparisons: (arch, layers); zamba2 at 7 layers
+# applies its shared block twice
+FAMILY_F32_LAYERS = (("falcon-mamba-7b", 4), ("zamba2-1.2b", 7))
+FAMILY_PLAIN_SEQ = 512       # full depth bf16: both routes at this length
 
 
 def check(cond, msg):
@@ -390,7 +432,7 @@ def flash_inputs(dev, seed, B, S, Hq, Hkv, D, dtype, packed=False):
 
 def flash_checks(dev, fa, flash_ref, sync):
     """Phase 3 for the flash kernel: against its plain version at the
-    reference tests' shapes, ragged S at D=20 and D=160, and the two
+    reference tests' shapes, ragged S at D=20 and D=160, and the three
     evaluation shapes, in float32 and bf16; the bf16 kernel's edges
     (``FLASH_EDGES``); and bitwise row independence.  In bf16 the
     reference sweep's shapes are held to the reference tests' limit, the
@@ -402,7 +444,9 @@ def flash_checks(dev, fa, flash_ref, sync):
              (2, 96, 4, 1, 16, 24, True), (1, 64, 6, 2, 128, 16, True),
              (1, 64, 4, 2, 32, 0, False)]
     evaluation = {"granite": (TRAIN_BATCH, TRAIN_SEQ, 32, 8, 64, 0, True),
-                  "danube": (EVAL_BATCH, EVAL_SEQ, 32, 8, 120, 4096, True)}
+                  "danube": (EVAL_BATCH, EVAL_SEQ, 32, 8, 120, 4096, True),
+                  # phase 15: zamba2's shared block, Hq = Hkv
+                  "zamba2": (4, 2048, 32, 32, 64, 0, True)}
     ragged = [(2, 33, 4, 2, 20, 0, True), (1, 97, 4, 2, 160, 0, True),
               (1, 77, 2, 1, 160, 40, False)]
     cases = sweep + ragged + list(evaluation.values())
@@ -737,16 +781,14 @@ def profile_train_step(dev):
     from repro_torch.configs import get_config
     from repro_torch.models.registry import get_model
     from repro_torch.train.data import TokenStream
-    from repro_torch.train.loop import TrainConfig, init_state, \
-        make_train_step
+    from repro_torch.launch.train import train_config
+    from repro_torch.train.loop import init_state, make_train_step
 
     cfg = get_config(TRAIN_ARCH)
     model = get_model(cfg, device=dev, generator=torch.Generator(
         device=dev).manual_seed(0))
     stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
-    step = make_train_step(model, TrainConfig(
-        lr=3e-4, warmup_steps=max(TRAIN_STEPS // 10, 5),
-        total_steps=TRAIN_STEPS))
+    step = make_train_step(model, train_config(TRAIN_STEPS))
     state, _ = step(init_state(model), stream.batch_at(0))
     batch = stream.batch_at(1)
     prof = device_profile(dev, lambda: step(state, batch))
@@ -1240,10 +1282,11 @@ def memo_phase(dev, mk, budget=10_000, group_size=100):
     return out
 
 
-def device_profile(dev, fn, top_n=10):
+def device_profile(dev, fn, top_n=10, parts=()):
     """``fn()`` under torch.profiler: (wall ms, device busy ms, device ops,
-    the ``top_n`` device ops by time), or None where the profiler saw no
-    device time."""
+    the ``top_n`` device ops by time and, for each name in ``parts``, the
+    device ms and ops of the ops whose names hold it), or None where the
+    profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1264,10 +1307,16 @@ def device_profile(dev, fn, top_n=10):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / wall_ms,
-            "device_ops": len(on_card),
-            "top_kernels_ms": [[k[:80], v] for k, v in top]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms,
+           "device_ops": len(on_card),
+           "top_kernels_ms": [[k[:80], v] for k, v in top]}
+    for part in parts:
+        ops = [e for e in on_card if part in e.name]
+        out.setdefault("parts", {})[part] = {
+            "ms": sum(e.device_time_total for e in ops) / 1e3,
+            "ops": len(ops)}
+    return out
 
 
 def drop_free(cfg):
@@ -1688,6 +1737,318 @@ def launch_profile(dev, probe_prompts, launch_out):
           f"{launch_out['profile_part_wall_s']:.3f} s")
 
 
+def family_step_records(name, hist):
+    """Print and return one record per training step of ``hist``."""
+    records = []
+    for h in hist:
+        rec = dict(h, ms=h["wall_s"] * 1e3,
+                   tokens_per_s=h["tokens"] / h["wall_s"])
+        records.append(rec)
+        peak = ("not measured" if h["peak_bytes"] is None
+                else f"{h['peak_bytes'] / GB:.2f} GiB")
+        print(f"[families] train {name} step {h['step']}: loss "
+              f"{h['loss']:.6f} grad norm {h['grad_norm']:.6f} lr "
+              f"{h['lr']:.3e} {rec['ms']:.3f} ms {rec['tokens_per_s']:.1f} "
+              f"tokens/s peak {peak}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              and h["grad_norm"] > 0 for h in hist),
+          f"{name} training: a loss or grad norm is not finite, or a grad "
+          "norm is 0")
+    return records
+
+
+def family_loss(model, cfg, batch, ssm, fa):
+    """``eval_loss`` with the scan's launches too: (loss, (scan, flash)
+    launches, wall s)."""
+    before = ssm.LAUNCHES["ssm_scan"]
+    loss, flashes, wall = eval_loss(model, cfg, batch, fa)
+    return loss, (ssm.LAUNCHES["ssm_scan"] - before, flashes), wall
+
+
+def families_phase(dev, ssm, fa):
+    """Phase 15: the SSM, hybrid and encoder-decoder families through the
+    trainer and through evaluation with ``use_flash=True``.
+
+    1. Training (bf16, random weights from a seeded generator, the
+       launcher's TrainConfig, ``use_flash=False``: the kernels have no
+       gradient, as in the reference): zamba2-1.2b and seamless-m4t-medium
+       at full width and depth through ``repro_torch.launch.train.main``;
+       falcon-mamba-7b at full width with 4 layers through
+       ``train.loop.train``.  Full depth does not fit one card: 7.0 B bf16
+       parameters and gradients plus f32 AdamW moments need ~84 GB before
+       activations; it waits for the sharded trainer (ROADMAP Queue 1
+       item 12).  Losses finite, grad norms non-zero, every weight matrix
+       changed, no kernel launched.
+    2. Evaluation under ``torch.no_grad()`` on ``batch_at(10_000)``:
+       falcon-mamba-7b at full depth (one scan launch a layer), the
+       trained zamba2 (one scan a Mamba layer, one flash launch an
+       application of the shared block) and the trained seamless (no
+       launch).  The path's counts are read here.
+    3. Kernel route against plain route on the same weights: at full
+       width in float32 with FAMILY_F32_LAYERS, within EVAL_F32_ATOL; at
+       full depth in bf16 at FAMILY_PLAIN_SEQ tokens (the plain scan is a
+       Python loop over time), reported.
+
+    Returns (summary, the path's launches {"ssm_scan", "flash_attention"}
+    after step 2)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import count_params, get_model
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.loop import train
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    out = {"train": {}, "eval": {}, "routes": {}}
+    trained = {}
+
+    def launches():
+        return (ssm.LAUNCHES["ssm_scan"], fa.LAUNCHES["flash_attention"])
+
+    # 1. train
+    for arch, steps, B, S, layers in FAMILY_TRAIN:
+        before = launches()
+        t0 = time.perf_counter()
+        if layers is None:
+            model, _, hist = launch_train.main(
+                ["--arch", arch, "--steps", str(steps), "--batch", str(B),
+                 "--seq", str(S), "--device", str(dev), "--seed", "0"],
+                log_fn=lambda *_: None)
+            cfg = model.cfg
+        else:
+            cfg = get_config(arch).replace(num_layers=layers)
+            model = get_model(cfg, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(0))
+            hist = []
+            train(model, launch_train.train_config(steps),
+                  TokenStream(cfg, B, S, seed=0), steps, log_every=0,
+                  log_fn=lambda *_: None, history=hist)
+        sync()
+        wall = time.perf_counter() - t0
+        check(launches() == before, f"{arch} training launched a kernel "
+                                    "(it runs use_flash=False)")
+        check(len(hist) == steps, f"{arch}: {len(hist)} training steps, want "
+                                  f"{steps}")
+        records = family_step_records(arch, hist)
+        fresh = get_model(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        moved = [not torch.equal(p, f) for p, f in
+                 zip(model.parameters(), fresh.parameters()) if p.dim() == 2]
+        del fresh
+        check(all(moved), f"{arch}: training changed {sum(moved)} of the "
+                          f"{len(moved)} weight matrices, want all")
+        n = count_params(cfg)
+        out["train"][arch] = {"layers": cfg.num_layers, "params": n,
+                              "B": B, "S": S, "steps": records,
+                              "wall_s": wall}
+        print(f"[families] train {arch}: {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, {n:,} params in {cfg.dtype}; {steps} steps of "
+              f"{B}x{S} tokens in {wall:.3f} s including init; "
+              f"{len(moved)}/{len(moved)} weight matrices changed; scan and "
+              "flash launches 0")
+        if layers is None:
+            trained[arch] = model
+        del model, hist
+        free(dev)
+
+    # 2. evaluate through the kernels
+    models = dict(trained)
+    for arch, B, S in FAMILY_EVAL:
+        if arch in models:
+            model = models[arch]
+            cfg = model.cfg
+        else:
+            cfg = get_config(arch)
+            model = get_model(cfg, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(2))
+            models[arch] = model
+        batch = eval_batch(dev, cfg, B, S)
+        loss, (scans, flashes), wall = family_loss(
+            model, cfg.replace(use_flash=True), batch, ssm, fa)
+        model.cfg = cfg
+        mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+        apps = model.n_apps if cfg.family == "hybrid" else 0
+        check(np.isfinite(loss), f"{arch} eval: non-finite loss")
+        check((scans, flashes) == (mamba, apps),
+              f"{arch} eval: (scan, flash) launches {(scans, flashes)}, "
+              f"want {(mamba, apps)}")
+        out["eval"][arch] = {"params": count_params(cfg), "B": B, "S": S,
+                             "loss": loss, "scan_launches": scans,
+                             "flash_launches": flashes, "wall_s": wall}
+        print(f"[families] eval {arch} full width and depth, bf16, B={B} "
+              f"S={S}: loss {loss:.6f} with use_flash=True, {scans} scan "
+              f"and {flashes} flash launches, {wall * 1e3:.3f} ms")
+        del batch
+    counts = {"ssm_scan": ssm.LAUNCHES["ssm_scan"],
+              "flash_attention": fa.LAUNCHES["flash_attention"]}
+
+    # 3. kernel route against plain route
+    for arch, _, S in FAMILY_EVAL[:2]:
+        model = models[arch]
+        cfg = model.cfg
+        batch = eval_batch(dev, cfg, 1, FAMILY_PLAIN_SEQ)
+        lk, _, wk = family_loss(model, cfg.replace(use_flash=True), batch,
+                                ssm, fa)
+        lp, (plain_scans, plain_flashes), wp = family_loss(model, cfg, batch,
+                                                           ssm, fa)
+        check((plain_scans, plain_flashes) == (0, 0),
+              f"{arch}: the plain route launched a kernel")
+        out["routes"][arch + " bf16"] = {
+            "layers": cfg.num_layers, "B": 1, "S": FAMILY_PLAIN_SEQ,
+            "loss_kernel": lk, "loss_plain": lp, "abs_diff": abs(lk - lp),
+            "kernel_wall_s": wk, "plain_wall_s": wp}
+        print(f"[families] {arch} full depth, bf16, B=1 S={FAMILY_PLAIN_SEQ} "
+              f"(both routes at this length, not the evaluation's {S}: the "
+              f"plain scan is a Python loop over time): kernel route "
+              f"{lk:.6f} ({wk * 1e3:.3f} ms), plain {lp:.6f} "
+              f"({wp * 1e3:.3f} ms), |diff| {abs(lk - lp):.3e} (reported, "
+              "not required)")
+        del batch
+    del models, trained, model
+    free(dev)
+    evals = {arch: (B, S) for arch, B, S in FAMILY_EVAL}
+    for arch, layers in FAMILY_F32_LAYERS:
+        cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+        model = get_model(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(3))
+        B, S = evals[arch]
+        batch = eval_batch(dev, cfg, B, S)
+        lk, (scans, flashes), _ = family_loss(
+            model, cfg.replace(use_flash=True), batch, ssm, fa)
+        lp, plain_launched, _ = family_loss(model, cfg, batch, ssm, fa)
+        diff = abs(lk - lp)
+        want = (layers, model.n_apps if cfg.family == "hybrid" else 0)
+        check((scans, flashes) == want and plain_launched == (0, 0)
+              and diff <= EVAL_F32_ATOL,
+              f"{arch} {layers} layers f32: kernel loss {lk} vs plain {lp} "
+              f"(|diff| {diff}, tol {EVAL_F32_ATOL}; launches kernel route "
+              f"{(scans, flashes)}, want {want}, plain {plain_launched})")
+        out["routes"][f"{arch} f32 {layers} layers"] = {
+            "layers": layers, "B": B, "S": S, "loss_kernel": lk,
+            "loss_plain": lp, "abs_diff": diff}
+        print(f"[families] {arch} full width, {layers} layers, f32, B={B} "
+              f"S={S}: kernel route {lk:.7f} plain {lp:.7f} |diff| "
+              f"{diff:.3e} (tol {EVAL_F32_ATOL})")
+        del model, batch
+        free(dev)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[families] phase wall {out['phase_wall_s']:.3f} s")
+    return out, counts
+
+
+def families_profile(dev, families_out):
+    """The end of phase 15, after every other profiler session of the
+    process: one zamba2-1.2b training step as phase 15 takes it (B=1,
+    S=512, the launcher's schedule, after one warm step), then, with
+    ``use_flash=True`` under ``torch.no_grad()``, one evaluation of the
+    same model (B=4, S=2048) and one of falcon-mamba-7b at full depth
+    (B=1, S=2048), each after a warm one, under torch.profiler: the wall,
+    the device's busy share, its ops, the host's wall per device op, the
+    top ops and the scan's and flash kernel's part.  Adds the readings to
+    ``families_out["profile"]``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.loop import init_state, make_train_step
+
+    t_part = time.perf_counter()
+    out = families_out["profile"] = {}
+    parts = ("ssm_scan_kernel", "flash_fwd")
+
+    def show(what, prof):
+        out[what] = prof
+        if prof is None:
+            print(f"[profile] {what}: the profiler saw no device time: "
+                  "device busy share not measured")
+            return
+        prof["host_us_per_device_op"] = (prof["wall_ms"] * 1e3
+                                         / prof["device_ops"])
+        print(f"[profile] {what}: wall {prof['wall_ms']:.3f} ms, device "
+              f"busy {prof['device_busy_ms']:.3f} ms "
+              f"({prof['device_busy_share']:.1%}) over "
+              f"{prof['device_ops']} device ops, "
+              f"{prof['host_us_per_device_op']:.2f} us of wall a device op")
+        for part, v in prof["parts"].items():
+            print(f"[profile]   {part}: {v['ops']} launches, "
+                  f"{v['ms']:.3f} ms ({v['ms'] / prof['wall_ms']:.1%} of "
+                  "the wall)")
+        for k, v in prof["top_kernels_ms"]:
+            print(f"[profile]   {v:10.3f} ms  {k[:100]}")
+
+    arch, steps, B, S, _ = FAMILY_TRAIN[0]
+    cfg = get_config(arch)
+    model = get_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    stream = TokenStream(cfg, B, S, seed=0)
+    step = make_train_step(model, train_config(steps))
+    state, _ = step(init_state(model), stream.batch_at(0))
+    batch = stream.batch_at(1)
+    show(f"train {arch} B={B} S={S}",
+         device_profile(dev, lambda: step(state, batch), parts=parts))
+    del state, step, batch
+    free(dev)
+    models = {arch: model}
+    for arch, B, S in FAMILY_EVAL[:2]:
+        if arch not in models:
+            models[arch] = get_model(get_config(arch), device=dev,
+                                     generator=torch.Generator(
+                                         device=dev).manual_seed(2))
+        model = models[arch]
+        cfg = model.cfg
+        batch = eval_batch(dev, cfg, B, S)
+        model.cfg = cfg.replace(use_flash=True)
+        with torch.no_grad():
+            model.loss(batch)
+            show(f"eval {arch} B={B} S={S}",
+                 device_profile(dev, lambda: model.loss(batch), parts=parts))
+        model.cfg = cfg
+        del batch
+    del models, model
+    free(dev)
+    out["part_wall_s"] = time.perf_counter() - t_part
+    print(f"[families] profile wall {out['part_wall_s']:.3f} s")
+
+
+def families_timing(ssm, fa, flash_ref, scan_inputs, flash_inputs_z):
+    """Phase 15's timing: the scan kernel at both evaluation shapes and
+    the flash kernel at zamba2's shared block, each as device time (a CUDA
+    graph replayed) and as issued from the host (CUDA events), beside its
+    plain version, its bound and (flash) torch's SDPA."""
+    from repro_torch.kernels._variants import graph_ms
+    from repro_torch.kernels.ref import ssm_scan_ref
+    out = {}
+    for key, args in scan_inputs.items():
+        Bt, L, D = args[0].shape
+        N = args[2].shape[1]
+        k_ms = graph_ms(lambda: ssm.ssm_scan(*args), 10)
+        h_ms = time_cuda(lambda: ssm.ssm_scan(*args), 20, 3)
+        p_ms = time_cuda(lambda: ssm_scan_ref(*args), 1, 1)
+        b_ms, b_by = ssm_bound_ms(Bt, L, D, N, args[0].element_size(),
+                                  args[3].element_size())
+        out[key] = {"ms": k_ms, "ms_host_issued": h_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "shape": {"Bt": Bt, "L": L, "D": D, "N": N}}
+        print(f"[timing] ssm_scan {key} Bt={Bt} L={L} D={D} N={N} bf16 "
+              f"x/B/C: kernel {k_ms:.6f} ms on the device ({h_ms:.6f} ms "
+              f"issued from the host), plain {p_ms:.6f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by}); library call: none")
+    # phase 11's timing (host-issued CUDA events; plain version, SDPA,
+    # bound), then the kernel's device time
+    (q, k, v), kw = flash_inputs_z
+    flash = flash_timing(fa, flash_ref, {"zamba2": flash_inputs_z},
+                         time_cuda)["zamba2"]
+    flash["ms_host_issued"] = flash["ms"]
+    flash["ms"] = graph_ms(lambda: fa.flash_attention(q, k, v, **kw), 20)
+    flash["tflops"] *= flash["ms_host_issued"] / flash["ms"]
+    out["flash_zamba2"] = flash
+    print(f"[timing] flash_attention zamba2: kernel {flash['ms']:.6f} ms on "
+          f"the device, {flash['ms'] / flash['bound_ms']:.1f}x the bound")
+    return out
+
+
 def main():
     import torch
 
@@ -1865,6 +2226,13 @@ def main():
                  # the kernel's 512-step chunk
                  (1, 201, 8192, 16, torch.bfloat16),
                  (1, 354, 8192, 16, torch.bfloat16)]
+    # phase 15's evaluations: falcon-mamba-7b at B=1 and zamba2-1.2b at B=4
+    # (Mamba-2's A broadcast to (Di, N)), S=2048
+    eval_scans = {"falcon_eval": (1, 2048, 8192, 16),
+                  "zamba2_eval": (4, 2048, 4096, 64)}
+    ssm_cases += [shape + (low,) for shape in eval_scans.values()
+                  for low in (torch.float32, torch.bfloat16)]
+    ssm_eval = {}
     for i, (Bt, L, D, N, low) in enumerate(ssm_cases):
         args = ssm_inputs(dev, 100 + i, Bt, L, D, N, low)
         y, h = ssm.ssm_scan(*args)
@@ -1880,19 +2248,32 @@ def main():
               f"h max abs {eh[0]:.3e} rel {eh[1]:.3e} (tol {tol})")
         if L == PROMPT:
             ssm_main["falcon" if N == 16 else "zamba2"] = args
-    args2 = ssm_inputs(dev, 200, 2, 96, 512, 64, torch.bfloat16)
-    y2, h2 = ssm.ssm_scan(*args2)
-    for b in range(2):
-        x, dt, A, B, C = args2
-        y1, h1 = ssm.ssm_scan(x[b:b + 1].contiguous(), dt[b:b + 1].contiguous(),
-                              A, B[b:b + 1].contiguous(),
-                              C[b:b + 1].contiguous())
-        check(torch.equal(y2[b:b + 1], y1) and torch.equal(h2[b:b + 1], h1),
-              f"ssm_scan: row {b} of a Bt=2 launch differs bitwise from its "
-              "Bt=1 launch")
-    print("[check] ssm_scan Bt=2 rows == two Bt=1 launches, bitwise")
+        for key, shape in eval_scans.items():
+            if (Bt, L, D, N) == shape and low == torch.bfloat16:
+                ssm_eval[key] = args
+        del y, h, yr, hr
+    # bitwise batch-row independence: a Bt=2 launch, and the Bt=4 launch
+    # of zamba2's evaluation shape
+    for args2 in (ssm_inputs(dev, 200, 2, 96, 512, 64, torch.bfloat16),
+                  ssm_eval["zamba2_eval"]):
+        y2, h2 = ssm.ssm_scan(*args2)
+        Bt = args2[0].shape[0]
+        for b in range(Bt):
+            x, dt, A, B, C = args2
+            y1, h1 = ssm.ssm_scan(x[b:b + 1].contiguous(),
+                                  dt[b:b + 1].contiguous(), A,
+                                  B[b:b + 1].contiguous(),
+                                  C[b:b + 1].contiguous())
+            check(torch.equal(y2[b:b + 1], y1) and
+                  torch.equal(h2[b:b + 1], h1),
+                  f"ssm_scan: row {b} of a Bt={Bt} launch "
+                  f"{tuple(x.shape)} differs bitwise from its Bt=1 launch")
+        print(f"[check] ssm_scan Bt={Bt} rows == {Bt} Bt=1 launches, "
+              f"bitwise ({tuple(args2[0].shape)}, N={args2[2].shape[1]})")
+        del y2, h2
     flash_errs, flash_main = flash_checks(dev, fa, flash_attention_ref,
                                           torch.cuda.synchronize)
+    flash_zamba2 = flash_main.pop("zamba2")
 
     # -- 14. launch: the serving launcher at full width -------------------
     # taken here, before the process's first profiler session (phase 5):
@@ -1902,6 +2283,26 @@ def main():
     launch_counts = launch_out["counts"]
     errs.append(launch_out["makespan_check"])
     print(f"[launch] launch path launches: {launch_counts}")
+    free(dev)
+
+    # -- 15. families: SSM, hybrid and encoder-decoder training and eval --
+    # also before the first profiler session: the plain scan's training
+    # step is host-bound
+    reset_counts()
+    families_out, fam = families_phase(dev, ssm, fa)
+    family_counts = dict(fam, makespan=mk.LAUNCHES["makespan"])
+    want = {"ssm_scan": sum(families_out["eval"][a]["scan_launches"]
+                            for a in families_out["eval"]),
+            "flash_attention": families_out["eval"]["zamba2-1.2b"][
+                "flash_launches"], "makespan": 0}
+    check(family_counts == want and want["ssm_scan"] == 64 + 38
+          and want["flash_attention"] == 7,
+          f"families launches {family_counts}, want {want} (64 + 38 scan, "
+          "7 flash)")
+    print(f"[families] families path launches: {family_counts}")
+    families_out["timing"] = families_timing(ssm, fa, flash_attention_ref,
+                                             ssm_eval, flash_zamba2)
+    del ssm_eval, flash_zamba2
     free(dev)
 
     # -- 4. main path -----------------------------------------------------
@@ -2272,6 +2673,9 @@ def main():
     launch_profile(dev, probe_prompts, launch_out)
     del probe_prompts
 
+    # -- 15, its end: a zamba2 training step and two evaluations profiled -
+    families_profile(dev, families_out)
+
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
     k_ms, p_ms, b_ms, b_by, shape, kh_ms = ssm_times["falcon"]
@@ -2288,7 +2692,8 @@ def main():
                              "train_eval": train_eval_counts["makespan"],
                              "compare": compare_counts["makespan"],
                              "memo": memo_counts["makespan"],
-                             "launch": launch_counts["makespan"]},
+                             "launch": launch_counts["makespan"],
+                             "families": family_counts["makespan"]},
         "launches_per_search": launches // 4,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2305,11 +2710,17 @@ def main():
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:28",
-        "launches": serve_counts[0] + launch_counts["ssm_scan"],
+        "launches": serve_counts[0] + launch_counts["ssm_scan"]
+        + family_counts["ssm_scan"],
         "launches_by_path": {"m3e_search": 0, "serve": serve_counts[0],
                              "train_eval": train_eval_counts["ssm_scan"],
                              "compare": 0, "memo": 0,
-                             "launch": launch_counts["ssm_scan"]},
+                             "launch": launch_counts["ssm_scan"],
+                             "families": family_counts["ssm_scan"]},
+        "launches_per_eval": {a: e["scan_launches"] for a, e in
+                              families_out["eval"].items()},
+        "eval_shapes": {k: v for k, v in families_out["timing"].items()
+                        if k != "flash_zamba2"},
         "max_abs_err": max(e[0] for e in ssm_errs),
         "max_rel_err": max(e[1] for e in ssm_errs),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -2321,19 +2732,23 @@ def main():
         "shape_zamba2": dict(zip(("Bt", "L", "D", "N"), z_shape)),
         "serve": serve_out, "model_f32_logits_max_abs_diff": model_diff,
         "full_depth_bf16": full_depth, "profile": serve_profile,
-        "launch": launch_out, "ok": True,
+        "launch": launch_out, "families": families_out, "ok": True,
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28",
-        "launches": train_eval_counts["flash_attention"],
+        "launches": train_eval_counts["flash_attention"]
+        + family_counts["flash_attention"],
         "launches_by_path": {"m3e_search": 0, "serve": 0,
                              "train_eval": train_eval_counts[
                                  "flash_attention"], "compare": 0,
                              "memo": 0,
-                             "launch": launch_counts["flash_attention"]},
-        "launches_per_eval": {k: v["flash_launches"] for k, v in
-                              evals.items()},
+                             "launch": launch_counts["flash_attention"],
+                             "families": family_counts["flash_attention"]},
+        "launches_per_eval": dict(
+            {k: v["flash_launches"] for k, v in evals.items()},
+            zamba2=families_out["eval"]["zamba2-1.2b"]["flash_launches"]),
+        "zamba2": families_out["timing"]["flash_zamba2"],
         "max_abs_err": max(e[0] for e in flash_errs),
         "max_rel_err": max(e[1] for e in flash_errs),
         "ms": gt["ms"], "plain_ms": gt["plain_ms"], "bound_ms": gt["bound_ms"],

@@ -70,21 +70,23 @@ def _fill_tree(module: torch.nn.Module, tree, index=None) -> None:
 
 
 def model_from_numpy(cfg, values, device):
-    """The port's ``MambaLM`` / ``HybridLM`` / ``TransformerLM`` for ``cfg``
-    holding the weights of a JAX model's value tree
-    (``module.split(model.init(key))[0]`` with numpy leaves).  The stacked
-    ``(L, ...)`` layer leaves are sliced into the per-layer modules and
-    their submodules, down to a MoE layer's shared experts; the
-    hybrid's shared attention and MLP leaves, stacked ``(1, ...)``, give
-    their one block."""
+    """The port's model for ``cfg`` (any family) holding the weights of a
+    JAX model's value tree (``module.split(model.init(key))[0]`` with
+    numpy leaves).  The stacked ``(L, ...)`` layer leaves -- ``layers``,
+    or the encoder-decoder's ``enc_layers`` and ``dec_layers`` -- are
+    sliced into the per-layer modules and their submodules, down to a MoE
+    layer's shared experts; the hybrid's shared attention and MLP leaves,
+    stacked ``(1, ...)``, give their one block."""
     from repro_torch.models.registry import get_model
 
     model = get_model(cfg, device="meta").to_empty(device=device)
     model.device = torch.device(device)
-    _fill(model, values)                    # embed, final_norm
-    lyr = values["layers"]
-    for i, lp in enumerate(model.layers):
-        _fill_tree(lp, lyr, index=i)
+    _fill(model, values)              # embed, final_norm (and enc_norm)
+    stacks = (("enc_layers", "dec_layers") if cfg.family == "encdec"
+              else ("layers",))
+    for name in stacks:
+        for i, lp in enumerate(getattr(model, name)):
+            _fill_tree(lp, values[name], index=i)
     if cfg.family == "hybrid":
         shared = values["shared"]
         sh = model.shared

@@ -49,7 +49,15 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     other type is widened to float32, and B and C to one type), dt and A
     in float32; on the serving path they already are, so nothing is cast
     there.  The kernel wants contiguous rows: the B and C that the blocks
-    split off one projection are copied once here."""
+    split off one projection are copied once here.  Forward only, as in
+    the JAX package: a call that autograd would have to differentiate
+    raises, on every device."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, B, C)):
+        raise RuntimeError(
+            "ssm_scan is forward-only, as the JAX package's Pallas kernel "
+            "is (it has no gradient): train with use_flash=False and "
+            "evaluate with use_flash=True under torch.no_grad()")
     if x.device.type == "cuda":
         if x.dtype not in _ssm.INPUT_TYPES:
             x = x.float()

@@ -12,8 +12,11 @@ and resumes step and data order exactly from the newest one in
 ``--ckpt-dir``.  ``--smoke`` takes the reduced same-family config in
 float32.  One device only: the reference's data/model mesh over several
 devices waits for ``repro_torch.dist`` (ROADMAP Queue 1 item 12), and the
-launcher says so when more than one card is visible.  The dense and VLM
-families train; the others raise ``NotImplementedError``.
+launcher says so when more than one card is visible.  The dense, VLM,
+SSM, hybrid and encoder-decoder families train, each with
+``use_flash=False`` (the kernels have no gradient, as in the reference);
+MoE raises ``NotImplementedError``: its published configs with AdamW
+state do not fit one card, and sharding them waits for item 12.
 """
 from __future__ import annotations
 
@@ -27,7 +30,15 @@ from repro_torch.models.registry import get_model
 from repro_torch.train.data import TokenStream
 from repro_torch.train.loop import TrainConfig, train
 
-TRAINABLE = ("dense", "vlm")
+TRAINABLE = ("dense", "vlm", "ssm", "hybrid", "encdec")
+
+
+def train_config(steps: int, lr: float = 3e-4,
+                 microbatches: int = 1) -> TrainConfig:
+    """The launcher's schedule for ``steps`` steps: warmup a tenth of them,
+    at least 5, then cosine decay, as in the reference's launcher."""
+    return TrainConfig(lr=lr, warmup_steps=max(steps // 10, 5),
+                       total_steps=steps, microbatches=microbatches)
 
 
 def main(argv: Optional[List[str]] = None, log_fn=print):
@@ -55,7 +66,7 @@ def main(argv: Optional[List[str]] = None, log_fn=print):
     if cfg.family not in TRAINABLE:
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported yet "
-            "(ROADMAP Queue 1 items 11-12); trainable: "
+            "(ROADMAP Queue 1 item 12); trainable: "
             + ", ".join(TRAINABLE))
     device = torch.device(args.device)
     if device.type == "cuda" and torch.cuda.device_count() > 1:
@@ -64,8 +75,7 @@ def main(argv: Optional[List[str]] = None, log_fn=print):
                "(ROADMAP Queue 1 item 12)")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = get_model(cfg, device=device, generator=gen)
-    tc = TrainConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 5),
-                     total_steps=args.steps, microbatches=args.microbatches)
+    tc = train_config(args.steps, args.lr, args.microbatches)
     stream = TokenStream(cfg, args.batch, args.seq, seed=args.seed)
     history: List[dict] = []
     state = train(model, tc, stream, args.steps,

@@ -3,12 +3,12 @@
 The same fields as ``repro.models.config.ModelConfig``, so that one config
 means the same model in both packages.  ``dtype_torch`` takes the place of
 ``dtype_jnp``.  Some fields steer only the JAX package's lowering or its
-sharding (``scan_layers``, ``fsdp``, ``attn_batch_shard``,
-``ssm_time_chunk``): they are kept for parity and mean nothing to the
-port yet.  ``use_flash`` selects the hand-written kernels (the selective
-scan and the forward-only flash attention),
-``remat`` recomputes each transformer block in the backward pass, and
-``ce_seq_chunk`` chunks the cross-entropy, as in the JAX package.
+sharding (``scan_layers``, ``fsdp``, ``attn_batch_shard``): they are
+kept for parity and mean nothing to the port yet.  ``use_flash`` selects
+the hand-written kernels (the selective scan and the forward-only flash
+attention), ``ssm_time_chunk`` the plain scan's chunk of steps, ``remat``
+recomputes each layer in the backward pass, and ``ce_seq_chunk`` chunks
+the cross-entropy, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -44,8 +44,8 @@ class ModelConfig:
     dt_rank: int = 0             # mamba1; 0 -> ceil(d_model / 16)
     ssm_head_dim: int = 64       # mamba2
     ssm_chunk: int = 128
-    # XLA time-scan chunking in the JAX package; the port has no chunked
-    # scan yet (use_flash selects the CUDA kernel, else the plain scan)
+    # the plain selective scan's chunk of steps (0: mamba.SCAN_CHUNK;
+    # use_flash takes the CUDA kernel instead)
     ssm_time_chunk: int = 0
     # hybrid (zamba2): one weight-tied attention block applied every k layers
     shared_attn_every: int = 0
@@ -72,8 +72,8 @@ class ModelConfig:
     # flash-attention kernel is forward-only (as in the JAX package), so
     # training runs with use_flash=False
     use_flash: bool = False
-    # recompute each transformer block in the backward pass
-    # (torch.utils.checkpoint) when training
+    # recompute each layer in the backward pass (torch.utils.checkpoint)
+    # when training
     remat: bool = True
 
     # ---- derived -----------------------------------------------------------

@@ -1,6 +1,6 @@
-"""The building blocks of the port's language models: the SSM, hybrid,
-dense and MoE families that the serving engine runs, and the dense
-transformer that the trainer trains and evaluates.
+"""The building blocks of the port's language models: every family of
+the JAX package (SSM, hybrid, dense, MoE, VLM and encoder-decoder), for
+training, evaluation and serving.
 
 Plain functions on tensors, as in ``repro.models.layers``, with the same
 layouts (activations ``(B, S, d)``, heads ``(B, S, H, hd)``, weights
@@ -11,14 +11,16 @@ without the leading layer axis.  These are plain matrix products that the
 JAX package computes outside any Pallas kernel, so ``torch.matmul`` and
 ``einsum`` compute them here too, the MoE's expert products included.
 
-Attention: GQA, RoPE, causal masking, sliding windows and a ring-buffer
-KV cache for decode (capacity ``seq_len`` for full attention).
-``full_attention`` (training and evaluation) has two routes, chosen by
-``use_flash`` as in the JAX package: the hand-written flash-attention
-kernel (``kernels.ops.flash_attention``; its plain version on CPU
-tensors), or the plain dense / query-chunked products.  The kernel is
-forward-only, as the JAX package's Pallas kernel is: training runs the
-plain route, and a grad-enabled call of the kernel route raises.
+Attention: GQA, RoPE, causal masking (or none, for the encoder),
+sliding windows, cross attention over a precomputed encoder K/V, and a
+ring-buffer KV cache for decode (capacity ``seq_len`` for full
+attention).  ``full_attention`` (training and evaluation) has two
+routes, chosen by ``use_flash`` as in the JAX package: the hand-written
+flash-attention kernel (``kernels.ops.flash_attention``; its plain
+version on CPU tensors), or the plain dense / query-chunked products.
+The kernel is forward-only, as the JAX package's Pallas kernel is:
+training runs the plain route, and a grad-enabled call of the kernel
+route raises.
 ``decode_attention`` writes the new slot into the cache it is given, in
 place, where the JAX package returns a new cache: the caller never reads
 the old one, and a copy per token would move the whole cache.
@@ -30,7 +32,7 @@ capacity) contribute nothing.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -191,16 +193,16 @@ def _chunked_attention(q, k, v, *, causal, window, q_chunk, dtype):
 
 
 def full_attention(p: AttnParams, x, *, n_heads, n_kv, head_dim, rope_theta,
-                   window=0, use_flash=False, q_chunk=0):
-    """Training / evaluation causal self-attention over the full sequence.
+                   window=0, use_flash=False, causal=True, q_chunk=0):
+    """Training / evaluation self-attention over the full sequence, causal
+    or (``causal=False``, the encoder's) over every position.
 
     ``use_flash`` routes through the flash-attention kernel (forward only);
     otherwise ``q_chunk`` > 0 and S > 2*q_chunk routes through exact
     chunked attention (memory O(S * q_chunk) instead of O(S^2)), and the
     rest through dense attention.  The JAX package's unused layer index
-    ``li``, its ``flash_interpret`` switch, and its ``positions`` and
-    ``causal`` arguments (no ported caller passes them; the encoder of
-    ``EncDecLM`` is the one non-causal caller) have no counterpart."""
+    ``li``, its ``flash_interpret`` switch and its ``positions`` argument
+    (no caller passes it) have no counterpart."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q = _split_heads(x @ p.wq, n_heads, head_dim)
@@ -210,13 +212,14 @@ def full_attention(p: AttnParams, x, *, n_heads, n_kv, head_dim, rope_theta,
     k = apply_rope(k, positions, rope_theta)
     if use_flash:
         from repro_torch.kernels import ops as kops
-        ctx = kops.flash_attention(q, k, v, window=window)
+        ctx = kops.flash_attention(q, k, v, causal=causal, window=window)
     elif q_chunk and S > 2 * q_chunk and S % q_chunk == 0:
-        ctx = _chunked_attention(q, k, v, causal=True, window=window,
+        ctx = _chunked_attention(q, k, v, causal=causal, window=window,
                                  q_chunk=q_chunk, dtype=x.dtype)
     else:
-        w = attention_scores(q, k, causal_mask(S, S, window, device=x.device),
-                             x.dtype)
+        mask = (causal_mask(S, S, window, device=x.device) if causal else
+                torch.zeros((1, 1, 1, S), device=x.device))
+        w = attention_scores(q, k, mask, x.dtype)
         ctx = attention_context(w, v).to(x.dtype)
     return ctx.reshape(B, S, n_heads * head_dim) @ p.wo
 
@@ -291,6 +294,24 @@ def decode_attention(p: AttnParams, x, cache: KVCache, cur_pos: int, *,
     ctx = attention_context(w, cache.v).to(x.dtype)
     out = ctx.reshape(B, 1, n_heads * head_dim) @ p.wo
     return out, cache
+
+
+def cross_attention(p: AttnParams, x, enc_kv, *, n_heads, n_kv, head_dim):
+    """Decoder -> encoder attention over the precomputed ``enc_kv`` = (k,
+    v), each (B, Se, Kh, hd): no rope and no mask over the encoder."""
+    B, S, _ = x.shape
+    q = _split_heads(x @ p.wq, n_heads, head_dim)
+    k, v = enc_kv
+    mask = torch.zeros((1, 1, 1, k.shape[1]), device=x.device)
+    w = attention_scores(q, k, mask, x.dtype)
+    ctx = attention_context(w, v).to(x.dtype)
+    return ctx.reshape(B, S, n_heads * head_dim) @ p.wo
+
+
+def encode_cross_kv(p: AttnParams, enc_out, *, n_kv, head_dim):
+    """The cross attention's (k, v) of the encoder's output (B, Se, d)."""
+    return (_split_heads(enc_out @ p.wk, n_kv, head_dim),
+            _split_heads(enc_out @ p.wv, n_kv, head_dim))
 
 
 # ---------------------------------------------------------------------------
@@ -503,3 +524,15 @@ def nll_loss(table, h, labels, vocab: int, vocab_padded: int,
         return -tot / cnt.clamp_min(1.0)
     tot, cnt = chunk_nll(h, labels)
     return -tot / cnt.clamp_min(1.0)
+
+
+def lm_loss(table, h, labels, vocab: int, vocab_padded: int,
+            seq_chunk: int = 0, aux: Optional[torch.Tensor] = None):
+    """A language model's loss over the final-normed states ``h``: (nll +
+    0.01 aux, {"nll", "aux"}), as the reference's models return it; aux
+    is 0 for the families without a MoE router (``aux=None``)."""
+    nll = nll_loss(table, h, labels, vocab, vocab_padded, seq_chunk)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return nll, {"nll": nll, "aux": aux}
+    return nll + 0.01 * aux, {"nll": nll, "aux": aux}

@@ -3,11 +3,13 @@
 ``shared_attn_every`` layers), ported from ``repro.models.mamba``.
 
 The selective scan has two full-sequence implementations, chosen by
-``cfg.use_flash`` exactly as in the JAX package:
-  - ``selective_scan``          a Python loop over time (the plain
+``cfg.use_flash`` as in the JAX package:
+  - ``selective_scan``          a Python loop over time in chunks of
+                                ``cfg.ssm_time_chunk`` steps (the plain
                                 version; any device),
   - ``kernels.ops.ssm_scan``    the hand-written CUDA kernel on the card
-                                (the plain version for CPU tensors),
+                                (the plain version for CPU tensors;
+                                forward only, as in the JAX package),
 and a single-step update for decode (state carried in the cache).
 
 State convention: h (B, d_inner, N) float32;
@@ -21,6 +23,12 @@ the models in a ``ModuleList``.  Caches keep the JAX layout, stacked over
 layers: ``conv (L, B, W-1, Di)``, ``ssm (L, B, Di, N)`` and, for the
 hybrid, ``kv`` as a ``KVCache`` of ``(n_apps, ...)`` tensors.
 ``decode_step`` updates the cache it is given in place and returns it.
+``cfg.remat`` recomputes each Mamba layer in the backward pass
+(``torch.utils.checkpoint``) when autograd records, as ``jax.checkpoint``
+does in the reference; the hybrid's shared block is not recomputed there
+either.  Training runs ``use_flash=False``: the scan kernel has no
+gradient, so an SSM or hybrid step runs the plain loop, which is the
+reference's ``lax.scan`` route.
 """
 from __future__ import annotations
 
@@ -33,27 +41,45 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.module import (ones_init, param,
+from repro_torch.models.module import (ones_init, param, remat,
                                       weights_generator, zeros_init)
 
 
 # ---------------------------------------------------------------------------
 # selective scan (shared by mamba1/mamba2)
 # ---------------------------------------------------------------------------
-def selective_scan(x, dt, A, B, C, h0=None):
+SCAN_CHUNK = 16      # the plain scan's chunk when cfg.ssm_time_chunk is 0
+
+
+def selective_scan(x, dt, A, B, C, h0=None, chunk: int = 0):
     """x, dt: (Bt, S, Di); A: (Di, N); B, C: (Bt, S, N) -> (y, h_final),
-    y (Bt, S, Di) and h_final (Bt, Di, N), both float32."""
+    y (Bt, S, Di) and h_final (Bt, Di, N), both float32.
+
+    The time axis runs in chunks of ``chunk`` steps (``SCAN_CHUNK`` when
+    0; the last chunk may be shorter): each chunk's decays exp(dt A) and
+    inputs (dt x) B are computed in one operation each, then its steps run
+    h = decay h + u and y = <h, C>: four operations a step, where a loop
+    of the reference's step issues eight.  Every element goes through the
+    reference's step in the reference's order, so no chunk size changes a
+    bit of the result; the reference's ``selective_scan_chunked`` is the
+    same recurrence, and ``cfg.ssm_time_chunk`` sets the size here."""
     Bt, S, Di = x.shape
     N = A.shape[1]
+    chunk = chunk or SCAN_CHUNK
     h = (torch.zeros((Bt, Di, N), dtype=torch.float32, device=x.device)
          if h0 is None else h0)
     Af = A.float()
     xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
     ys = []
-    for t in range(S):
-        decay = torch.exp(dtf[:, t, :, None] * Af[None])          # (Bt, Di, N)
-        h = decay * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
-        ys.append(torch.sum(h * Cf[:, t, None, :], dim=-1))       # (Bt, Di)
+    for c in range(0, S, chunk):
+        sl = slice(c, c + chunk)
+        decay = torch.exp(dtf[:, sl, :, None] * Af)       # (Bt, chunk, Di, N)
+        u = (dtf[:, sl] * xf[:, sl])[..., None] * Bf[:, sl, None, :]
+        # unbind: one view op a chunk, and one stack in the backward pass
+        for d_t, u_t, C_t in zip(decay.unbind(1), u.unbind(1),
+                                 Cf[:, sl, None, :].unbind(1)):
+            h = d_t * h + u_t
+            ys.append(torch.sum(h * C_t, dim=-1))
     if not ys:
         return torch.zeros((Bt, 0, Di), dtype=torch.float32,
                            device=x.device), h
@@ -86,13 +112,11 @@ def conv1d_step(conv_state, x_t, w, b):
 
 def _ssm_full(cfg: ModelConfig, x_c, dt, A, B_ssm, C_ssm):
     """The full-sequence scan: the kernel with ``use_flash``, else the
-    plain loop (``ssm_time_chunk`` selects the JAX package's chunked
-    scan, which is numerically the plain one; the port has no chunked
-    scan yet)."""
+    loop in chunks of ``cfg.ssm_time_chunk`` steps."""
     if cfg.use_flash:
         from repro_torch.kernels import ops as kops
         return kops.ssm_scan(x_c, dt, A, B_ssm, C_ssm)
-    return selective_scan(x_c, dt, A, B_ssm, C_ssm)
+    return selective_scan(x_c, dt, A, B_ssm, C_ssm, chunk=cfg.ssm_time_chunk)
 
 
 def _a_log_mamba1(N: int):
@@ -286,20 +310,36 @@ class MambaLM(_LM):
         self.final_norm = param(gen, (cfg.d_model,), dt, device,
                                 init=ones_init)
 
+    def hidden_states(self, x, with_state: bool = False):
+        """Run the layers over embedded inputs x (B, S, d).  Returns
+        (final-normed states, None), or with ``with_state`` (states,
+        (conv (L, B, W-1, Di), ssm (L, B, Di, N))), each layer's final
+        state stacked as the reference's layer scan stacks them."""
+        convs, ssms = [], []
+        for lp in self.layers:
+            x, (conv, ssm) = remat(self.cfg, mamba1_block, lp, x, self.cfg)
+            if with_state:
+                convs.append(conv)
+                ssms.append(ssm)
+        states = (torch.stack(convs), torch.stack(ssms)) if with_state \
+            else None
+        return L.rms_norm(self.final_norm, x), states
+
+    def loss(self, batch):
+        """Next-token cross entropy.  batch: tokens (B, S), labels (B,
+        S).  Returns (loss, {"nll", "aux"})."""
+        h, _ = self.hidden_states(L.embed(self.embed, batch["tokens"]))
+        return L.lm_loss(self.embed, h, batch["labels"], self.cfg.vocab,
+                         self.vocab_padded, self.cfg.ce_seq_chunk)
+
     def init_cache(self, batch: int, seq_len: int):
         return self._ssm_cache(batch)
 
     @torch.no_grad()
     def prefill(self, batch, seq_len: int):
         x = L.embed(self.embed, batch["tokens"])
-        convs, ssms = [], []
-        for lp in self.layers:
-            x, (conv, ssm) = mamba1_block(lp, x, self.cfg)
-            convs.append(conv)
-            ssms.append(ssm)
-        h = L.rms_norm(self.final_norm, x[:, -1:])
-        cache = {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
-        return self._logits(h), cache
+        h, (conv, ssm) = self.hidden_states(x, with_state=True)
+        return self._logits(h[:, -1:]), {"conv": conv, "ssm": ssm}
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, cur_pos: int):
@@ -363,6 +403,37 @@ class HybridLM(_LM):
     def _shared_mlp(self, x):
         sh = self.shared
         return x + L.mlp(sh.mlp, L.rms_norm(sh.mlp_norm, x))
+
+    def _apply_shared_full(self, x):
+        """One application of the shared block over the full sequence:
+        causal self-attention (the flash kernel with ``use_flash``) and the
+        MLP, each with its residual."""
+        cfg, sh = self.cfg, self.shared
+        x = x + L.full_attention(
+            sh.attn, L.rms_norm(sh.attn_norm, x), n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+            use_flash=cfg.use_flash, q_chunk=cfg.attn_q_chunk)
+        return self._shared_mlp(x)
+
+    def hidden_states(self, x):
+        """The shared block before each group of ``shared_attn_every``
+        Mamba-2 layers, over embedded inputs x (B, S, d); returns the
+        final-normed states.  Only the Mamba layers are recomputed with
+        ``cfg.remat``, as in the reference; the shared block's weights
+        are tied, so its gradient sums over its applications."""
+        cfg = self.cfg
+        for _, group in self._groups():
+            x = self._apply_shared_full(x)
+            for lp in group:
+                x, _ = remat(cfg, mamba2_block, lp, x, cfg)
+        return L.rms_norm(self.final_norm, x)
+
+    def loss(self, batch):
+        """Next-token cross entropy.  batch: tokens (B, S), labels (B,
+        S).  Returns (loss, {"nll", "aux"})."""
+        h = self.hidden_states(L.embed(self.embed, batch["tokens"]))
+        return L.lm_loss(self.embed, h, batch["labels"], self.cfg.vocab,
+                         self.vocab_padded, self.cfg.ce_seq_chunk)
 
     def init_cache(self, batch: int, seq_len: int):
         cfg = self.cfg

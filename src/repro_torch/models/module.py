@@ -7,7 +7,8 @@ made on the card without crossing the bus.  On the ``meta`` device a
 parameter is only a shape: that is how ``count_params`` sizes a full
 model without allocating it.  Parameters are made without gradients; the
 trainer (``repro_torch.train.loop.init_state``) turns them on for the
-model it trains.
+model it trains.  ``remat`` is the models' layer recompute, the port's
+``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def normal_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype,
@@ -56,6 +58,15 @@ def weights_generator(device, generator: Optional[torch.Generator]
     if generator is not None or device.type == "meta":
         return generator
     return torch.Generator(device=device).manual_seed(0)
+
+
+def remat(cfg, fn: Callable, *args):
+    """``fn(*args)``, recomputed in the backward pass
+    (``torch.utils.checkpoint``) when ``cfg.remat`` is set and autograd
+    records."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def count_params(module: nn.Module) -> int:

@@ -1,11 +1,10 @@
 """Architecture registry: config -> model, and the parameter counts that
 the serving engine's cost model and the trainer's FLOP count read.
 
-The SSM, hybrid, dense and MoE families serve (``MambaLM``, ``HybridLM``,
-``TransformerLM``); the dense and VLM families also train and evaluate
-(``TransformerLM``, whose attention has a forward-only flash kernel, as in
-the JAX package).  encdec raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+Every family of the JAX package builds: dense, MoE and VLM
+(``TransformerLM``), SSM (``MambaLM``), hybrid (``HybridLM``) and
+encoder-decoder (``EncDecLM``).  Each computes its loss; the SSM, hybrid,
+dense and MoE families also serve.
 """
 from __future__ import annotations
 
@@ -17,7 +16,7 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba import HybridLM, MambaLM
 from repro_torch.models.module import count_params as _count
-from repro_torch.models.transformer import ENCDEC_LATER, TransformerLM
+from repro_torch.models.transformer import EncDecLM, TransformerLM
 
 MODEL_FAMILIES = {
     "dense": TransformerLM,
@@ -25,9 +24,7 @@ MODEL_FAMILIES = {
     "vlm": TransformerLM,
     "ssm": MambaLM,
     "hybrid": HybridLM,
-}
-_LATER = {
-    "encdec": ENCDEC_LATER,
+    "encdec": EncDecLM,
 }
 
 
@@ -35,10 +32,6 @@ def get_model(cfg: ModelConfig, *, device: Union[str, torch.device] = "cuda",
               generator: Optional[torch.Generator] = None):
     """The model of ``cfg.family`` with weights drawn from ``generator``
     on ``device`` (``meta``: shapes only, nothing allocated)."""
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet: "
-            f"{_LATER[cfg.family]}")
     if cfg.family not in MODEL_FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r}")
     return MODEL_FAMILIES[cfg.family](cfg, device=device, generator=generator)

@@ -1,6 +1,7 @@
 """Decoder-only transformer LM, dense, MoE and VLM-prefix families
-(granite, danube, stablelm, phi3, qwen2-moe, moonshot, llava), ported
-from ``repro.models.transformer`` for training, evaluation and serving.
+(granite, danube, stablelm, phi3, qwen2-moe, moonshot, llava), and the
+encoder-decoder (seamless), ported from ``repro.models.transformer`` for
+training, evaluation and serving.
 
 The JAX package scans one stacked block over the layers; here each layer
 is a ``Block`` module in a ``ModuleList`` (the JAX ``layers`` value
@@ -18,8 +19,11 @@ products in both packages; the KV cache is one ``KVCache`` whose leaves
 carry the layer axis first, as the reference's scan stacks them, and
 ``decode_step`` writes it in place.
 
-Not ported yet: ``EncDecLM``; it raises ``NotImplementedError`` naming
-its ROADMAP item.
+``EncDecLM`` encodes precomputed frame embeddings (the audio frontend is
+a stub, as in the reference) with bidirectional attention and decodes
+with causal self-attention plus cross attention over the encoder.  Both
+run the plain attention route (``use_flash=False``), as in the
+reference, so the encoder-decoder launches no kernel.
 """
 from __future__ import annotations
 
@@ -28,13 +32,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.module import ones_init, param, weights_generator
-
-ENCDEC_LATER = "ROADMAP Queue 1 item 11 (EncDecLM, layers.cross_attention)"
+from repro_torch.models.module import (ones_init, param, remat,
+                                      weights_generator)
 
 
 def _pad_experts(n: int, multiple: int = 16) -> int:
@@ -110,13 +112,9 @@ class TransformerLM(nn.Module):
         """Run the layer stack over embedded inputs x: (B, S, d).  Returns
         (final-normed states, aux loss summed over the layers; 0 for the
         dense family)."""
-        recompute = self.cfg.remat and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in self.layers:
-            if recompute:
-                x, a = checkpoint(self._block, lp, x, use_reentrant=False)
-            else:
-                x, a = self._block(lp, x)
+            x, a = remat(self.cfg, self._block, lp, x)
             if a is not None:
                 aux = aux + a
         return L.rms_norm(self.final_norm, x), aux
@@ -147,9 +145,8 @@ class TransformerLM(nn.Module):
         h, aux = self.hidden_states(x)
         labels = batch["labels"]
         h_text = h[:, -labels.shape[1]:]           # predictions for text slots
-        nll = L.nll_loss(self.embed, h_text, labels, self.cfg.vocab,
-                         self.vocab_padded, self.cfg.ce_seq_chunk)
-        return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+        return L.lm_loss(self.embed, h_text, labels, self.cfg.vocab,
+                         self.vocab_padded, self.cfg.ce_seq_chunk, aux)
 
     # -- serving --------------------------------------------------------------
     def cache_capacity(self, seq_len: int) -> int:
@@ -205,3 +202,141 @@ class TransformerLM(nn.Module):
             x = x + self._ffn(lp, L.rms_norm(lp.mlp_norm, x), moe_group)[0]
         h = L.rms_norm(self.final_norm, x)
         return self._logits(h), cache
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (seamless-m4t): audio-frame encoder stub + text decoder
+# ---------------------------------------------------------------------------
+class EncBlock(nn.Module):
+    """One encoder layer: attn_norm, attn, mlp_norm, mlp."""
+
+    def __init__(self, gen, cfg: ModelConfig, device):
+        super().__init__()
+        dt = cfg.dtype_torch
+        self.attn_norm = L.init_rmsnorm(gen, cfg.d_model, dt, device)
+        self.attn = L.AttnParams(gen, cfg.d_model, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.hd, dt, device)
+        self.mlp_norm = L.init_rmsnorm(gen, cfg.d_model, dt, device)
+        self.mlp = L.MlpParams(gen, cfg.d_model, cfg.d_ff, dt, device)
+
+
+class DecBlock(EncBlock):
+    """One decoder layer: an encoder layer's fields plus cross_norm and
+    cross (the cross attention's projections)."""
+
+    def __init__(self, gen, cfg: ModelConfig, device):
+        super().__init__(gen, cfg, device)
+        dt = cfg.dtype_torch
+        self.cross_norm = L.init_rmsnorm(gen, cfg.d_model, dt, device)
+        self.cross = L.AttnParams(gen, cfg.d_model, cfg.n_heads,
+                                  cfg.n_kv_heads, cfg.hd, dt, device)
+
+
+class EncDecLM(nn.Module):
+    """Encoder over precomputed frame embeddings, decoder with self and
+    cross attention.  The serving cache is {"self": a ``KVCache`` of
+    (L, ...) leaves, "cross": the (k, v) of every layer, each (L, B, Se,
+    Kh, hd)}, the reference's layout."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.vocab_padded = L.pad_vocab(cfg.vocab)
+        gen = weights_generator(device, generator)
+        dt = cfg.dtype_torch
+        self.embed = L.init_embedding(gen, self.vocab_padded, cfg.d_model, dt,
+                                      device)
+        self.enc_layers = nn.ModuleList(EncBlock(gen, cfg, device)
+                                        for _ in range(cfg.encoder_layers))
+        self.enc_norm = param(gen, (cfg.d_model,), dt, device,
+                              init=ones_init)
+        self.dec_layers = nn.ModuleList(DecBlock(gen, cfg, device)
+                                        for _ in range(cfg.num_layers))
+        self.final_norm = param(gen, (cfg.d_model,), dt, device,
+                                init=ones_init)
+
+    def _enc_block(self, lp: EncBlock, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = h + L.full_attention(
+            lp.attn, L.rms_norm(lp.attn_norm, h), n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+            causal=False, q_chunk=cfg.attn_q_chunk, use_flash=False)
+        return h + L.mlp(lp.mlp, L.rms_norm(lp.mlp_norm, h))
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames: (B, Se, d) precomputed embeddings -> (B, Se, d) in the
+        model's dtype."""
+        x = frames.to(self.cfg.dtype_torch)
+        for lp in self.enc_layers:
+            x = remat(self.cfg, self._enc_block, lp, x)
+        return L.rms_norm(self.enc_norm, x)
+
+    def _dec_block(self, lp: DecBlock, h, enc_kv, attn_fn):
+        """Self-attention by ``attn_fn(lp, normed h)`` -> (out, extra),
+        cross attention over ``enc_kv``, and the MLP.  Returns (h,
+        extra)."""
+        cfg = self.cfg
+        a_out, extra = attn_fn(lp, L.rms_norm(lp.attn_norm, h))
+        h = h + a_out
+        h = h + L.cross_attention(lp.cross, L.rms_norm(lp.cross_norm, h),
+                                  enc_kv, n_heads=cfg.n_heads,
+                                  n_kv=cfg.n_kv_heads, head_dim=cfg.hd)
+        return h + L.mlp(lp.mlp, L.rms_norm(lp.mlp_norm, h)), extra
+
+    def _self_attn(self, lp: DecBlock, hn):
+        cfg = self.cfg
+        return L.full_attention(
+            lp.attn, hn, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+            q_chunk=cfg.attn_q_chunk), None
+
+    def _dec_train_block(self, lp: DecBlock, h, enc_out):
+        enc_kv = L.encode_cross_kv(lp.cross, enc_out, n_kv=self.cfg.n_kv_heads,
+                                   head_dim=self.cfg.hd)
+        return self._dec_block(lp, h, enc_kv, self._self_attn)[0]
+
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """batch: frames (B, Se, d), tokens (B, St), labels (B, St).
+        Returns (loss, {"nll", "aux"}); aux is 0, as in the reference."""
+        cfg = self.cfg
+        enc_out = self.encode(batch["frames"])
+        x = L.embed(self.embed, batch["tokens"])
+        for lp in self.dec_layers:
+            x = remat(cfg, self._dec_train_block, lp, x, enc_out)
+        h = L.rms_norm(self.final_norm, x)
+        return L.lm_loss(self.embed, h, batch["labels"], cfg.vocab,
+                         self.vocab_padded, cfg.ce_seq_chunk)
+
+    # -- serving: cache = (self KV ring, precomputed cross KV) ---------------
+    @torch.no_grad()
+    def init_cache(self, frames: torch.Tensor, seq_len: int):
+        cfg = self.cfg
+        enc_out = self.encode(frames)
+        kvs = [L.encode_cross_kv(lp.cross, enc_out, n_kv=cfg.n_kv_heads,
+                                 head_dim=cfg.hd) for lp in self.dec_layers]
+        one = L.init_kv_cache(frames.shape[0], seq_len, cfg.n_kv_heads,
+                              cfg.hd, cfg.dtype_torch, self.device)
+        self_c = L.KVCache(*(a[None].repeat((cfg.num_layers,) +
+                                            (1,) * a.dim()) for a in one))
+        return {"self": self_c,
+                "cross": tuple(torch.stack(leaf) for leaf in zip(*kvs))}
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, cur_pos: int):
+        """tokens: (B, 1); cur_pos: int.  -> (logits (B, 1, V), cache),
+        the self-attention cache written in place.  The padded vocabulary
+        is not masked, as in the reference."""
+        cfg = self.cfg
+        x = L.embed(self.embed, tokens)
+        sc, (ck, cv) = cache["self"], cache["cross"]
+        for i, lp in enumerate(self.dec_layers):
+            def self_attn(lp_, hn, i=i):
+                return L.decode_attention(
+                    lp_.attn, hn, L.KVCache(sc.k[i], sc.v[i], sc.pos[i]),
+                    cur_pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                    head_dim=cfg.hd, rope_theta=cfg.rope_theta)
+            x, _ = self._dec_block(lp, x, (ck[i], cv[i]), self_attn)
+        h = L.rms_norm(self.final_norm, x)
+        return L.logits_head(self.embed, h).float(), cache

@@ -98,13 +98,10 @@ def test_count_params_match_reference_full_configs(arch):
 
 
 def test_unported_families_raise():
-    """encdec is the one family still to come; MoE builds, on ``meta``,
-    with the reference's total and active parameter counts."""
-    with pytest.raises(NotImplementedError,
-                       match=r"Queue 1 item 11 \(EncDecLM"):
-        registry.get_model(get_smoke_config("seamless-m4t-medium"),
-                           device="meta")
-    for arch in ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"):
+    """No family is left to port: encdec and MoE build, on ``meta``, with
+    the reference's total and active parameter counts."""
+    for arch in ("seamless-m4t-medium", "qwen2-moe-a2.7b",
+                 "moonshot-v1-16b-a3b"):
         cfg, jcfg = get_config(arch), jget_config(arch)
         model = registry.get_model(cfg, device="meta")
         assert sum(p.numel() for p in model.parameters()) == \

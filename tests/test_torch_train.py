@@ -336,22 +336,31 @@ def test_checkpoint_restart_resumes_bitwise(tmp_path):
 # ---------------------------------------------------------------------------
 # the whole slice: the launcher
 # ---------------------------------------------------------------------------
-def test_launcher_trains_and_resumes_on_cpu(tmp_path):
+@pytest.mark.parametrize("arch", [ARCH, "falcon-mamba-7b", "zamba2-1.2b",
+                                  "seamless-m4t-medium"])
+def test_launcher_trains_and_resumes_on_cpu(tmp_path, arch):
+    """The launcher trains every family but MoE; 4 steps, a checkpoint
+    and 2 more from it equal 6 steps straight, bitwise."""
     d = str(tmp_path / "ck")
     lines = []
-    args = ["--arch", ARCH, "--smoke", "--device", "cpu", "--batch", "4",
-            "--seq", "16", "--ckpt-dir", d, "--ckpt-every", "2"]
-    model, state, hist = launch_train.main(args + ["--steps", "4"],
-                                           log_fn=lines.append)
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "4",
+            "--seq", "16", "--ckpt-every", "2"]
+    quiet = dict(log_fn=lambda *_: None)
+    _, straight, _ = launch_train.main(args + ["--steps", "6"], **quiet)
+    model, state, hist = launch_train.main(
+        args + ["--ckpt-dir", d, "--steps", "4"], log_fn=lines.append)
     assert state.step == 4 and [h["step"] for h in hist] == [1, 2, 3, 4]
     assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0 for h in hist)
     assert hist[0]["lr"] == 0.0            # warmup: the first step's lr is 0
     assert model.cfg.dtype == "float32" and ckpt.find_latest(d).endswith(
         "step_00000004")
-    model2, state2, hist2 = launch_train.main(args + ["--steps", "6"],
-                                              log_fn=lines.append)
+    assert not model.cfg.use_flash
+    model2, state2, hist2 = launch_train.main(
+        args + ["--ckpt-dir", d, "--steps", "6"], log_fn=lines.append)
     assert state2.step == 6 and [h["step"] for h in hist2] == [5, 6]
     assert any("restored step 4" in line for line in lines)
+    for k, p in straight.params.items():
+        assert torch.equal(state2.params[k], p), k
     with pytest.raises(NotImplementedError, match="not ported"):
-        launch_train.main(["--arch", "falcon-mamba-7b", "--smoke",
+        launch_train.main(["--arch", "qwen2-moe-a2.7b", "--smoke",
                            "--device", "cpu", "--steps", "1"])

@@ -37,7 +37,6 @@ from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import model_from_numpy  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
-from repro_torch.models.transformer import ENCDEC_LATER  # noqa: E402
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 # granite (GQA), danube (sliding window, 16 in the smoke config), stablelm
@@ -165,14 +164,17 @@ def test_count_params_of_full_configs(arch, want, active):
 
 
 def test_unported_parts_raise():
-    """EncDecLM is still to come and says which item brings it; MoE and
-    the serving methods are ported: qwen2-moe builds on ``meta`` with the
-    reference's parameter count and a float32 router in a bf16 model."""
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 11 "
-                                                  r"\(EncDecLM"):
-        registry.get_model(get_smoke_config("seamless-m4t-medium"),
-                           device="meta")
-    assert "EncDecLM" in ENCDEC_LATER
+    """Nothing of the module is left to port: EncDecLM builds on ``meta``
+    with the reference's parameter count (its smoke config too), and so
+    does qwen2-moe, with a float32 router in a bf16 model."""
+    for c, jc in ((get_config("seamless-m4t-medium"),
+                   jget_config("seamless-m4t-medium")),
+                  (get_smoke_config("seamless-m4t-medium"),
+                   jsmoke("seamless-m4t-medium"))):
+        model = registry.get_model(c, device="meta")
+        assert type(model).__name__ == "EncDecLM"
+        assert sum(p.numel() for p in model.parameters()) == \
+            jregistry.count_params(jc)
     cfg = get_config("qwen2-moe-a2.7b")
     model = registry.get_model(cfg, device="meta")
     assert sum(p.numel() for p in model.parameters()) == \
