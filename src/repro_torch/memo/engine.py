@@ -200,17 +200,18 @@ class ScheduleMemo:
             use_kernel=route(fit), objective=fit.objective)
 
     # -- exact hit ------------------------------------------------------------
-    def lookup(self, fit, strategy, budget: int,
-               seed: int) -> Optional[MemoHit]:
+    def lookup(self, fit, strategy, budget: int, seed: int,
+               scope: Optional[int] = None) -> Optional[MemoHit]:
         """Replay of a previously solved row, or None.
 
         A hit replays the stored schedule bit for bit.  When the stored
         row was solved *cold* that equals the standalone
         ``run_strategy`` / ``run_sweep`` row for this fingerprint; when it
         was *warm-seeded* it equals what the memoized service returned
-        the first time (idempotent replay).
+        the first time (idempotent replay).  ``scope`` is the request
+        the ``memo.lookup`` span belongs to (the stream passes its uid).
         """
-        sp = self.tracer.span("memo.lookup")
+        sp = self.tracer.span("memo.lookup", scope=scope)
         with sp:
             fp = self.fingerprint(fit, strategy, budget, seed)
             rec = self.store.get(fp)
@@ -261,8 +262,8 @@ class ScheduleMemo:
                 best, best_d = r, d
         return best, best_d
 
-    def warm_start(self, fit, strategy,
-                   family: str = "") -> Optional[WarmStart]:
+    def warm_start(self, fit, strategy, family: str = "",
+                   scope: Optional[int] = None) -> Optional[WarmStart]:
         """Nearest-fingerprint population transfer, or None.
 
         Only strategies that accept an ``init_population``
@@ -275,7 +276,7 @@ class ScheduleMemo:
         init.  The population is resized on the host to the strategy's
         ask size (row tiling); the jitter is drawn in ``init``.
         """
-        sp = self.tracer.span("memo.warm_start")
+        sp = self.tracer.span("memo.warm_start", scope=scope)
         with sp:
             strategy = strategy.bind(fit.num_accels)
             if not (self.near and strategy.supports_init_population):
@@ -302,7 +303,8 @@ class ScheduleMemo:
 
     # -- recording ------------------------------------------------------------
     def record(self, fit, strategy, budget: int, seed: int, row,
-               population=None, family: str = "", warm=None) -> str:
+               population=None, family: str = "", warm=None,
+               scope: Optional[int] = None) -> str:
         """Store one solved row (idempotent per fingerprint).
 
         ``row`` is anything with ``best_fitness`` / ``best_accel`` /
@@ -312,10 +314,12 @@ class ScheduleMemo:
         Tensors among them are read back to the host in one transfer.
         ``warm`` is the ``WarmStart`` the row was seeded with, if any:
         the record is flagged ``warm_seeded`` so ``lookup`` can tell
-        cold-search bit-identity from service-idempotent replay.  Returns
-        the fingerprint.
+        cold-search bit-identity from service-idempotent replay.
+        ``scope`` is the request the ``memo.record`` span belongs to.
+        Returns the fingerprint.
         """
-        with self.tracer.span("memo.record", warm_seeded=warm is not None):
+        with self.tracer.span("memo.record", scope=scope,
+                              warm_seeded=warm is not None):
             strategy = strategy.bind(fit.num_accels)
             generations, evolve_last, P = self._protocol(strategy, budget)
             fp = self.fingerprint(fit, strategy, budget, seed)

@@ -1,12 +1,12 @@
 """Span tracer — request-scoped timelines for the scheduling stack.
 
 A :class:`Tracer` records :class:`Span`s (name, start, end, scenario
-scope, free-form args) into a bounded ring buffer under a lock.  In the
-port the schedule memo emits into one (``memo.lookup``,
-``memo.warm_start``, ``memo.record``); the reference's exporters, metric
-registry and flight recorder (``repro.obs``) are ROADMAP Queue 1 item 13.
-The module uses the standard library only and matches
-``repro.obs.trace`` line for line.
+scope, free-form args) into a bounded ring buffer under a lock.  The
+stream service, the schedule memo (``memo.lookup``, ``memo.warm_start``,
+``memo.record``) and the sweep's chunk loop emit into one;
+``repro_torch.obs.export`` turns the buffer into a Perfetto-loadable
+Chrome trace or a JSONL file.  The module uses the standard library only
+and matches ``repro.obs.trace`` line for line.
 
 Design constraints, in order:
 

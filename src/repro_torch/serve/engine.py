@@ -23,11 +23,15 @@ execute=True)`` also runs the jobs: each tenant's model (dense, MoE, SSM
 or hybrid) serves its prefills and decode windows on the tenant's device,
 the SSM prefills through the CUDA selective-scan kernel on the card.
 
-The JAX engine sends device-resident methods through its stream service,
-which its own docstring states is bit-identical to a direct
-``run_strategy`` with the same seed and budget; the port has no stream
-service yet, so it calls ``run_strategy`` directly and returns
-``"stream": None``.  Only strategies in the port's registry are accepted.
+As in the JAX engine, the engine is a *client* of the stream service
+(``repro_torch.stream``): every device-resident method is scheduled via
+``StreamingScheduler.schedule_prepared`` (the engine's tables enter the
+admission queue as a prepared scenario and run through the sweep's row
+function on the engine's device), which is bitwise a direct
+``run_strategy`` with the same seed and budget; ``out["stream"]`` is the
+routed ``StreamResult``.  Host-only methods (heuristics, RL) keep
+``run_strategy``'s host loop and return ``"stream": None``.  Only
+strategies in the port's registry are accepted.
 """
 from __future__ import annotations
 
@@ -41,14 +45,11 @@ from repro_torch.core.bw_allocator import simulate_numpy
 from repro_torch.core.encoding import decode_to_lists
 from repro_torch.core.fitness import FitnessFn
 from repro_torch.core.job_analyzer import table_from_arrays
-from repro_torch.core.pareto import pareto_front
 from repro_torch.costmodel.tpu import TPUSubmesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import count_active_params
-
-# the scheduling priority classes, most urgent first (the JAX package
-# keeps them in repro.stream.workloads)
-PRIORITY_CLASSES = ("urgent", "normal", "batch")
+from repro_torch.stream import (PRIORITY_CLASSES, StreamConfig,
+                                StreamingScheduler)
 
 
 @dataclasses.dataclass
@@ -144,6 +145,7 @@ class MultiTenantEngine:
                  system_bw: float = 64e9, group_size: int = 64,
                  decode_window: int = 32, budget: int = 2_000,
                  method: str = "magma", seed: int = 0,
+                 stream=None, memo=None,
                  device: Union[str, torch.device] = "cuda"):
         self.tenants = {t.name: t for t in tenants}
         self.submeshes = list(submeshes or default_submeshes())
@@ -155,6 +157,47 @@ class MultiTenantEngine:
         self.seed = seed
         self.device = torch.device(device)   # where the search runs
         self._uid = 0
+        # the stream service this engine schedules through (shared so many
+        # engines can feed one admission queue); lazily built, on the
+        # engine's device, when the first device-resident method is
+        # scheduled
+        self._stream = stream
+        self._owns_stream = False
+        # schedule memo (repro_torch.memo.ScheduleMemo) consulted by the
+        # stream at admission: a re-seen job group replays its stored
+        # mapping bitwise with no search; near-same groups warm-start.
+        # Only applies to the service this engine creates — an injected
+        # ``stream`` keeps whatever memo it was built with.
+        self.memo = memo
+
+    def stream_service(self):
+        """The ``repro_torch.stream.StreamingScheduler`` this engine is a
+        client of (created on first use, on the engine's device, unless
+        one was injected)."""
+        if self._stream is None:
+            # no trace analysis happens on this path (scenarios arrive
+            # prepared), so a minimal analysis pool suffices
+            self._stream = StreamingScheduler(
+                budget=self.budget,
+                stream=StreamConfig(analysis_workers=1),
+                memo=self.memo, device=self.device)
+            self._owns_stream = True
+        return self._stream
+
+    def close(self) -> None:
+        """Shut down the stream service this engine created (an injected,
+        shared service is the injector's to close)."""
+        if self._owns_stream and self._stream is not None:
+            self._stream.close()
+            self._stream = None
+            self._owns_stream = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
     # -- job construction -----------------------------------------------------
     def jobs_for_requests(self, requests: Sequence[Tuple[str, int, int]]
@@ -215,11 +258,15 @@ class MultiTenantEngine:
                  prompts: Optional[Dict[int, np.ndarray]] = None) -> Dict:
         """Profile, search, and map ``jobs`` onto the submeshes.
 
-        The search is the port's ``run_strategy`` with the engine's seed
-        and budget on the engine's device.  With ``execute=True`` the
-        scheduled jobs also run for real (``prompts`` maps prefill-job
-        uid -> token array) and the generated tokens come back under
-        ``"outputs"``."""
+        Device-resident methods go through the stream service (prepared
+        scenario -> admission queue -> the sweep's row function on the
+        engine's device), under the job group's strictest tenant SLO;
+        that is bitwise a direct ``run_strategy`` with the same seed and
+        budget, and ``"stream"`` holds the routed ``StreamResult``.
+        Host-only methods run their own loops (``"stream": None``).  With
+        ``execute=True`` the scheduled jobs also run for real
+        (``prompts`` maps prefill-job uid -> token array) and the
+        generated tokens come back under ``"outputs"``."""
         from repro_torch.core.strategies import get_strategy, run_strategy
         if execute and prompts is None:
             raise ValueError("execute=True needs prompts "
@@ -227,8 +274,16 @@ class MultiTenantEngine:
         table = self.analyze(jobs)
         fit = FitnessFn(table, bw_sys=self.system_bw, device=self.device)
         strategy = get_strategy(method or self.method)
-        res = run_strategy(strategy, fit, budget=self.budget, seed=self.seed,
-                           device=self.device)
+        stream_res = None
+        if strategy.device_resident:
+            slo = self.slo_for(jobs)
+            stream_res = self.stream_service().schedule_prepared(
+                fit, seed=self.seed, budget=self.budget, strategy=strategy,
+                priority=slo.priority, deadline_s=slo.deadline_s)
+            res = stream_res.to_search_result()
+        else:
+            res = run_strategy(strategy, fit, budget=self.budget,
+                               seed=self.seed, device=self.device)
         local = decode_to_lists(res.best_accel, res.best_prio,
                                 len(self.submeshes))
         makespan = simulate_numpy(local, table.lat, table.bw, self.system_bw)
@@ -241,7 +296,7 @@ class MultiTenantEngine:
             "makespan_s": float(makespan),
             "throughput_flops": table.total_flops / max(makespan, 1e-30),
             "table": table,
-            "stream": None,
+            "stream": stream_res,
         }
         if execute:
             out["outputs"] = self.execute(jobs, queues, prompts)
@@ -254,25 +309,20 @@ class MultiTenantEngine:
         """Co-search several serving objectives at once -> the frontier.
 
         Same profile tables as :meth:`schedule` (the energy column comes
-        from whole-slice board power) and a vector objective; the search
-        keeps its converged population and ``pareto_front`` extracts the
-        front from it, as ``M3E.search_front`` does.  Returns the
-        ``ParetoFront`` plus, for each front point, the decoded queues and
-        simulated makespan: every candidate is a complete schedule."""
-        from repro_torch.core.strategies import get_strategy, run_strategy
+        from whole-slice board power), a vector objective, routed through
+        ``stream_service().schedule_front`` under the job group's
+        strictest tenant SLO: the row keeps its converged population and
+        ``pareto_front`` extracts the front from it, as
+        ``M3E.search_front`` does.  Returns the ``ParetoFront`` plus, for
+        each front point, the decoded queues and simulated makespan:
+        every candidate is a complete schedule."""
         table = self.analyze(jobs)
         fit = FitnessFn(table, bw_sys=self.system_bw,
                         objective=tuple(objectives), device=self.device)
-        strategy = get_strategy(method)
-        if not getattr(strategy, "multi_objective", False):
-            raise ValueError(
-                f"method {method!r} is single-objective; schedule_front "
-                "needs a multi_objective strategy such as 'nsga2'")
-        res = run_strategy(strategy, fit, budget=self.budget, seed=self.seed,
-                           keep_population=True, device=self.device)
-        front = pareto_front(fit, res.final_population,
-                             n_samples=res.n_samples,
-                             wall_time_s=res.wall_time_s)
+        slo = self.slo_for(jobs)
+        front = self.stream_service().schedule_front(
+            fit, seed=self.seed, budget=self.budget, strategy=method,
+            priority=slo.priority, deadline_s=slo.deadline_s)
         points = []
         for k in range(len(front)):
             pt = front.point(k)

@@ -11,8 +11,10 @@ requests, and the same numpy-drawn prompts.
     bitwise the JAX engine's: the TPU cost model is a copy.
   - ``execute`` on the same jobs, queues and prompts gives the JAX
     engine's greedy tokens exactly.
-  - The port's engine schedules through its own ``run_strategy`` on the
-    CPU here; every job is scheduled once.  The one-shot heuristics
+  - The port's engine schedules MAGMA through its own stream service on
+    the CPU here (``out["stream"]`` is the routed ``StreamResult``; a
+    host-only method gives ``None``); every job is scheduled once.  The
+    one-shot heuristics
     (``herald_like``, ``ai_mt_like``) give the reference's queues and
     makespans exactly.
   - ``schedule_front`` returns a non-dominated set of complete schedules,
@@ -34,6 +36,7 @@ from repro_torch.convert import model_from_numpy  # noqa: E402
 from repro_torch.core.bw_allocator import simulate_numpy  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
+from repro_torch.stream import StreamResult  # noqa: E402
 
 ARCHS = ["falcon-mamba-7b", "zamba2-1.2b"]
 REQUESTS = [("falcon-mamba-7b", 16, 6), ("zamba2-1.2b", 12, 5),
@@ -130,7 +133,8 @@ def test_schedule_covers_every_job_once(tenants):
     out = eng.schedule(jobs)
     scheduled = sorted(uid for q in out["queues"] for uid in q)
     assert scheduled == sorted(j.uid for j in jobs)
-    assert out["stream"] is None and "outputs" not in out
+    assert isinstance(out["stream"], StreamResult) and "outputs" not in out
+    assert eng.schedule(jobs, method="herald_like")["stream"] is None
     assert out["makespan_s"] > 0 and np.isfinite(out["makespan_s"])
     assert out["makespan_s"] == simulate_numpy(
         out["local_queues"], out["table"].lat, out["table"].bw,

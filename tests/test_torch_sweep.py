@@ -231,11 +231,22 @@ def test_run_rows_and_host_only_rejection():
     memo = ScheduleMemo()
     run_sweep(fns, budget=BUDGET, cfg=CFG, memo=memo, device="cpu")
     assert len(memo) == 2 and memo.stats.records == 2
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_sweep(fns, budget=BUDGET, device="cpu",
-                  sweep=SweepConfig(transfer_guard=True))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_sweep(fns, budget=BUDGET, device="cpu", sweep=SweepConfig(obs={}))
+    # the transfer guard and chunk tracing are ported: rows unchanged
+    from repro_torch.obs import get_tracer
+    base = run_sweep(fns, budget=BUDGET, cfg=CFG, device="cpu")
+    guarded = run_sweep(fns, budget=BUDGET, cfg=CFG, device="cpu",
+                        sweep=SweepConfig(transfer_guard=True))
+    get_tracer().clear()
+    traced = run_sweep(fns, budget=BUDGET, cfg=CFG, device="cpu",
+                       sweep=SweepConfig(chunk_rows=1, obs={"enabled": True}))
+    for res in (guarded, traced):
+        np.testing.assert_array_equal(res.best_fitness, base.best_fitness)
+        np.testing.assert_array_equal(res.best_accel, base.best_accel)
+        np.testing.assert_array_equal(res.history_best, base.history_best)
+    spans = [sp for sp in get_tracer().spans() if sp.name == "sweep.chunk"]
+    assert [sp.args["chunk"] for sp in spans] == [0, 1]
+    assert all(sp.args["rows"] == 1 and sp.args["devices"] == 1
+               and sp.scope is None for sp in spans)
     with pytest.raises(ValueError, match="cfg"):
         run_sweep(fns, budget=BUDGET, cfg=CFG, strategy="random",
                   device="cpu")
