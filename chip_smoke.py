@@ -192,15 +192,42 @@ Phases, in order; any failure raises and exits non-zero:
               generation and batch.  Phase 14's launcher now schedules
               MAGMA through the engine's stream service: each MAGMA
               schedule carries its StreamResult and equals a direct
-              run_strategy
+              run_strategy.  At the script's end (after every other
+              profiler session) one more pipelined run of the trace is
+              profiled: the card's own busy share (the union of its CUDA
+              kernel intervals over the run's wall) beside the stream's
+              device_idle_frac, whose windows count host issue as busy
+ 17. fleet    the scheduling fleet (repro_torch.fleet) right after phase
+              16: phase 16's trace generator at 64 scenarios through 1-,
+              2- and 4-worker fleets on the one card (each worker its own
+              interpreter, CUDA context and StreamingScheduler; fresh
+              shared ShardedMemoStores; warmed up and run once on a
+              disjoint-seed twin first) and through one in-process stream:
+              scenarios/s, latency p50 / p99, steals, each worker's
+              makespan launches; the 2-worker fleet's rows bitwise
+              standalone run_strategy and the in-process stream's; on a
+              one-signature 24-scenario trace its steal-free rerun
+              replays every row with at least one cross-worker exact hit,
+              arrays bitwise run 1's; every worker at one makespan launch
+              per generation and batch and no build after its warmup;
+              MultiTenantEngine(fleet=) bitwise its in-process schedule
 
 The counts of every kernel are set to 0 before each main path (the M3E
 searches, the served batch, phases 9-10 together, "train_eval", the
 comparison, "compare", the memo phase, "memo", the launcher, "launch",
-phase 15's training and evaluation, "families", and phase 16, "stream")
-and read after it.
+phase 15's training and evaluation, "families", phase 16, "stream", and
+phase 17, "fleet", whose makespan count adds the launches every fleet
+worker reports to this process's) and read after it.
 It prints a JSON line with one entry per kernel, the card's name and
 power limit, and last the line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --stream-ab ROOT [ROOT ...]
+
+runs phase 16's serial and pipelined modes STREAM_AB_REPS times each,
+alternating, for each checkout ROOT in that order, each in a process of
+its own with this file's measuring code (two versions of the stream held
+on one card in one call: ``git archive`` the other version into a
+directory under build/).
 """
 import json
 import os
@@ -301,6 +328,18 @@ STREAM_TRACE = dict(num_scenarios=32, arrival="poisson", rate_hz=100.0,
                     batch_scale_max=8, seed=0)
 STREAM_BUDGET, STREAM_ANYTIME = 10_000, 2_500
 STREAM_PRIORITIES = ("urgent", "normal", "batch", "batch")
+# phase 17: phase 16's trace generator at 64 scenarios through 1-, 2- and
+# 4-worker fleets on the one card (chunks of one batch, two in flight a
+# worker); the memo gate's steal-prone trace puts all of its scenarios on
+# one signature (S4), so the 2-worker fleet's first dispatch round steals
+# (benchmarks/perf_fleet.py's skewed-trace construction)
+STREAM_AB_REPS = 5           # --stream-ab: serial / pipelined pairs a root
+FLEET_SCENARIOS = 64
+FLEET_WORKERS = (1, 2, 4)
+FLEET_SKEW = dict(STREAM_TRACE, num_scenarios=24, settings=("S4",), seed=7)
+FLEET_ENGINE_REQUESTS = (("granite-3-2b", 300, 40),
+                         ("qwen2-moe-a2.7b", 200, 48),
+                         ("falcon-mamba-7b", 354, 32))
 
 
 def check(cond, msg):
@@ -1022,12 +1061,11 @@ def profile_sweep(dev, fits, labels, budget):
     device's busy share, the device ops per generation and chunk, and the
     makespan kernel's part (None where the profiler sees no device)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
     from repro_torch.core.sweep import SweepConfig, run_sweep
 
     rows = [fits[lab] for lab in labels if "-S4-" in lab]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                 if dev.type == "cuda" else [ProfilerActivity.CPU]) as prof:
+    with profile(activities=profiler_activities(dev)) as prof:
         res = run_sweep(rows, budget=budget, seeds=COMPARE_SEEDS,
                         sweep=SweepConfig(chunk_rows=COMPARE_CHUNK_ROWS),
                         device=dev)
@@ -1313,6 +1351,16 @@ def memo_phase(dev, mk, budget=10_000, group_size=100):
     return out
 
 
+def profiler_activities(dev):
+    """What torch.profiler records here: the card's activity alone (its
+    kernels, with their names and intervals, are all the script reads;
+    recording every host op as well would slow the profiled work and the
+    parsing of its events), or the host on the CPU."""
+    from torch.profiler import ProfilerActivity
+    return ([ProfilerActivity.CUDA] if dev.type == "cuda"
+            else [ProfilerActivity.CPU])
+
+
 def device_profile(dev, fn, top_n=10, parts=()):
     """``fn()`` under torch.profiler: (wall ms, device busy ms, device ops,
     the ``top_n`` device ops by time and, for each name in ``parts``, the
@@ -1320,12 +1368,10 @@ def device_profile(dev, fn, top_n=10, parts=()):
     profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    activities = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     sync()
-    with profile(activities=activities) as prof:
+    with profile(activities=profiler_activities(dev)) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
@@ -2324,6 +2370,399 @@ def stream_phase(dev, mk, budget=STREAM_BUDGET, anytime=STREAM_ANYTIME,
     return out
 
 
+def fleet_phase(dev, mk, budget=STREAM_BUDGET, trace_kw=None,
+                workers=FLEET_WORKERS, skew_kw=None):
+    """Phase 17: the scheduling fleet (``repro_torch.fleet``) on the card.
+
+    Phase 16's trace generator at FLEET_SCENARIOS scenarios (``trace_kw``
+    cuts it) through a fleet of each size in ``workers``, all on ``dev``'s
+    card (a worker is its own interpreter with its own CUDA context; the
+    card time-slices between them), and through one in-process
+    ``StreamingScheduler`` beside them.  Every side gets a fresh shared
+    ``ShardedMemoStore`` (near hits off), the service's exhaustive
+    ``warmup`` over the trace and a run of a disjoint-seed twin of it
+    before the measured run; each fleet arms ``RecompileGuard`` in its
+    workers and marks the boundary after its warmups.  Reported per side:
+    scenarios/s, latency p50 / p99, steals, and each worker's makespan
+    launches.  Gates:
+
+    * every row of the 2-worker fleet is bitwise the standalone
+      ``run_strategy`` on the card for its (scenario, seed), and equal to
+      the in-process stream's;
+    * ``benchmarks/perf_fleet.py:19-27``'s replay gate on FLEET_SKEW (one
+      signature, so the first dispatch round steals): a steal-free rerun
+      through the same 2-worker fleet replays every row from the shared
+      store with at least one cross-worker exact hit (``foreign_hits``),
+      every array bitwise run 1's, and run 1's rows bitwise standalone;
+    * every worker's makespan launches equal one per generation and batch
+      it dispatched (warmups included), and no worker built anything after
+      its warmup boundary;
+    * ``MultiTenantEngine(fleet=)`` schedules a launcher-style job group
+      (FLEET_ENGINE_REQUESTS over the published configs on ``meta``)
+      bitwise as the in-process engine does.
+
+    Returns the phase's summary: "launches_workers" (every fleet worker's
+    makespan launches, summed), "launches_parent" (this process's, which
+    must equal the in-process stream's, the standalone checks' and the
+    in-process engine's generations)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core.fitness import FitnessFn
+    from repro_torch.core.strategies import (get_strategy, plan_generations,
+                                             run_strategy)
+    from repro_torch.fleet import FleetConfig, ShardedMemoStore, launch_fleet
+    from repro_torch.memo import ScheduleMemo
+    from repro_torch.stream import (StreamConfig, StreamingScheduler,
+                                    TraceConfig, analyze_serial,
+                                    generate_trace)
+
+    t_phase = time.perf_counter()
+    trace_kw = (dict(STREAM_TRACE, num_scenarios=FLEET_SCENARIOS)
+                if trace_kw is None else dict(trace_kw))
+    skew_kw = dict(FLEET_SKEW if skew_kw is None else skew_kw)
+    trace = generate_trace(TraceConfig(**trace_kw))
+    twin = generate_trace(TraceConfig(**dict(trace_kw,
+                                             seed=trace_kw["seed"] + 1000)))
+    skew = generate_trace(TraceConfig(**skew_kw))
+    stream_kw = dict(batch_rows=8, analysis_workers=2, max_inflight=2)
+    strat = get_strategy("magma")
+    gens = plan_generations(budget, strat.ask_size)[0]
+    parent = [0]                     # makespan launches this process owes
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="fleet_phase_", dir=build)
+    out = {"trace": trace_kw, "skew_trace": skew_kw, "budget": budget,
+           "stream": stream_kw, "fleets": {}}
+
+    def side_row(m, wall_what):
+        row = {k: getattr(m, k) for k in (
+            "num_scenarios", "wall_s", "scenarios_per_sec", "latency_p50_s",
+            "latency_p99_s")}
+        print(f"[fleet] {wall_what}: {m.num_scenarios} scenarios in "
+              f"{m.wall_s:.3f} s, {m.scenarios_per_sec:.3f} scenarios/s, "
+              f"latency p50 {m.latency_p50_s:.3f} s p99 "
+              f"{m.latency_p99_s:.3f} s")
+        return row
+
+    def standalone(r):
+        fit = analyze_serial([r.request])[0].fit
+        parent[0] += gens
+        return run_strategy(strat, FitnessFn(fit.table, bw_sys=fit.bw_sys,
+                                             objective=fit.objective,
+                                             device=dev),
+                            budget=budget, seed=r.request.seed, device=dev)
+
+    try:
+        # the in-process stream beside the fleets
+        svc = StreamingScheduler(
+            budget=budget, device=dev, stream=StreamConfig(**stream_kw),
+            memo=ScheduleMemo(ShardedMemoStore(os.path.join(tmp, "inproc")),
+                              near=False))
+        svc.warmup(trace)
+        svc.run(twin)
+        local = svc.run(trace)
+        out["in_process"] = side_row(svc.last_metrics, "in-process stream")
+        parent[0] += svc.dispatched_generations
+        svc.close()
+
+        worker_launches = 0
+        for n in workers:
+            cfg = FleetConfig(num_workers=n, budget=budget, device="cuda"
+                              if dev.type == "cuda" else "cpu",
+                              stream=stream_kw, chunk_rows=8,
+                              max_outstanding=2,
+                              memo_path=os.path.join(tmp, f"fleet{n}"),
+                              recompile_guard=True, ready_timeout_s=300.0)
+            t0 = time.perf_counter()
+            with launch_fleet(cfg) as fleet:
+                up_s = time.perf_counter() - t0
+                fleet.warmup(trace)
+                fleet.run(twin)
+                fleet.mark_warm()
+                before = fleet.worker_stats()
+                res = fleet.run(trace)
+                m = fleet.last_metrics
+                row = side_row(m, f"{n}-worker fleet")
+                measured = after = fleet.worker_stats()
+                check([r.request.uid for r in res]
+                      == sorted(t.uid for t in trace),
+                      f"fleet: the {n}-worker fleet does not route every "
+                      "scenario once")
+                row.update(startup_s=up_s, steals=m.steals,
+                           stolen_members=m.stolen_members,
+                           per_worker_scenarios=list(m.per_worker_scenarios))
+                if n == 2:
+                    out["gates"] = fleet_gates(dev, fleet, res, local, skew,
+                                               standalone, budget)
+                    out["engine"] = fleet_engine_gate(dev, fleet)
+                    parent[0] += out["engine"]["in_process_generations"]
+                    after = fleet.worker_stats()
+            row["workers"] = {}
+            for wid in sorted(after):
+                a, b, c = after[wid], before[wid], measured[wid]
+                # on the CPU the plain version runs: no kernel launch
+                check(a["makespan_launches"] == (
+                    a["dispatched_generations"] if dev.type == "cuda"
+                    else 0) and a["dispatched_generations"] > 0,
+                      f"fleet: {n}-worker {wid} launched the makespan kernel "
+                      f"{a['makespan_launches']} times over "
+                      f"{a['dispatched_generations']} generations x batches")
+                check(a["recompiles_post_warmup"] == 0,
+                      f"fleet: {n}-worker {wid} built "
+                      f"{a['recompiles_post_warmup']} libraries after its "
+                      "warmup")
+                worker_launches += a["makespan_launches"]
+                row["workers"][wid] = {
+                    "makespan_launches": a["makespan_launches"],
+                    "measured_run_launches": (c["makespan_launches"]
+                                              - b["makespan_launches"]),
+                    "scenarios_measured": c["scenarios"] - b["scenarios"],
+                    "compiles": a["compiles"]}
+            print(f"[fleet] {n}-worker: steals {m.steals} "
+                  f"({m.stolen_members} members), per worker "
+                  f"{list(m.per_worker_scenarios)}, startup {up_s:.2f} s, "
+                  "makespan launches (lifetime / measured run) "
+                  + ", ".join(f"{w}: {v['makespan_launches']} / "
+                              f"{v['measured_run_launches']}"
+                              for w, v in row["workers"].items()))
+            out["fleets"][n] = row
+        one = out["fleets"][workers[0]]["scenarios_per_sec"]
+        out["scaling"] = {n: out["fleets"][n]["scenarios_per_sec"] / one
+                          for n in workers}
+        out["fleet_over_in_process"] = {
+            n: out["fleets"][n]["scenarios_per_sec"]
+            / out["in_process"]["scenarios_per_sec"] for n in workers}
+        print("[fleet] scenarios/s over the 1-worker fleet: "
+              + ", ".join(f"{n}: {v:.3f}" for n, v in out["scaling"].items())
+              + "; over the in-process stream: "
+              + ", ".join(f"{n}: {v:.3f}" for n, v in
+                          out["fleet_over_in_process"].items()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(mk.LAUNCHES["makespan"] == parent[0],
+          f"fleet: this process launched the makespan kernel "
+          f"{mk.LAUNCHES['makespan']} times, want {parent[0]}")
+    out["launches_workers"] = worker_launches
+    out["launches_parent"] = parent[0]
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[fleet] phase wall {out['phase_wall_s']:.3f} s, makespan "
+          f"launches: workers {worker_launches}, this process {parent[0]}")
+    return out
+
+
+def fleet_gates(dev, fleet, res, local, skew, standalone, budget):
+    """Phase 17's row and memo-replay gates on the 2-worker fleet (see
+    ``fleet_phase``)."""
+    for r, want in zip(res, local):
+        check(r.request.uid == want.request.uid and same_result(r, want),
+              f"fleet: row {r.request.uid} differs from the in-process "
+              "stream's")
+        check(same_result(r, standalone(r)), f"fleet: row {r.request.uid} "
+                                             "differs from its standalone "
+                                             "run_strategy")
+    print(f"[fleet] all {len(res)} 2-worker rows bitwise equal to "
+          "standalone run_strategy on the card and to the in-process stream")
+    run1 = fleet.run(skew)
+    m1 = fleet.last_metrics
+    run2 = fleet.run(skew, steal=False)
+    m2 = fleet.last_metrics
+    check(m1.steals >= 1, "fleet: the skewed trace's first run did not "
+                          "steal")
+    for a, b in zip(run1, run2):
+        check(same_result(a, b) and b.memo_exact,
+              f"fleet: replayed row {a.request.uid} is not run 1's exact "
+              "hit")
+        check(same_result(a, standalone(a)), f"fleet: skewed row "
+                                             f"{a.request.uid} differs from "
+                                             "its standalone run_strategy")
+    check(m2.memo_foreign_hits >= 1 and m2.memo_exact_hits == len(skew),
+          f"fleet: the steal-free replay hit {m2.memo_exact_hits} of "
+          f"{len(skew)} rows, {m2.memo_foreign_hits} of them cross-worker")
+    print(f"[fleet] replay gate: run 1 stole {m1.stolen_members} of "
+          f"{len(skew)} rows ({m1.steals} steals); the steal-free rerun "
+          f"replayed {m2.memo_exact_hits} exact hits, "
+          f"{m2.memo_foreign_hits} cross-worker, every array bitwise run "
+          "1's and standalone")
+    return {"rows_bitwise": len(res), "skew_steals": m1.steals,
+            "skew_stolen_members": m1.stolen_members,
+            "replay_exact_hits": m2.memo_exact_hits,
+            "replay_foreign_hits": m2.memo_foreign_hits,
+            "cross_worker_hit_rate": m2.cross_worker_hit_rate,
+            "replay_wall_s": m2.wall_s}
+
+
+def fleet_engine_gate(dev, fleet):
+    """Phase 17's engine gate: one launcher-style job group scheduled by
+    MAGMA through ``MultiTenantEngine(fleet=)`` and in process, on the
+    published configs (weights on ``meta``: nothing executes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import MultiTenantEngine, Tenant
+    tenants = [Tenant(a, get_config(a), get_model(get_config(a),
+                                                  device="meta"))
+               for a in dict.fromkeys(r[0] for r in FLEET_ENGINE_REQUESTS)]
+    via, here = (MultiTenantEngine(tenants, device=dev, fleet=fleet),
+                 MultiTenantEngine(tenants, device=dev))
+    a = via.schedule(via.jobs_for_requests(FLEET_ENGINE_REQUESTS))
+    b = here.schedule(here.jobs_for_requests(FLEET_ENGINE_REQUESTS))
+    check(same_result(a["result"], b["result"])
+          and a["queues"] == b["queues"] and via._stream is None,
+          "fleet: the engine's fleet= schedule differs from its in-process "
+          "schedule")
+    gens = here.stream_service().dispatched_generations
+    here.close()
+    print(f"[fleet] engine: fleet= schedule of {len(a['queues'])} queues "
+          f"({sum(map(len, a['queues']))} jobs, served by "
+          f"{a['stream'].worker_id}) bitwise the in-process schedule")
+    return {"jobs": sum(map(len, a["queues"])),
+            "worker": a["stream"].worker_id, "in_process_generations": gens}
+
+
+def stream_card_busy(dev, budget=STREAM_BUDGET, trace_kw=None):
+    """The card's own busy share over one pipelined phase 16 run, beside
+    the stream's ``device_idle_frac`` (which counts a batch's host issue
+    as busy: its window opens before the first launch).  Phase 16's
+    service and trace, warmed up; one unprofiled pipelined run, then one
+    under torch.profiler: the union of its CUDA kernel intervals over
+    that run's wall.  Taken at the script's end: one
+    profiler session slows every later host-bound phase."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+    from repro_torch.stream import (StreamConfig, StreamingScheduler,
+                                    TraceConfig, generate_trace,
+                                    interval_union_s)
+
+    trace = generate_trace(TraceConfig(**(STREAM_TRACE if trace_kw is None
+                                          else trace_kw)))
+    svc = StreamingScheduler(budget=budget, device=dev,
+                             stream=StreamConfig(batch_rows=8,
+                                                 analysis_workers=2,
+                                                 max_inflight=2))
+    svc.warmup(trace)
+    svc.pool.reset()
+    svc.run(trace)
+    plain = svc.last_metrics
+    svc.pool.reset()
+    with profile(activities=profiler_activities(dev)) as prof:
+        svc.run(trace)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    m = svc.last_metrics
+    svc.close()
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {"wall_s": m.wall_s, "device_idle_frac": m.device_idle_frac,
+           "unprofiled_wall_s": plain.wall_s,
+           "unprofiled_device_idle_frac": plain.device_idle_frac,
+           "device_ops": len(on_card)}
+    if not on_card:
+        print("[stream] card busy share: the profiler saw no device time: "
+              "not measured")
+        out["card_busy_share"] = None
+        return out
+    busy_s = interval_union_s([(e.time_range.start, e.time_range.end)
+                               for e in on_card]) / 1e6
+    out.update(card_busy_s=busy_s, card_busy_share=busy_s / m.wall_s)
+    print(f"[stream] card busy share of a pipelined run: {busy_s:.4f} s of "
+          f"{m.wall_s:.3f} s = {out['card_busy_share']:.4f} over "
+          f"{len(on_card)} device ops (device_idle_frac "
+          f"{m.device_idle_frac:.4f}, i.e. windows busy "
+          f"{1 - m.device_idle_frac:.4f}; unprofiled run "
+          f"{plain.wall_s:.3f} s, device_idle_frac "
+          f"{plain.device_idle_frac:.4f})")
+    return out
+
+
+def stream_reps(dev, reps=STREAM_AB_REPS, budget=STREAM_BUDGET,
+                trace_kw=None):
+    """Phase 16's serial (a fresh analyzer per scenario) and pipelined
+    runs, ``reps`` times each in alternating order, through one warmed-up
+    service on ``dev``: each run's scenarios/s, latency p50 / p99, batch
+    count and the most any batch's window ran past its host issue, and
+    the medians.  Uses only ``repro_torch.stream``'s public API, so it
+    measures any checkout that has the stream (``--stream-ab``)."""
+    from repro_torch.stream import (StreamConfig, StreamingScheduler,
+                                    TraceConfig, generate_trace)
+    trace = generate_trace(TraceConfig(**(STREAM_TRACE if trace_kw is None
+                                          else trace_kw)))
+    svc = StreamingScheduler(budget=budget, device=dev,
+                             stream=StreamConfig(batch_rows=8,
+                                                 analysis_workers=2,
+                                                 max_inflight=2))
+    svc.warmup(trace)
+    runs = {"serial": [], "pipelined": []}
+    for i in range(reps):
+        for mode in (("serial", "pipelined") if i % 2 == 0
+                     else ("pipelined", "serial")):
+            svc.pool.reset()             # every run starts with cold caches
+            if mode == "serial":
+                svc.run_serial(trace)
+            else:
+                svc.run(trace)
+            m = svc.last_metrics
+            runs[mode].append({
+                "scenarios_per_sec": m.scenarios_per_sec,
+                "latency_p50_s": m.latency_p50_s,
+                "latency_p99_s": m.latency_p99_s,
+                "num_batches": m.num_batches,
+                "window_past_issue_ms": 1e3 * max(
+                    b.done_s - b.issued_s for b in svc.last_batches)})
+    svc.close()
+    out = dict(runs, ratios=[p["scenarios_per_sec"] / s["scenarios_per_sec"]
+                             for s, p in zip(runs["serial"],
+                                             runs["pipelined"])])
+    out["median"] = {mode: {k: float(np.median([r[k] for r in rs]))
+                            for k in rs[0]} for mode, rs in runs.items()}
+    out["median"]["ratio"] = float(np.median(out["ratios"]))
+    return out
+
+
+def stream_ab(roots):
+    """``python3 chip_smoke.py --stream-ab ROOT [ROOT ...]``: for each
+    checkout ROOT in the order given, one process that builds ROOT's
+    makespan kernel and runs :func:`stream_reps` (this file's measuring
+    code over ROOT's ``repro_torch``), then one JSON line with every run
+    and the medians.  Holds two versions of the stream on one card in one
+    call (for example the parent commit from ``git archive`` under
+    ``build/``, then this checkout, this checkout, the parent)."""
+    import torch
+    check(torch.cuda.is_available(), "no CUDA device")
+    child = (
+        "import json, os, sys\n"
+        "import torch\n"
+        "root, here = os.path.abspath(sys.argv[1]), sys.argv[2]\n"
+        "sys.path[:0] = [here, os.path.join(root, 'src')]\n"
+        "import chip_smoke\n"
+        "from repro_torch.kernels import _build\n"
+        "_build.load('makespan')\n"
+        "out = chip_smoke.stream_reps(torch.device('cuda', 0))\n"
+        "print('[stream-ab] ' + json.dumps(dict(root=root, **out)))\n")
+    runs = []
+    print(f"[device] {smi_line()}")
+    for root in roots:
+        proc = subprocess.run([sys.executable, "-c", child, root, ROOT],
+                              capture_output=True, text=True, check=False)
+        print(proc.stderr[-4000:], end="", file=sys.stderr)
+        check(proc.returncode == 0, f"the stream runs of {root} failed")
+        runs += [json.loads(line[len("[stream-ab] "):])
+                 for line in proc.stdout.splitlines()
+                 if line.startswith("[stream-ab] ")]
+        r, med = runs[-1], runs[-1]["median"]
+        print(f"[stream-ab] {r['root']}: pipelined / serial "
+              + " ".join(f"{x:.4f}" for x in r["ratios"])
+              + f" (median {med['ratio']:.4f}); medians: serial "
+              f"{med['serial']['scenarios_per_sec']:.3f} scenarios/s, p50 "
+              f"{med['serial']['latency_p50_s']:.4f} s; pipelined "
+              f"{med['pipelined']['scenarios_per_sec']:.3f} scenarios/s, p50 "
+              f"{med['pipelined']['latency_p50_s']:.4f} s, windows up to "
+              f"{med['pipelined']['window_past_issue_ms']:.2f} ms past "
+              "their issue")
+    print(json.dumps({"stream_ab": runs}))
+    return 0
+
+
 def families_timing(ssm, fa, flash_ref, scan_inputs, flash_inputs_z):
     """Phase 15's timing: the scan kernel at both evaluation shapes and
     the flash kernel at zamba2's shared block, each as device time (a CUDA
@@ -2631,6 +3070,24 @@ def main():
     print(f"[stream] stream path launches: {stream_counts}")
     free(dev)
 
+    # -- 17. fleet: the scheduling fleet's workers on the one card --------
+    # also before the first profiler session: its walls are host walls
+    reset_counts()
+    fleet_out = fleet_phase(dev, mk)
+    fleet_counts = {"makespan": (fleet_out["launches_workers"]
+                                 + mk.LAUNCHES["makespan"]),
+                    "ssm_scan": ssm.LAUNCHES["ssm_scan"],
+                    "flash_attention": fa.LAUNCHES["flash_attention"]}
+    want = {"makespan": (fleet_out["launches_workers"]
+                         + fleet_out["launches_parent"]),
+            "ssm_scan": 0, "flash_attention": 0}
+    check(fleet_counts == want and fleet_out["launches_workers"] > 0,
+          f"fleet launches {fleet_counts}, want {want} (workers' "
+          f"{fleet_out['launches_workers']} + this process's)")
+    print(f"[fleet] fleet path launches: {fleet_counts} (the workers' "
+          f"{fleet_out['launches_workers']} makespan launches included)")
+    free(dev)
+
     # -- 4. main path -----------------------------------------------------
     setting, budget, bw_sys_main = "S4", 10_000, 256 * GB
     m3e = M3E(get_setting(setting), bw_sys=bw_sys_main, device=dev)
@@ -2705,9 +3162,8 @@ def main():
 
     # where a search's time goes: one more search under the profiler
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import profile
+    with profile(activities=profiler_activities(dev)) as prof:
         traced = m3e.search(group, method="magma", budget=budget, seed=0)
     on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     profile_out = None
@@ -2910,8 +3366,7 @@ def main():
               f"issued from the host), plain {p_ms:.6f} ms, bound "
               f"{b_ms:.6f} ms ({b_by}); library call: none")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=profiler_activities(dev)) as prof:
         t0 = time.perf_counter()
         traced_jobs, traced_out, _, _ = serve(
             [(SERVE_ARCHS[0], PROMPT, GENERATE)], "profiled")
@@ -3002,6 +3457,9 @@ def main():
     # -- 15, its end: a zamba2 training step and two evaluations profiled -
     families_profile(dev, families_out)
 
+    # -- 16, its end: the card's own busy share in a pipelined stream run -
+    stream_out["card_busy"] = stream_card_busy(dev)
+
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
     k_ms, p_ms, b_ms, b_by, shape, kh_ms = ssm_times["falcon"]
@@ -3013,7 +3471,7 @@ def main():
         "replaces": "src/repro/kernels/makespan.py:36",
         "launches": launches + serve_counts[1] + compare_counts["makespan"]
         + memo_counts["makespan"] + launch_counts["makespan"]
-        + stream_counts["makespan"],
+        + stream_counts["makespan"] + fleet_counts["makespan"],
         "launches_by_path": {"m3e_search": launches,
                              "serve": serve_counts[1],
                              "train_eval": train_eval_counts["makespan"],
@@ -3021,7 +3479,8 @@ def main():
                              "memo": memo_counts["makespan"],
                              "launch": launch_counts["makespan"],
                              "families": family_counts["makespan"],
-                             "stream": stream_counts["makespan"]},
+                             "stream": stream_counts["makespan"],
+                             "fleet": fleet_counts["makespan"]},
         "launches_per_search": launches // 4,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -3033,7 +3492,7 @@ def main():
         "ptxas": ptxas_json(ptxas["makespan"]),
         "search_wall_s": walls, "profile": profile_out,
         "per_row_bw_sys": per_row, "compare": compared, "memo": memo_out,
-        "stream": stream_out, "ok": True,
+        "stream": stream_out, "fleet": fleet_out, "ok": True,
     }, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -3045,7 +3504,8 @@ def main():
                              "compare": 0, "memo": 0,
                              "launch": launch_counts["ssm_scan"],
                              "families": family_counts["ssm_scan"],
-                             "stream": stream_counts["ssm_scan"]},
+                             "stream": stream_counts["ssm_scan"],
+                             "fleet": fleet_counts["ssm_scan"]},
         "launches_per_eval": {a: e["scan_launches"] for a, e in
                               families_out["eval"].items()},
         "eval_shapes": {k: v for k, v in families_out["timing"].items()
@@ -3074,7 +3534,8 @@ def main():
                              "memo": 0,
                              "launch": launch_counts["flash_attention"],
                              "families": family_counts["flash_attention"],
-                             "stream": stream_counts["flash_attention"]},
+                             "stream": stream_counts["flash_attention"],
+                             "fleet": fleet_counts["flash_attention"]},
         "launches_per_eval": dict(
             {k: v["flash_launches"] for k, v in evals.items()},
             zamba2=families_out["eval"]["zamba2-1.2b"]["flash_launches"]),
@@ -3101,4 +3562,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--stream-ab"]:
+        sys.exit(stream_ab(sys.argv[2:]))
     sys.exit(main())

@@ -6,6 +6,10 @@ build happens at first use, into ``build/kernels/`` at the root of the
 checkout, and is keyed on a hash of the source and the flags, so an edited
 source is rebuilt and never loaded stale.  ``nvcc -Xptxas -v`` output
 (registers, shared memory, spills) is kept beside the library.
+
+A load is the port's compile event: :func:`add_load_listener` registers
+``fn(name, build_seconds)``, called once for each library a process loads
+(``repro_torch.lint.runtime.RecompileGuard`` counts them).
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -38,6 +42,20 @@ class BuiltLibrary:
 _lock = threading.Lock()
 _loaded: Dict[str, BuiltLibrary] = {}   # @locked:_lock
 _name_locks: Dict[str, threading.Lock] = {}   # @locked:_lock
+_listeners: List[Callable[[str, float], None]] = []   # @locked:_lock
+
+
+def add_load_listener(fn: Callable[[str, float], None]) -> None:
+    """Call ``fn(name, build_seconds)`` after each library this process
+    loads from here on (once a library: later ``load`` calls reuse it)."""
+    with _lock:
+        _listeners.append(fn)
+
+
+def remove_load_listener(fn: Callable[[str, float], None]) -> None:
+    with _lock:
+        if fn in _listeners:
+            _listeners.remove(fn)
 
 
 def _nvcc() -> str:
@@ -116,4 +134,7 @@ def load(name: str) -> BuiltLibrary:
         built = _compile(name)
         with _lock:
             _loaded[name] = built
-        return built
+            listeners = list(_listeners)
+    for fn in listeners:
+        fn(name, built.build_seconds)
+    return built

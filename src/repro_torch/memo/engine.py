@@ -97,6 +97,11 @@ class MemoStats:
     near_hits: int = 0
     misses: int = 0
     records: int = 0
+    # exact hits whose stored record was solved by a DIFFERENT origin
+    # (another fleet worker's ``ScheduleMemo(origin=...)``): the
+    # cross-worker reuse the shared store exists for.  Always a subset
+    # of exact_hits; 0 when origins are unset.
+    foreign_hits: int = 0
 
     def summary(self) -> Dict[str, int]:
         return dataclasses.asdict(self)
@@ -161,7 +166,8 @@ class ScheduleMemo:
 
     def __init__(self, store: Optional[MemoStore] = None,
                  jitter: float = 0.02, near: bool = True,
-                 max_donor_dist: Optional[float] = MAX_DONOR_DIST):
+                 max_donor_dist: Optional[float] = MAX_DONOR_DIST,
+                 origin: Optional[str] = None):
         # NOT `store or MemoStore()`: an empty MemoStore is len()==0 and
         # would be silently replaced by a fresh in-memory one
         self.store = store if store is not None else MemoStore()
@@ -169,6 +175,10 @@ class ScheduleMemo:
         self.near = bool(near)
         self.max_donor_dist = (None if max_donor_dist is None
                                else float(max_donor_dist))
+        # provenance stamp for shared stores: records carry the origin
+        # that solved them, and an exact hit on a record some OTHER origin
+        # solved counts as a foreign hit (fleet workers pass their id)
+        self.origin = origin
         self.stats = MemoStats()
         self._lock = threading.Lock()
         # span tracer (repro_torch.obs); the default never records
@@ -221,7 +231,10 @@ class ScheduleMemo:
                     sp.set(outcome="miss")
                     return None
                 self.stats.exact_hits += 1
-            sp.set(outcome="hit")
+                origin = rec.meta.get("origin")
+                foreign = origin is not None and origin != self.origin
+                self.stats.foreign_hits += foreign
+            sp.set(outcome="foreign_hit" if foreign else "hit")
             return MemoHit(
                 fingerprint=fp,
                 best_fitness=float(
@@ -346,9 +359,7 @@ class ScheduleMemo:
                       "budget": int(budget),
                       "family": family,
                       "warm_seeded": warm is not None,
-                      # the reference's provenance slot, kept so a
-                      # directory reads the same in both packages
-                      "origin": None}))
+                      "origin": self.origin}))
             with self._lock:
                 self.stats.records += 1
             return fp

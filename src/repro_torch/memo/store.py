@@ -66,8 +66,8 @@ _COMPACT_SLACK = 4          # compact when events > live records * this
 
 #: On-disk layout marker (``<path>/memo_layout.json``).  Absent = the v1
 #: single-file layout this module owns; ``{"version": 2, ...}`` = the
-#: fingerprint-prefix-sharded layout of the reference's fleet store
-#: (``repro.fleet.shared_memo``; its port is ROADMAP Queue 1 item 13).
+#: fingerprint-prefix-sharded layout
+#: ``repro_torch.fleet.shared_memo`` owns.
 LAYOUT_MARKER = "memo_layout.json"
 
 
@@ -141,8 +141,8 @@ class MemoStore:
                     f"{self.path} uses memo layout v{layout.get('version')}"
                     f" ({layout.get('shards', '?')}-way sharded index); a "
                     "plain MemoStore only reads the v1 single-file layout "
-                    "— it needs the sharded fleet store, which the port "
-                    "does not have yet")
+                    "— open it with repro_torch.fleet.shared_memo."
+                    "ShardedMemoStore instead")
         self._lock = threading.RLock()
         # fingerprint -> MemoRecord, LRU order (last = most recent)
         self._records: "OrderedDict[str, MemoRecord]" = OrderedDict()  # @locked:_lock

@@ -16,9 +16,9 @@ Dump triggers:
 * ``on_deadline_miss(...)`` — called by the router when a
   deadline-carrying schedule lands late.
 * ``attach_guard(guard)`` — registers a listener on any guard with the
-  reference ``RecompileGuard``'s ``add_listener(fn(name, post_warmup))``
-  hook (the port has no such guard yet: ROADMAP Queue 1 item 13); any
-  compile recorded after the guard's warmup boundary dumps immediately.
+  ``add_listener(fn(name, post_warmup))`` hook (the port's
+  ``repro_torch.lint.runtime.RecompileGuard``); any compile recorded
+  after the guard's warmup boundary dumps immediately.
 """
 from __future__ import annotations
 

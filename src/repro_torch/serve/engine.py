@@ -31,7 +31,11 @@ function on the engine's device), which is bitwise a direct
 ``run_strategy`` with the same seed and budget; ``out["stream"]`` is the
 routed ``StreamResult``.  Host-only methods (heuristics, RL) keep
 ``run_strategy``'s host loop and return ``"stream": None``.  Only
-strategies in the port's registry are accepted.
+strategies in the port's registry are accepted.  With ``fleet=`` (a
+``repro_torch.fleet.Fleet``) the device-resident methods are served by
+the fleet's workers instead of the in-process stream: the prepared
+tables cross to a worker bit exactly and the schedule is bitwise the
+in-process one, ``out["stream"]`` then being the ``FleetResult``.
 """
 from __future__ import annotations
 
@@ -145,7 +149,7 @@ class MultiTenantEngine:
                  system_bw: float = 64e9, group_size: int = 64,
                  decode_window: int = 32, budget: int = 2_000,
                  method: str = "magma", seed: int = 0,
-                 stream=None, memo=None,
+                 stream=None, memo=None, fleet=None,
                  device: Union[str, torch.device] = "cuda"):
         self.tenants = {t.name: t for t in tenants}
         self.submeshes = list(submeshes or default_submeshes())
@@ -169,6 +173,11 @@ class MultiTenantEngine:
         # Only applies to the service this engine creates — an injected
         # ``stream`` keeps whatever memo it was built with.
         self.memo = memo
+        # fleet-backed option: an injected ``repro_torch.fleet.Fleet``
+        # serves device-resident methods instead of an in-process stream
+        # (its workers' device, not the engine's, runs the search).  The
+        # fleet is the injector's to launch and close.
+        self.fleet = fleet
 
     def stream_service(self):
         """The ``repro_torch.stream.StreamingScheduler`` this engine is a
@@ -277,9 +286,17 @@ class MultiTenantEngine:
         stream_res = None
         if strategy.device_resident:
             slo = self.slo_for(jobs)
-            stream_res = self.stream_service().schedule_prepared(
-                fit, seed=self.seed, budget=self.budget, strategy=strategy,
-                priority=slo.priority, deadline_s=slo.deadline_s)
+            if self.fleet is not None:
+                from repro_torch.stream import PreparedScenario
+                stream_res = self.fleet.run(prepared=[PreparedScenario(
+                    fit=fit, seed=self.seed, budget=self.budget,
+                    strategy=strategy, priority=slo.priority,
+                    deadline_s=slo.deadline_s)])[0]
+            else:
+                stream_res = self.stream_service().schedule_prepared(
+                    fit, seed=self.seed, budget=self.budget,
+                    strategy=strategy, priority=slo.priority,
+                    deadline_s=slo.deadline_s)
             res = stream_res.to_search_result()
         else:
             res = run_strategy(strategy, fit, budget=self.budget,

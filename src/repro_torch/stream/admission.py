@@ -3,8 +3,8 @@
 A port of ``repro.stream.admission`` (pure Python: the same pushes at the
 same ``now`` values give the same decisions and counters).  The queues
 are a class of their own so that a router can own several sets and steal
-held partials between them (the reference's fleet; its port is ROADMAP
-Queue 1 item 13): compat-keyed deques, the SLO-aware selection policy
+held partials between them (``repro_torch.fleet.router``): compat-keyed
+deques, the SLO-aware selection policy
 (queue score / early flush / member take-order), and exact accounting.
 
 Accounting contract

@@ -383,6 +383,9 @@ class StreamingScheduler:
         self.last_metrics: Optional[StreamMetrics] = None
         self.last_batches: List[_BatchRecord] = []   # @locked:_run_lock
         self._refined = 0            # @locked:_run_lock  silent refinements
+        # generations summed over every batch this service dispatched,
+        # warmups included: on a card, its makespan kernel launches
+        self.dispatched_generations = 0   # @locked:_run_lock
         # the last run's AdmissionQueues (counters: enqueued/dispatched/
         # stolen/depth/peak/early_flushes)  @locked:_run_lock
         self.last_admission: Optional[AdmissionQueues] = None
@@ -460,12 +463,15 @@ class StreamingScheduler:
 
     def _dispatch(self, compat_key: CompatKey, members: List[ReadyScenario]
                   ) -> _Inflight:
+        """Assemble one batch and issue its generation loop on the
+        service's device.  @holds:_run_lock"""
         base, G, A, use_kernel, objective, budget, is_warm = compat_key
         warm_seeded = bool(is_warm)     # compat-key flag, not key material
         t_dispatch = self.tracer.now() if self.tracer.enabled else 0.0
         strategy = base.bind(A)
         generations, evolve_last = plan_generations(budget,
                                                     strategy.ask_size)
+        self.dispatched_generations += generations
         padded = self._bucket(len(members))   # one card: no shards
         ndev = 1
         dev = self.device
@@ -540,6 +546,20 @@ class StreamingScheduler:
         batch finished inside its dispatch)."""
         if inf.done is not None:
             inf.done.synchronize()
+
+    def _route_finished(self, inflight: deque,
+                        results: List[StreamResult]) -> bool:
+        """Route every head batch whose end event reports done, in order;
+        ``Event.query()`` does not synchronise.  On the CPU (no event) a
+        batch finished inside its dispatch and nothing is routed here, so
+        the loop keeps the reference's order.  Returns whether any batch
+        was routed.  @holds:_run_lock"""
+        routed = False
+        while inflight and inflight[0].done is not None \
+                and inflight[0].done.query():
+            self._route(inflight.popleft(), results)
+            routed = True
+        return routed
 
     def _prepared_ready(self, p: PreparedScenario) -> ReadyScenario:
         """A client-supplied scenario as an admission-queue entry (the
@@ -765,11 +785,17 @@ class StreamingScheduler:
             # slack, -depth) order — batch work never delays an urgent
             # schedule; blind (slo_aware=False): deepest queue first so
             # batches fill out.  (Policy + accounting live in
-            # AdmissionQueues.)
+            # AdmissionQueues.)  Before each dispatch, the head batches
+            # the card has already finished are routed: a dispatch
+            # returns only once the host has issued the whole generation
+            # loop, so a finished head left in flight would wait one more
+            # batch's issue for its rows.
+            progressed = self._route_finished(inflight, results) or progressed
             while len(inflight) < self.stream.max_inflight:
                 key = queues.select(self._clock(), bool(futs))
                 if key is None:
                     break          # hold the partials: more is coming
+                self._route_finished(inflight, results)
                 inflight.append(self._dispatch(key, queues.take(key)))
                 progressed = True
 

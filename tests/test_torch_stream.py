@@ -360,6 +360,63 @@ def test_padding_and_compat_keys_keep_rows_bitwise():
         _assert_rows_equal(a, b)
 
 
+class _FakeEvent:
+    """A batch's end event as the run loop sees it on a card."""
+
+    def __init__(self, done):
+        self.done = done
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        pass
+
+
+@pytest.mark.parametrize("done", [True, False], ids=["done", "pending"])
+def test_finished_head_is_routed_before_the_next_dispatch(done, monkeypatch):
+    """A head batch whose end event reports done is routed before the next
+    batch is issued; one still pending is routed blocking at
+    ``max_inflight`` (the reference's order).  Rows stay bitwise and the
+    admission counters balance either way."""
+    trace = generate_trace(TraceConfig(
+        num_scenarios=8, seed=4, group_size=8, settings=("S1",),
+        mixes=("Light",), bw_ladder_gb=(4.0,)))
+    prepared = [PreparedScenario(fit=r.fit, seed=r.request.seed,
+                                 uid=r.request.uid)
+                for r in analyze_serial(trace)]
+    cfg = StreamConfig(batch_rows=2, max_inflight=2)
+    svc = _svc(stream=cfg)
+    order = []
+    dispatch, route = svc._dispatch, svc._route
+
+    def fake_dispatch(key, members):
+        inf = dispatch(key, members)
+        order.append(("dispatch", inf.members[0].request.uid))
+        inf.done = _FakeEvent(done)
+        return inf
+
+    def spy_route(inf, results):
+        order.append(("route", inf.members[0].request.uid))
+        route(inf, results)
+
+    monkeypatch.setattr(svc, "_dispatch", fake_dispatch)
+    monkeypatch.setattr(svc, "_route", spy_route)
+    results = svc.run(prepared=prepared)
+    heads = [uid for kind, uid in order if kind == "dispatch"]
+    assert len(heads) == 4
+    for a, b in zip(heads, heads[1:]):
+        routed = order.index(("route", a))
+        issued = order.index(("dispatch", b))
+        assert (routed < issued) if done else (routed > issued)
+    for a, b in zip(results, _svc(stream=cfg).run(prepared=prepared)):
+        _assert_rows_equal(a, b)
+    aq = svc.last_admission
+    aq.check()
+    assert aq.enqueued == aq.dispatched == len(results) == 8
+    assert aq.stolen == 0 and aq.depth == 0
+
+
 def test_run_serial_warmup_and_shared_cache_keep_rows(streamed):
     trace, _, results = streamed
     svc = _svc(stream=StreamConfig(batch_rows=4))
