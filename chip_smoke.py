@@ -211,13 +211,36 @@ Phases, in order; any failure raises and exits non-zero:
               arrays bitwise run 1's; every worker at one makespan launch
               per generation and batch and no build after its warmup;
               MultiTenantEngine(fleet=) bitwise its in-process schedule
+ 18. mesh     training on a ("data", "model") device mesh of one rank (an
+              NCCL group on a file:// store under build/), after phase
+              11: granite-3-2b at full published width and depth in
+              bf16, 3 steps of B=4 x S=2048 through
+              repro_torch.launch.train.train_on_mesh (the launcher's mesh
+              branch) with the launcher's schedule for phase 9's 4 steps,
+              whose losses and grad norms must equal phase 9's meshless
+              run within MESH_RTOL (bitwise or not is printed) and whose
+              step ms, tokens/s and peak memory are printed beside phase
+              9's; every gradient tensor of one more step through
+              quantize_int8 / dequantize_int8 (|deq - x| <= scale/2 plus
+              float32 rounding, the residual exactly c - deq); at full
+              width with 4 layers a checkpoint written on the mesh
+              restored without it, and one written without it restored
+              on the mesh into the placements train_state_shardings
+              gives: the next step's
+              loss equal to the mesh run's; qwen2-moe-a2.7b at full width
+              with 2 layers (its full depth with AdamW state does not fit
+              one card), 2 steps on the mesh and 2 without: finite
+              losses, non-zero grad norms, every weight matrix changed,
+              losses equal within MESH_RTOL; no kernel launched; the
+              phase's wall
 
 The counts of every kernel are set to 0 before each main path (the M3E
 searches, the served batch, phases 9-10 together, "train_eval", the
 comparison, "compare", the memo phase, "memo", the launcher, "launch",
 phase 15's training and evaluation, "families", phase 16, "stream", and
 phase 17, "fleet", whose makespan count adds the launches every fleet
-worker reports to this process's) and read after it.
+worker reports to this process's, and phase 18, "mesh") and read after
+it.
 It prints a JSON line with one entry per kernel, the card's name and
 power limit, and last the line ``{"ok": true, "device": {...}}``.
 
@@ -272,6 +295,10 @@ PROMPT, GENERATE, WINDOW = 512, 32, 8
 TRAIN_ARCH, EVAL_ARCH = "granite-3-2b", "h2o-danube-3-4b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 2048
 EVAL_BATCH, EVAL_SEQ = 1, 8192
+# phase 18: training on a one-rank ("data", "model") mesh; the MoE is cut
+# to 2 layers (its full depth with AdamW state does not fit one card)
+MESH_STEPS, MESH_RTOL = 3, 1e-5
+MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_STEPS = "qwen2-moe-a2.7b", 2, 2
 # phase 12: the Fig. 9 protocol (benchmarks/fig09_heterogeneous.py:15-19)
 # and Table IV's methods (benchmarks/common.py:24-25)
 FIG9_SETTINGS = (("S2", 16), ("S4", 256))      # setting, bw_sys in GB/s
@@ -681,6 +708,225 @@ def train_phase(dev, fa):
     model.cfg = cfg
     del state
     return model, records, restart
+
+
+def mesh_phase(dev, phase9_steps):
+    """Phase 18: training on a ("data", "model") device mesh of one rank
+    (an NCCL group on a file:// store under build/) through the
+    launcher's mesh function.  Returns the phase's record."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist.compression import error_feedback, quantize_int8
+    from repro_torch.dist.sharding import gathered, shard_batch, use_mesh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.shardings import train_state_shardings
+    from repro_torch.models.registry import get_model, sharding_rules
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.loop import TrainConfig, init_state, train
+
+    t_phase = time.perf_counter()
+    quiet = dict(log_every=0, log_fn=lambda *_: None)
+    cuda = dev.type == "cuda"
+
+    def gib(b):
+        return "not measured" if b is None else f"{b / GB:.2f} GiB"
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(ROOT, "build"))
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1, device_id=dev if cuda else None)
+    out = {}
+    try:
+        mesh = launch_train.launch_mesh(1, dev.type)
+
+        def same(a, b, what):
+            """rtol MESH_RTOL, and whether bitwise."""
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            check(np.allclose(a, b, rtol=MESH_RTOL, atol=0.0),
+                  f"{what}: mesh {a.tolist()} against meshless {b.tolist()}"
+                  f" beyond rtol {MESH_RTOL}")
+            return bool(np.array_equal(a, b))
+
+        # granite at full width and depth: the launcher's mesh function,
+        # against phase 9's meshless launcher run (same seed, schedule,
+        # stream and steps)
+        cfg = get_config(TRAIN_ARCH)
+        stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        hist = []
+        model, state = launch_train.train_on_mesh(
+            cfg, mesh, launch_train.train_config(TRAIN_STEPS), stream,
+            MESH_STEPS, device=dev, seed=0, history=hist, **quiet)
+        plain = phase9_steps[:MESH_STEPS]
+        bitwise = (same([h["loss"] for h in hist],
+                        [h["loss"] for h in plain], "granite losses")
+                   & same([h["grad_norm"] for h in hist],
+                          [h["grad_norm"] for h in plain],
+                          "granite grad norms"))
+        steps = []
+        for h, p in zip(hist, plain):
+            rec = {"step": h["step"], "loss": h["loss"],
+                   "grad_norm": h["grad_norm"], "ms": h["wall_s"] * 1e3,
+                   "tokens_per_s": h["tokens"] / h["wall_s"],
+                   "peak_bytes": h["peak_bytes"], "meshless_ms": p["ms"],
+                   "meshless_tokens_per_s": p["tokens_per_s"],
+                   "meshless_peak_bytes": p["peak_bytes"]}
+            steps.append(rec)
+            print(f"[mesh] {cfg.name} step {h['step']}: loss {h['loss']:.6f}"
+                  f" grad norm {h['grad_norm']:.6f}; {rec['ms']:.3f} ms "
+                  f"(phase 9 {p['ms']:.3f}), {rec['tokens_per_s']:.1f} "
+                  f"tokens/s (phase 9 {p['tokens_per_s']:.1f}), peak "
+                  f"{gib(h['peak_bytes'])} (phase 9 {gib(p['peak_bytes'])})")
+        print(f"[mesh] {cfg.name} on the 1-rank mesh against the meshless "
+              f"launcher: losses and grad norms "
+              f"{'bitwise' if bitwise else f'within rtol {MESH_RTOL}'}")
+
+        # every gradient tensor of one more granite step through int8
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in stream.batch_at(MESH_STEPS).items()}
+        params = dict(model.named_parameters())
+        with use_mesh(mesh, sharding_rules(cfg, 1)):
+            loss = gathered(model.loss(shard_batch(batch, mesh))[0])
+            grads = torch.autograd.grad(loss, list(params.values()))
+        worst, elements = 0.0, 0
+        for name, g in zip(params, grads):
+            g = gathered(g)
+            deq, residual = error_feedback(g, torch.zeros_like(g, dtype=
+                                                               torch.float32))
+            c = g.float()
+            _, scale = quantize_int8(c)
+            err = float((deq - c).abs().max())
+            check(err <= float(scale) * (0.5 + 2.0 ** -16),
+                  f"int8 {name}: |deq - x| {err} > scale/2 "
+                  f"{float(scale) / 2}")
+            check(torch.equal(residual, c - deq),
+                  f"int8 {name}: the residual is not c - deq")
+            worst = max(worst, err / float(scale))
+            elements += g.numel()
+        del grads, loss, batch, params, model, state
+        free(dev)
+        print(f"[mesh] int8 round trip of {elements:,} gradient "
+              f"elements on the card: max |deq - x| {worst:.6f} x scale "
+              "(<= 0.5 and float32 rounding), residuals exact")
+        out["granite"] = {"steps": steps, "bitwise": bitwise,
+                          "int8_max_err_over_scale": worst,
+                          "int8_elements": elements}
+
+        # the checkpoint both ways at full width, 4 layers
+        cfg4 = cfg.replace(num_layers=4)
+        rules4 = sharding_rules(cfg4, 1)
+        stream4 = TokenStream(cfg4, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        tc4 = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+        half = TRAIN_STEPS // 2
+
+        def plain4():
+            return get_model(cfg4, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(1))
+
+        def next_loss(model, state, meshed):
+            h = []
+            if meshed:
+                with use_mesh(mesh, rules4):
+                    train(model, tc4, stream4, half + 1, state=state,
+                          history=h, **quiet)
+            else:
+                train(model, tc4, stream4, half + 1, state=state, history=h,
+                      **quiet)
+            return h[0]["loss"]
+
+        d1, d2 = os.path.join(tmp, "from_mesh"), os.path.join(tmp, "plain")
+        m_model, m_state = launch_train.train_on_mesh(
+            cfg4, mesh, tc4, stream4, half, device=dev, seed=1,
+            checkpoint_dir=d1, **quiet)
+        mesh_next = next_loss(m_model, m_state, True)
+        del m_model, m_state
+        p_model = plain4()
+        p_state = ckpt.restore(ckpt.find_latest(d1), init_state(p_model))
+        check(p_state.step == half, "mesh checkpoint: restored step")
+        plain_next = next_loss(p_model, p_state, False)
+        del p_model, p_state
+        train(plain4(), tc4, stream4, half, checkpoint_dir=d2, **quiet)
+        m_model = launch_train.shard_model(plain4(), mesh, rules4)
+        _, sh = train_state_shardings(m_model, mesh, rules4)
+        m_state = ckpt.restore(ckpt.find_latest(d2), init_state(m_model))
+        check(all(tuple(v.placements) == tuple(want[k].placements)
+                  for got, want in ((m_state.params, sh.params),
+                                    (m_state.opt.mu, sh.opt.mu),
+                                    (m_state.opt.nu, sh.opt.nu))
+                  for k, v in got.items()),
+              "meshless checkpoint on the mesh: a leaf not in the placements "
+              "train_state_shardings gives")
+        remeshed_next = next_loss(m_model, m_state, True)
+        del m_model, m_state
+        free(dev)
+        ck_bitwise = (same([plain_next], [mesh_next],
+                           "mesh checkpoint restored without the mesh")
+                      & same([remeshed_next], [mesh_next],
+                             "meshless checkpoint restored on the mesh"))
+        print(f"[mesh] checkpoint at full width, 4 layers, step {half}: the "
+              f"next loss {mesh_next:.6f} on the mesh, {plain_next:.6f} from "
+              f"its checkpoint without the mesh, {remeshed_next:.6f} from a "
+              f"meshless checkpoint on the mesh "
+              f"({'bitwise' if ck_bitwise else f'rtol {MESH_RTOL}'})")
+        out["checkpoint"] = {"layers": 4, "step": half,
+                             "next_loss": [mesh_next, plain_next,
+                                           remeshed_next],
+                             "bitwise": ck_bitwise}
+
+        # qwen2-moe at full width, MESH_MOE_LAYERS layers, on the mesh and
+        # without it
+        cfg_m = get_config(MESH_MOE_ARCH).replace(num_layers=MESH_MOE_LAYERS)
+        stream_m = TokenStream(cfg_m, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        tc_m = launch_train.train_config(MESH_MOE_STEPS)
+        hist_m, hist_p = [], []
+        model, _ = launch_train.train_on_mesh(
+            cfg_m, mesh, tc_m, stream_m, MESH_MOE_STEPS, device=dev, seed=0,
+            history=hist_m, **quiet)
+        fresh = get_model(cfg_m, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        moved = [not torch.equal(gathered(p), f) for (_, p), f in
+                 zip(model.named_parameters(), fresh.parameters())
+                 if p.dim() >= 2]
+        del model, fresh
+        free(dev)
+        train(get_model(cfg_m, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0)), tc_m, stream_m, MESH_MOE_STEPS,
+            history=hist_p, **quiet)
+        free(dev)
+        check(all(np.isfinite(h["loss"]) and h["grad_norm"] > 0
+                  for h in hist_m),
+              f"{cfg_m.name}: a loss is not finite or a grad norm is 0")
+        check(all(moved), f"{cfg_m.name}: training changed {sum(moved)} of "
+                          f"the {len(moved)} weight matrices, want all")
+        moe_bitwise = same([h["loss"] for h in hist_m],
+                           [h["loss"] for h in hist_p], "qwen2-moe losses")
+        for h, p in zip(hist_m, hist_p):
+            print(f"[mesh] {cfg_m.name} ({MESH_MOE_LAYERS} layers) step "
+                  f"{h['step']}: loss {h['loss']:.6f} (meshless "
+                  f"{p['loss']:.6f}) grad norm {h['grad_norm']:.6f} "
+                  f"(meshless {p['grad_norm']:.6f}); {h['wall_s'] * 1e3:.3f}"
+                  f" ms (meshless {p['wall_s'] * 1e3:.3f}), peak "
+                  f"{gib(h['peak_bytes'])} (meshless {gib(p['peak_bytes'])})")
+        out["moe"] = {"layers": MESH_MOE_LAYERS,
+                      "losses": [h["loss"] for h in hist_m],
+                      "meshless_losses": [h["loss"] for h in hist_p],
+                      "grad_norms": [h["grad_norm"] for h in hist_m],
+                      "meshless_grad_norms": [h["grad_norm"] for h in hist_p],
+                      "ms": [h["wall_s"] * 1e3 for h in hist_m],
+                      "meshless_ms": [h["wall_s"] * 1e3 for h in hist_p],
+                      "matrices_changed": f"{sum(moved)}/{len(moved)}",
+                      "bitwise": moe_bitwise}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[mesh] phase wall {out['wall_s']:.3f} s")
+    return out
 
 
 EVALS = [("granite", TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ),
@@ -3422,6 +3668,19 @@ def main():
     free(dev)
     train_profile = profile_train_step(dev)
 
+    # -- 18. mesh: training on a one-rank device mesh ---------------------
+    free(dev)
+    reset_counts()
+    mesh_out = mesh_phase(dev, train_steps)
+    mesh_counts = {"makespan": mk.LAUNCHES["makespan"],
+                   "ssm_scan": ssm.LAUNCHES["ssm_scan"],
+                   "flash_attention": fa.LAUNCHES["flash_attention"]}
+    check(mesh_counts == {"makespan": 0, "ssm_scan": 0,
+                          "flash_attention": 0},
+          f"mesh launches {mesh_counts}: want none (training runs the plain "
+          "products)")
+    print(f"[mesh] mesh path launches: {mesh_counts}")
+
     # -- 12. compare: the Fig. 9 grid, every Table IV method -------------
     free(dev)
     reset_counts()
@@ -3480,7 +3739,8 @@ def main():
                              "launch": launch_counts["makespan"],
                              "families": family_counts["makespan"],
                              "stream": stream_counts["makespan"],
-                             "fleet": fleet_counts["makespan"]},
+                             "fleet": fleet_counts["makespan"],
+                             "mesh": mesh_counts["makespan"]},
         "launches_per_search": launches // 4,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -3505,7 +3765,8 @@ def main():
                              "launch": launch_counts["ssm_scan"],
                              "families": family_counts["ssm_scan"],
                              "stream": stream_counts["ssm_scan"],
-                             "fleet": fleet_counts["ssm_scan"]},
+                             "fleet": fleet_counts["ssm_scan"],
+                             "mesh": mesh_counts["ssm_scan"]},
         "launches_per_eval": {a: e["scan_launches"] for a, e in
                               families_out["eval"].items()},
         "eval_shapes": {k: v for k, v in families_out["timing"].items()
@@ -3535,7 +3796,8 @@ def main():
                              "launch": launch_counts["flash_attention"],
                              "families": family_counts["flash_attention"],
                              "stream": stream_counts["flash_attention"],
-                             "fleet": fleet_counts["flash_attention"]},
+                             "fleet": fleet_counts["flash_attention"],
+                             "mesh": mesh_counts["flash_attention"]},
         "launches_per_eval": dict(
             {k: v["flash_launches"] for k, v in evals.items()},
             zamba2=families_out["eval"]["zamba2-1.2b"]["flash_launches"]),
@@ -3550,7 +3812,7 @@ def main():
         "library_ms_danube": dt_["library_ms"], "shape_danube": dt_["shape"],
         "ptxas": ptxas_json(ptxas["flash_attention"]),
         "train": {"steps": train_steps, "restart": restart,
-                  "profile": train_profile},
+                  "profile": train_profile, "mesh": mesh_out},
         "eval": evals, "ok": True,
     }]
     print(f"[device] {smi}")

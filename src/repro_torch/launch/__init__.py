@@ -1,3 +1,4 @@
-"""Entry points, ported from ``repro.launch``: ``train`` (single device).
-The mesh, sharding, dry-run, roofline and serving launchers wait for
-``repro_torch.dist`` (ROADMAP Queue 1 item 12)."""
+"""Entry points, ported from ``repro.launch``: ``train`` (one device, or a
+``("data", "model")`` device mesh under ``torchrun``), ``serve``, and the
+meshes (``mesh``) and placements (``shardings``) they use.  The dry-run
+and roofline wait for ROADMAP Queue 1 item 12."""

@@ -2,13 +2,14 @@
 
 The same fields as ``repro.models.config.ModelConfig``, so that one config
 means the same model in both packages.  ``dtype_torch`` takes the place of
-``dtype_jnp``.  Some fields steer only the JAX package's lowering or its
-sharding (``scan_layers``, ``fsdp``, ``attn_batch_shard``): they are
-kept for parity and mean nothing to the port yet.  ``use_flash`` selects
+``dtype_jnp``.  ``scan_layers`` steers only the JAX package's lowering
+and is kept for parity; ``fsdp`` and ``attn_batch_shard`` pick the
+sharding rules of a device mesh (``registry.sharding_rules``).  ``use_flash`` selects
 the hand-written kernels (the selective scan and the forward-only flash
 attention), ``ssm_time_chunk`` the plain scan's chunk of steps, ``remat``
 recomputes each layer in the backward pass, and ``ce_seq_chunk`` chunks
-the cross-entropy, as in the JAX package.
+the cross-entropy, as in the JAX package.  ``ShapeConfig`` and ``SHAPES``
+are the reference's input-shape cells.
 """
 from __future__ import annotations
 
@@ -61,8 +62,9 @@ class ModelConfig:
     moe_group_decode: bool = False
     # fused cross-entropy: the loss's logits in sequence chunks of this size
     ce_seq_chunk: int = 0
-    # attention batch re-sharding and FSDP: JAX-package options, kept for
-    # parity
+    # attention batch re-sharding and FSDP: on a device mesh, attention
+    # with the batch over every mesh axis and heads replicated, and the
+    # weights' embed dim over 'data' (registry.sharding_rules)
     attn_batch_shard: bool = False
     fsdp: bool = True
     # numerics / lowering
@@ -99,3 +101,20 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str                    # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                    # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

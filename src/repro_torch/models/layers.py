@@ -28,17 +28,29 @@ the old one, and a copy per token would move the whole cache.
 MoE: routed top-k with per-group capacity and scatter dispatch into an
 ``(G, E, C, d)`` buffer, as in the JAX package; dropped tokens (over
 capacity) contribute nothing.
+
+Activation layouts are annotated with logical axis names through
+``repro_torch.dist.sharding.constrain``, at the reference's places: the
+identity without an active mesh, so every single-device path is
+unchanged, and a DTensor redistribution inside ``use_mesh``.  On a mesh
+the MoE (top-k sort, one-hot, cumsum, scatter and gather, which have no
+DTensor sharding rule), attention's scores and the embedding lookup run
+on each rank's shards through ``local_map``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import constrain, gathered, on_mesh
 from repro_torch.models.module import ones_init, param
 
 
@@ -80,6 +92,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 class AttnParams(nn.Module):
     """wq (d, H*hd), wk and wv (d, Kh*hd), wo (H*hd, d)."""
+    AXES = {"wq": ("embed", "qkv"), "wk": ("embed", "qkv"),
+            "wv": ("embed", "qkv"), "wo": ("qkv", "embed")}
 
     def __init__(self, gen, d_model: int, n_heads: int, n_kv: int,
                  head_dim: int, dtype, device):
@@ -118,7 +132,24 @@ def init_kv_cache(batch: int, capacity: int, n_kv: int, head_dim: int,
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(..., n*hd) -> (..., n, hd).  On a mesh a last dim sharded over
+    ranks that do not divide ``n`` is gathered first: DTensor cannot split
+    a dim into parts whose leading one the ranks do not divide."""
+    if isinstance(x, DTensor):
+        x = _gather_dim_unless_divides(x, x.dim() - 1, n)
     return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def _gather_dim_unless_divides(x: DTensor, dim: int, n: int) -> DTensor:
+    """``x`` with ``dim`` replicated when the ranks sharding it do not
+    divide ``n``."""
+    mesh, placements = x.device_mesh, tuple(x.placements)
+    ranks = math.prod(mesh.size(i) for i, p in enumerate(placements)
+                      if p.is_shard(dim))
+    if n % ranks == 0:
+        return x
+    return x.redistribute(mesh, tuple(Replicate() if p.is_shard(dim) else p
+                                      for p in placements))
 
 
 def _additive(ok: torch.Tensor) -> torch.Tensor:
@@ -148,6 +179,62 @@ def attention_context(w, v) -> torch.Tensor:
     wg = w.reshape(B, Kh, group, Sq, Sk)
     ctx = torch.einsum("bkgqs,bskd->bqkgd", wg.float(), v.float())
     return ctx.reshape(B, Sq, H, -1)
+
+
+def _attend_plain(q, k, v, mask, dtype) -> torch.Tensor:
+    return attention_context(attention_scores(q, k, mask, dtype), v).to(dtype)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: a DTensor built on
+    a permuted local gradient fails the views of the backward pass."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _attend_shard(q, k, v, mask, dtype) -> torch.Tensor:
+    """``_attend_plain`` on one rank's shards, with contiguous output and
+    input gradients (the einsums leave both permuted)."""
+    q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
+    return _attend_plain(q, k, v, mask, dtype).contiguous()
+
+
+def attend(q, k, v, mask, dtype) -> torch.Tensor:
+    """Softmax attention of q (B, Sq, H, hd) over k, v (B, Sk, Kh, hd)
+    under the additive ``mask``: (B, Sq, H, hd) in ``dtype``.
+
+    On a mesh the scores and context run on each rank's shard
+    (``local_map``): the einsums' reshapes flatten the sharded head dim
+    into the batch, which DTensor refuses.  Heads are independent, so a
+    rank keeps the q heads of the kv heads it holds: a mesh dim shards
+    the heads only where it divides Kh (GQA groups stay whole), and the
+    batch where the mask is shared by all rows; on every other mesh dim
+    q, k and v are replicated, so each rank computes whole gradients."""
+    if not isinstance(q, DTensor):
+        return _attend_plain(q, k, v, mask, dtype)
+    mesh, Kh = q.device_mesh, k.shape[2]
+    shared_mask = mask.dim() < 4 or mask.shape[0] == 1
+    placements, heads = [], 1
+    for i, p in enumerate(q.placements):
+        if p.is_shard(0) and shared_mask:
+            placements.append(Shard(0))
+        elif p.is_shard(2) and Kh % (heads * mesh.size(i)) == 0:
+            heads *= mesh.size(i)
+            placements.append(Shard(2))
+        else:
+            placements.append(Replicate())
+    placements = tuple(placements)
+    q, k, v = (t.redistribute(mesh, placements) for t in (q, k, v))
+    fn = local_map(_attend_shard, out_placements=(placements,),
+                   in_placements=(placements, placements, placements, None,
+                                  None), device_mesh=mesh)
+    return fn(q, k, v, mask, dtype)
 
 
 def causal_mask(sq: int, sk: int, window: int = 0, q_offset: int = 0,
@@ -187,8 +274,8 @@ def _chunked_attention(q, k, v, *, causal, window, q_chunk, dtype):
             ok &= kpos <= qpos
         if window:
             ok &= kpos > qpos - window
-        w = attention_scores(q_i, k_i, _additive(ok)[None, None], dtype)
-        chunks.append(attention_context(w, v_i).to(dtype))
+        chunks.append(attend(q_i, k_i, v_i, _additive(ok)[None, None],
+                             dtype))
     return torch.cat(chunks, dim=1)
 
 
@@ -210,6 +297,9 @@ def full_attention(p: AttnParams, x, *, n_heads, n_kv, head_dim, rope_theta,
     v = _split_heads(x @ p.wv, n_kv, head_dim)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
+    q = constrain(q, "attn_batch", "seq", "heads", "head_dim")
+    k = constrain(k, "attn_batch", "seq", "kv_heads", "head_dim")
+    v = constrain(v, "attn_batch", "seq", "kv_heads", "head_dim")
     if use_flash:
         from repro_torch.kernels import ops as kops
         ctx = kops.flash_attention(q, k, v, causal=causal, window=window)
@@ -219,9 +309,10 @@ def full_attention(p: AttnParams, x, *, n_heads, n_kv, head_dim, rope_theta,
     else:
         mask = (causal_mask(S, S, window, device=x.device) if causal else
                 torch.zeros((1, 1, 1, S), device=x.device))
-        w = attention_scores(q, k, mask, x.dtype)
-        ctx = attention_context(w, v).to(x.dtype)
-    return ctx.reshape(B, S, n_heads * head_dim) @ p.wo
+        ctx = attend(q, k, v, mask, x.dtype)
+    ctx = constrain(ctx, "batch", "seq", "heads", "head_dim")
+    out = ctx.reshape(B, S, n_heads * head_dim) @ p.wo
+    return constrain(out, "batch", "seq", "embed")
 
 
 def prefill_attention(p: AttnParams, x, capacity: int, *, n_heads, n_kv,
@@ -235,13 +326,15 @@ def prefill_attention(p: AttnParams, x, capacity: int, *, n_heads, n_kv,
     v = _split_heads(x @ p.wv, n_kv, head_dim)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
+    v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
     if q_chunk and S > 2 * q_chunk and S % q_chunk == 0:
         ctx = _chunked_attention(q, k, v, causal=True, window=window,
                                  q_chunk=q_chunk, dtype=x.dtype)
     else:
         mask = causal_mask(S, S, window, device=x.device)
-        w = attention_scores(q, k, mask, x.dtype)
-        ctx = attention_context(w, v).to(x.dtype)
+        ctx = attend(q, k, v, mask, x.dtype)
     out = ctx.reshape(B, S, n_heads * head_dim) @ p.wo
 
     C = capacity
@@ -262,7 +355,7 @@ def prefill_attention(p: AttnParams, x, capacity: int, *, n_heads, n_kv,
             torch.full((B, pad), -1, dtype=torch.int32, device=x.device)],
             dim=1)
         new = KVCache(kc, vc, pc)
-    return out, new
+    return constrain(out, "batch", "seq", "embed"), new
 
 
 def decode_attention(p: AttnParams, x, cache: KVCache, cur_pos: int, *,
@@ -285,15 +378,16 @@ def decode_attention(p: AttnParams, x, cache: KVCache, cur_pos: int, *,
     cache.v[:, slot] = v[:, 0]
     cache.pos[:, slot] = cur_pos
     cp = cache.pos
+    ck = constrain(cache.k, "batch", "kv_seq", "kv_heads", "head_dim")
+    cv = constrain(cache.v, "batch", "kv_seq", "kv_heads", "head_dim")
 
     valid = (cp >= 0) & (cp <= cur_pos)
     if window:
         valid &= cp > cur_pos - window
     mask = _additive(valid)[:, None, None, :]                # (B,1,1,C)
-    w = attention_scores(q, cache.k, mask, x.dtype)
-    ctx = attention_context(w, cache.v).to(x.dtype)
+    ctx = attend(q, ck, cv, mask, x.dtype)
     out = ctx.reshape(B, 1, n_heads * head_dim) @ p.wo
-    return out, cache
+    return constrain(out, "batch", None, "embed"), cache
 
 
 def cross_attention(p: AttnParams, x, enc_kv, *, n_heads, n_kv, head_dim):
@@ -303,9 +397,9 @@ def cross_attention(p: AttnParams, x, enc_kv, *, n_heads, n_kv, head_dim):
     q = _split_heads(x @ p.wq, n_heads, head_dim)
     k, v = enc_kv
     mask = torch.zeros((1, 1, 1, k.shape[1]), device=x.device)
-    w = attention_scores(q, k, mask, x.dtype)
-    ctx = attention_context(w, v).to(x.dtype)
-    return ctx.reshape(B, S, n_heads * head_dim) @ p.wo
+    ctx = attend(q, k, v, mask, x.dtype)
+    out = ctx.reshape(B, S, n_heads * head_dim) @ p.wo
+    return constrain(out, "batch", "seq", "embed")
 
 
 def encode_cross_kv(p: AttnParams, enc_out, *, n_kv, head_dim):
@@ -319,6 +413,8 @@ def encode_cross_kv(p: AttnParams, enc_out, *, n_kv, head_dim):
 # ---------------------------------------------------------------------------
 class MlpParams(nn.Module):
     """w_gate and w_up (d, ff), w_down (ff, d)."""
+    AXES = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
 
     def __init__(self, gen, d_model: int, d_ff: int, dtype, device):
         super().__init__()
@@ -332,7 +428,8 @@ class MlpParams(nn.Module):
 
 def mlp(p: MlpParams, x: torch.Tensor) -> torch.Tensor:
     h = F.silu((x @ p.w_gate).float()).to(x.dtype) * (x @ p.w_up)
-    return h @ p.w_down
+    h = constrain(h, "batch", "seq", "mlp")
+    return constrain(h @ p.w_down, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -345,6 +442,10 @@ class MoeParams(nn.Module):
     without shared experts).  ``n_experts`` routed experts are stored as
     E = max(n_experts, pad_experts_to); the padding experts are never
     routed."""
+    AXES = {"w_router": ("embed", None),
+            "w_gate": ("expert", "embed", "expert_mlp"),
+            "w_up": ("expert", "embed", "expert_mlp"),
+            "w_down": ("expert", "expert_mlp", "embed")}
 
     def __init__(self, gen, d_model: int, n_experts: int, expert_ff: int,
                  n_shared: int, dtype, device, pad_experts_to: int = 0):
@@ -374,16 +475,14 @@ class MoeRouting(NamedTuple):
     capacity: int            # C, slots per expert and group
 
 
-def moe_routing(p: MoeParams, xg: torch.Tensor, *, n_experts: int,
-                top_k: int, capacity_factor: float = 1.25) -> MoeRouting:
-    """The router of ``moe`` on its routing groups ``xg`` (G, T, d):
-    float32 logits (padding experts at -1e30), softmax, top-k
-    renormalised, the aux loss, and each pair's capacity slot.  The top-k
-    is a stable sort, so tied experts come lowest index first, as
-    ``lax.top_k`` gives them."""
+def _route(xg: torch.Tensor, w_router: torch.Tensor, E: int, *,
+           n_experts: int, top_k: int, capacity_factor: float):
+    """The router on routing groups ``xg`` (G, T, d): (top_p, top_e, me,
+    ce, slot, keep, C), with ``me`` and ``ce`` the per-expert means of the
+    router's probabilities and of the top-k choices over ``xg``'s tokens,
+    which the aux loss multiplies."""
     G, T = xg.shape[0], xg.shape[1]
-    E = p.w_gate.shape[0]
-    logits = xg.float() @ p.w_router                         # (G, T, E)
+    logits = xg.float() @ w_router                           # (G, T, E)
     if E > n_experts:
         pad = torch.arange(E, device=xg.device) >= n_experts
         logits = logits.masked_fill(pad, -1e30)
@@ -392,18 +491,69 @@ def moe_routing(p: MoeParams, xg: torch.Tensor, *, n_experts: int,
     top_p, top_e = top_p[..., :top_k], top_e[..., :top_k]   # (G, T, K)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # load-balance aux loss (Switch-style): E * sum(f_e * p_e)
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(top_e, E).sum(2).float().mean(dim=(0, 1)) / top_k
-    aux = n_experts * torch.sum(me * ce)
 
     C = max(1, math.ceil(T * top_k * capacity_factor / n_experts))
     e_flat = top_e.reshape(G, T * top_k)                     # (G, TK)
     oh = F.one_hot(e_flat, E)                                # (G, TK, E)
     pos = torch.cumsum(oh, dim=1) - oh
     pos_sel = torch.gather(pos, -1, e_flat[..., None])[..., 0]
-    return MoeRouting(top_p, top_e, aux, pos_sel.clamp_max(C - 1),
-                      pos_sel < C, C)
+    return top_p, top_e, me, ce, pos_sel.clamp_max(C - 1), pos_sel < C, C
+
+
+def moe_routing(p: MoeParams, xg: torch.Tensor, *, n_experts: int,
+                top_k: int, capacity_factor: float = 1.25) -> MoeRouting:
+    """The router of ``moe`` on its routing groups ``xg`` (G, T, d):
+    float32 logits (padding experts at -1e30), softmax, top-k
+    renormalised, the aux loss (Switch-style: n_experts * sum(f_e *
+    p_e)), and each pair's capacity slot.  The top-k is a stable sort, so
+    tied experts come lowest index first, as ``lax.top_k`` gives them."""
+    top_p, top_e, me, ce, slot, keep, C = _route(
+        xg, p.w_router, p.w_gate.shape[0], n_experts=n_experts,
+        top_k=top_k, capacity_factor=capacity_factor)
+    return MoeRouting(top_p, top_e, n_experts * torch.sum(me * ce), slot,
+                      keep, C)
+
+
+def _route_dispatch(xg, w_router, *, E: int, n_experts: int, top_k: int,
+                    capacity_factor: float, shards: int):
+    """Route the groups ``xg`` (G, T, d) and scatter their kept (token,
+    choice) pairs into the expert buffer (G, E, C, d): (buf, top_p,
+    e_flat, slot, keep, me / shards, ce / shards).  The reference adds
+    each token into its slot; a kept (e, slot) pair is unique and a
+    dropped one adds zero, so a masked write of the kept pairs gives the
+    same buffer."""
+    top_p, top_e, me, ce, slot, keep, C = _route(
+        xg, w_router, E, n_experts=n_experts, top_k=top_k,
+        capacity_factor=capacity_factor)
+    G, T, d = xg.shape
+    e_flat = top_e.reshape(G, T * top_k)
+    # kept pairs to their (g, e, slot) row, dropped ones to a spare last row
+    g_idx = torch.arange(G, device=xg.device)[:, None]
+    dest = torch.where(keep, (g_idx * E + e_flat) * C + slot, G * E * C)
+    buf = torch.zeros((G * E * C + 1, d), dtype=xg.dtype, device=xg.device)
+    buf[dest.reshape(-1)] = xg.repeat_interleave(top_k, dim=1).reshape(-1, d)
+    return (buf[:-1].reshape(G, E, C, d), top_p, e_flat, slot, keep,
+            me / shards, ce / shards)
+
+
+def _by_expert(buf: torch.Tensor) -> torch.Tensor:
+    """(G, E, C, d) -> (E, G*C, d): one batch of rows per expert."""
+    G, E, C, d = buf.shape
+    return buf.transpose(0, 1).reshape(E, G * C, d)
+
+
+def _from_expert(h: torch.Tensor, G: int) -> torch.Tensor:
+    """(E, G*C, f) -> (G, E, C, f)."""
+    E, GC, f = h.shape
+    return h.reshape(E, G, GC // G, f).transpose(0, 1)
+
+
+def expert_matmul(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``buf`` (G, E, C, d) @ ``w`` (E, d, f) -> (G, E, C, f) in the input
+    dtype: one ``bmm`` over the experts."""
+    return _from_expert(torch.bmm(_by_expert(buf), w), buf.shape[0])
 
 
 def expert_matmul_f32(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -412,16 +562,38 @@ def expert_matmul_f32(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     rounded to the input dtype.  On the card a bf16/f16 product asks
     cuBLAS for float32 output (``out_dtype``), so no float32 copy of the
     experts' weights is made; the CPU has no such product and widens both
-    operands."""
-    G, E, C, d = buf.shape
-    a = buf.transpose(0, 1).reshape(E, G * C, d)
+    operands, and so does training (``bmm`` with ``out_dtype`` has no
+    derivative)."""
+    a = _by_expert(buf)
+    training = torch.is_grad_enabled() and (a.requires_grad or
+                                            w.requires_grad)
     if a.dtype == torch.float32:
         h = torch.bmm(a, w)
-    elif a.is_cuda:
+    elif a.is_cuda and not training:
         h = torch.bmm(a, w, out_dtype=torch.float32)
     else:
         h = torch.bmm(a.float(), w.float())
-    return h.reshape(E, G, C, -1).transpose(0, 1)
+    return _from_expert(h, buf.shape[0])
+
+
+def _experts_combine(buf, w_gate, w_up, w_down, top_p, e_flat, slot, keep
+                     ) -> torch.Tensor:
+    """The expert products on the buffer (G, E, C, d) -- the gate product
+    in float32 before the SiLU, as the reference's
+    ``preferred_element_type=float32`` asks, the up and down products in
+    the input dtype -- and each token's kept choices gathered back out of
+    it and weighted by ``top_p``: (G, T, d).  Linear in ``w_down``'s
+    output, so a rank holding a slice of the experts' hidden dim returns
+    its share of the sum."""
+    h = F.silu(expert_matmul_f32(buf, w_gate))
+    h = h.to(buf.dtype) * expert_matmul(buf, w_up)
+    y_buf = expert_matmul(h, w_down)
+    G, TK = e_flat.shape
+    K = top_p.shape[-1]
+    g_idx = torch.arange(G, device=buf.device)[:, None]
+    y_tok = y_buf[g_idx, e_flat, slot] * keep[..., None].to(buf.dtype)
+    return (y_tok.reshape(G, TK // K, K, -1)
+            * top_p[..., None].to(y_tok.dtype)).sum(dim=2)
 
 
 def moe(p: MoeParams, x: torch.Tensor, *, n_experts: int, top_k: int,
@@ -432,40 +604,85 @@ def moe(p: MoeParams, x: torch.Tensor, *, n_experts: int, top_k: int,
     token stream forms one routing group.  Only the first ``n_experts``
     experts are routable.  Each group's expert e holds C =
     ceil(T*k*cf / n_experts) tokens, taken in token-major (T*k) order;
-    the rest are dropped (``moe_routing``).  The reference adds each
-    token into its slot; a kept (e, slot) pair is unique and a dropped
-    one adds zero, so a masked write of the kept pairs gives the same
-    buffer.  The gate product comes out in float32 before the SiLU, as
-    the reference's ``preferred_element_type=float32`` asks
-    (``expert_matmul_f32``); the up and down products are in the input
-    dtype."""
+    the rest are dropped (``moe_routing``).  On a mesh (``x`` a DTensor)
+    see ``_moe_on_mesh``."""
+    if isinstance(x, DTensor):
+        return _moe_on_mesh(p, x, n_experts=n_experts, top_k=top_k,
+                            capacity_factor=capacity_factor,
+                            group_tokens=group_tokens)
     B, S, d = x.shape
-    E = p.w_gate.shape[0]
     xg = x.reshape(1, B * S, d) if group_tokens else x
-    G, T = xg.shape[0], xg.shape[1]
-    r = moe_routing(p, xg, n_experts=n_experts, top_k=top_k,
-                    capacity_factor=capacity_factor)
-    C = r.capacity
-    e_flat = r.top_e.reshape(G, T * top_k)
+    buf, top_p, e_flat, slot, keep, me, ce = _route_dispatch(
+        xg, p.w_router, E=p.w_gate.shape[0], n_experts=n_experts,
+        top_k=top_k, capacity_factor=capacity_factor, shards=1)
+    y = _experts_combine(buf, p.w_gate, p.w_up, p.w_down, top_p, e_flat,
+                         slot, keep).reshape(B, S, d)
+    if p.shared is not None:
+        y = y + mlp(p.shared, x)
+    return y, n_experts * torch.sum(me * ce)
 
-    # kept pairs to their (g, e, slot) row, dropped ones to a spare last row
-    g_idx = torch.arange(G, device=x.device)[:, None]
-    dest = torch.where(r.keep, (g_idx * E + e_flat) * C + r.slot, G * E * C)
-    buf = torch.zeros((G * E * C + 1, d), dtype=x.dtype, device=x.device)
-    buf[dest.reshape(-1)] = xg.repeat_interleave(top_k, dim=1).reshape(-1, d)
-    buf = buf[:-1].reshape(G, E, C, d)
 
-    h = F.silu(expert_matmul_f32(buf, p.w_gate))
-    h = h.to(x.dtype) * torch.einsum("gecd,edf->gecf", buf, p.w_up)
-    y_buf = torch.einsum("gecf,efd->gecd", h, p.w_down)
+def _moe_on_mesh(p: MoeParams, x, *, n_experts: int, top_k: int,
+                 capacity_factor: float, group_tokens: bool):
+    """``moe`` on a mesh, as two ``local_map``s (the sort, one-hot, cumsum
+    and scatter of routing have no DTensor sharding rule).
 
-    y_tok = y_buf[g_idx, e_flat, r.slot] * r.keep[..., None].to(x.dtype)
-    y = (y_tok.reshape(G, T, top_k, d)
-         * r.top_p[..., None].to(y_tok.dtype)).sum(dim=2)
+    The routing groups stay split as the batch is (``rows``): each rank
+    routes and dispatches its own groups against the whole router, and
+    only the aux loss's two per-expert means are summed over the ranks
+    (each rank's mean over its equal share, divided by the number of
+    shares).  The grouped layout (one group of every token) cannot be
+    split, so there ``x`` is gathered and every rank routes it all.  The
+    expert products and the combine run on each rank's groups with the
+    weights' hidden dim (``expert_mlp``) split where the weights split it
+    on a dim that does not split the groups: a rank's output is then its
+    share of the down product's sum, reduced once on (G, T, d) after the
+    combine, which is linear in it.  This is the reference's layout
+    (buffer over "batch", hidden over "expert_mlp", the down product
+    summed), with the sum taken after the gather instead of before it."""
+    mesh, (B, S, d) = x.device_mesh, x.shape
+    if group_tokens:
+        xg = on_mesh(gathered(x).reshape(1, B * S, d), mesh)
+    else:
+        xg = x
+    rows = tuple(Shard(0) if pl.is_shard(0) and not group_tokens
+                 else Replicate() for pl in xg.placements)
+    xg = xg.redistribute(mesh, rows)
+    whole = (Replicate(),) * mesh.ndim
+    shared = tuple(Partial() if r.is_shard() else Replicate() for r in rows)
+    shards = math.prod(mesh.size(i) for i, r in enumerate(rows)
+                       if r.is_shard())
+    route = local_map(
+        functools.partial(_route_dispatch, E=p.w_gate.shape[0],
+                          n_experts=n_experts, top_k=top_k,
+                          capacity_factor=capacity_factor, shards=shards),
+        out_placements=(rows,) * 5 + (shared, shared),
+        in_placements=(rows, whole), in_grad_placements=(rows, shared),
+        device_mesh=mesh)
+    buf, top_p, e_flat, slot, keep, me, ce = route(
+        xg, p.w_router.redistribute(mesh, whole))
+
+    split = tuple(not r.is_shard() and w.is_shard(2)
+                  for r, w in zip(rows, p.w_gate.placements))
+    gate = tuple(Shard(2) if s else Replicate() for s in split)
+    down = tuple(Shard(1) if s else Replicate() for s in split)
+    out = tuple(Partial() if s else r for s, r in zip(split, rows))
+    w_grad = tuple(Shard(2) if s else g for s, g in zip(split, shared))
+    down_grad = tuple(Shard(1) if s else g for s, g in zip(split, shared))
+    experts = local_map(
+        _experts_combine, out_placements=(out,),
+        in_placements=(rows, gate, gate, down) + (rows,) * 4,
+        in_grad_placements=(out, w_grad, w_grad, down_grad, out)
+        + (rows,) * 3, device_mesh=mesh)
+    y = experts(buf, p.w_gate.redistribute(mesh, gate),
+                p.w_up.redistribute(mesh, gate),
+                p.w_down.redistribute(mesh, down), top_p, e_flat, slot,
+                keep).redistribute(mesh, rows)
     y = y.reshape(B, S, d)
     if p.shared is not None:
         y = y + mlp(p.shared, x)
-    return y, r.aux
+    me, ce = (t.redistribute(mesh, whole) for t in (me, ce))
+    return constrain(y, "batch", "seq", "embed"), n_experts * torch.sum(me * ce)
 
 
 # ---------------------------------------------------------------------------
@@ -477,12 +694,33 @@ def init_embedding(gen, vocab: int, d_model: int, dtype,
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` for ``tokens``.  On a mesh the lookup runs on
+    each rank's tokens against the whole table (``local_map``): DTensor's
+    rule for the backward of ``table[tokens]`` (``index_put``) fails on
+    the card, and ``F.embedding`` would sum the rows' gradients in
+    another order.  The table's gradient is a partial sum over the mesh
+    dims that split the tokens."""
+    if isinstance(table, DTensor):
+        mesh = table.device_mesh
+        whole = (Replicate(),) * mesh.ndim
+        tok = (tuple(tokens.placements) if isinstance(tokens, DTensor)
+               else whole)
+        grad = tuple(Partial() if p.is_shard() else Replicate() for p in tok)
+        out = local_map(_lookup, out_placements=(tok,),
+                        in_placements=(whole, tok),
+                        in_grad_placements=(grad, tok), device_mesh=mesh)(
+            table.redistribute(mesh, whole), tokens)
+        return constrain(out, "batch", "seq", "embed")
+    return constrain(_lookup(table, tokens), "batch", "seq", "embed")
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
 
 def logits_head(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied LM head: (B, S, d) @ (V, d)^T -> (B, S, V)."""
-    return x @ table.t()
+    return constrain(x @ table.t(), "batch", "seq", "vocab")
 
 
 def pad_vocab(vocab: int, multiple: int = 128) -> int:

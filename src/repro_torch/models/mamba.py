@@ -145,6 +145,11 @@ class Mamba1Params(nn.Module):
     """One Mamba-1 layer: norm (d), in_proj (d, 2Di), conv_w (Di, W),
     conv_b (Di), x_proj (Di, dt_rank + 2N), dt_w (dt_rank, Di),
     dt_b (Di) f32, A_log (Di, N) f32, D (Di) f32, out_proj (Di, d)."""
+    AXES = {"norm": ("embed",), "in_proj": ("embed", "inner"),
+            "conv_w": ("inner", "conv"), "conv_b": ("inner",),
+            "x_proj": ("inner", None), "dt_w": ("dt_rank", "inner"),
+            "dt_b": ("inner",), "A_log": ("inner", "ssm_state"),
+            "D": ("inner",), "out_proj": ("inner", "embed")}
 
     def __init__(self, gen, cfg: ModelConfig, device):
         super().__init__()
@@ -206,7 +211,14 @@ def mamba1_block(lp: Mamba1Params, x, cfg: ModelConfig, state=None):
 class Mamba2Params(nn.Module):
     """One Mamba-2 layer: norm (d), in_proj (d, 2Di), conv_w (Di, W),
     conv_b (Di), bc_proj (d, 2N), dt_w (d, H), dt_b (H) f32,
-    A_log (H) f32, D (Di) f32, gate_norm (Di), out_proj (Di, d)."""
+    A_log (H) f32, D (Di) f32, gate_norm (Di), out_proj (Di, d).  The
+    gate norm's axis is "embed", as every RMSNorm scale's is in the
+    reference."""
+    AXES = {"norm": ("embed",), "in_proj": ("embed", "inner"),
+            "conv_w": ("inner", "conv"), "conv_b": ("inner",),
+            "bc_proj": ("embed", None), "dt_w": ("embed", None),
+            "dt_b": (None,), "A_log": (None,), "D": ("inner",),
+            "gate_norm": ("embed",), "out_proj": ("inner", "embed")}
 
     def __init__(self, gen, cfg: ModelConfig, device):
         super().__init__()
@@ -266,6 +278,7 @@ def mamba2_block(lp: Mamba2Params, x, cfg: ModelConfig, state=None):
 class _LM(nn.Module):
     """What both SSM language models share: the tied embedding, the
     final norm, the padded-vocabulary logits and the cache's home."""
+    AXES = {"embed": ("vocab", "embed"), "final_norm": ("embed",)}
     embed: nn.Parameter
     final_norm: nn.Parameter
 
@@ -358,6 +371,7 @@ class MambaLM(_LM):
 # ---------------------------------------------------------------------------
 class SharedBlock(nn.Module):
     """The one weight-tied (attention + MLP) block of the hybrid."""
+    AXES = {"attn_norm": ("embed",), "mlp_norm": ("embed",)}
 
     def __init__(self, gen, cfg: ModelConfig, device):
         super().__init__()

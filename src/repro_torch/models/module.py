@@ -9,10 +9,18 @@ model without allocating it.  Parameters are made without gradients; the
 trainer (``repro_torch.train.loop.init_state``) turns them on for the
 model it trains.  ``remat`` is the models' layer recompute, the port's
 ``jax.checkpoint``.
+
+Every module that holds parameters names their logical axes in a class
+attribute ``AXES`` ({field: axis names}), the reference's ``Param.axes``
+without the leading ``"layers"`` entry of a stacked leaf (the port keeps
+one module a layer); ``param_axes`` collects them by parameter name.  The
+axes are metadata only: ``repro_torch.dist.sharding`` maps them to
+placements on a device mesh, and nothing that runs without a mesh reads
+them.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -72,3 +80,21 @@ def remat(cfg, fn: Callable, *args):
 def count_params(module: nn.Module) -> int:
     """Number of parameter elements (works on the ``meta`` device)."""
     return sum(p.numel() for p in module.parameters())
+
+
+Axes = Tuple[Optional[str], ...]
+
+
+def param_axes(model: nn.Module) -> Dict[str, Axes]:
+    """{parameter name: logical axis names} of every parameter of
+    ``model``, from the ``AXES`` of the module that holds it."""
+    out: Dict[str, Axes] = {}
+    for name, p in model.named_parameters():
+        prefix, _, field = name.rpartition(".")
+        owner = model.get_submodule(prefix) if prefix else model
+        axes = getattr(type(owner), "AXES", {}).get(field)
+        if axes is None or len(axes) != p.dim():
+            raise ValueError(f"{type(owner).__name__}.{field}: no logical "
+                             f"axes for a {p.dim()}-dim parameter")
+        out[name] = tuple(axes)
+    return out

@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import (ones_init, param, remat,
@@ -45,6 +46,7 @@ def _pad_experts(n: int, multiple: int = 16) -> int:
 
 class Block(nn.Module):
     """One layer: attn_norm, attn, mlp_norm, and mlp (dense) or moe."""
+    AXES = {"attn_norm": ("embed",), "mlp_norm": ("embed",)}
 
     def __init__(self, gen, cfg: ModelConfig, device):
         super().__init__()
@@ -64,6 +66,7 @@ class Block(nn.Module):
 
 class TransformerLM(nn.Module):
     """granite / danube / stablelm / phi3 / qwen2-moe / moonshot / llava."""
+    AXES = {"embed": ("vocab", "embed"), "final_norm": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
@@ -135,7 +138,8 @@ class TransformerLM(nn.Module):
             parts.append(batch["embeds"].to(self.cfg.dtype_torch))
         if "tokens" in batch:
             parts.append(L.embed(self.embed, batch["tokens"]))
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        return constrain(x, "batch", "seq", "embed")
 
     def loss(self, batch: Dict[str, torch.Tensor]):
         """Next-token cross entropy.  batch: tokens (B, S) [+ embeds],
@@ -191,7 +195,7 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         if moe_group is None:
             moe_group = cfg.moe_group_decode
-        x = L.embed(self.embed, tokens)
+        x = constrain(L.embed(self.embed, tokens), "batch", None, "embed")
         for i, lp in enumerate(self.layers):
             a_out, _ = L.decode_attention(
                 lp.attn, L.rms_norm(lp.attn_norm, x),
@@ -209,6 +213,7 @@ class TransformerLM(nn.Module):
 # ---------------------------------------------------------------------------
 class EncBlock(nn.Module):
     """One encoder layer: attn_norm, attn, mlp_norm, mlp."""
+    AXES = {"attn_norm": ("embed",), "mlp_norm": ("embed",)}
 
     def __init__(self, gen, cfg: ModelConfig, device):
         super().__init__()
@@ -223,6 +228,7 @@ class EncBlock(nn.Module):
 class DecBlock(EncBlock):
     """One decoder layer: an encoder layer's fields plus cross_norm and
     cross (the cross attention's projections)."""
+    AXES = dict(EncBlock.AXES, cross_norm=("embed",))
 
     def __init__(self, gen, cfg: ModelConfig, device):
         super().__init__(gen, cfg, device)
@@ -237,6 +243,8 @@ class EncDecLM(nn.Module):
     cross attention.  The serving cache is {"self": a ``KVCache`` of
     (L, ...) leaves, "cross": the (k, v) of every layer, each (L, B, Se,
     Kh, hd)}, the reference's layout."""
+    AXES = {"embed": ("vocab", "embed"), "enc_norm": ("embed",),
+            "final_norm": ("embed",)}
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
@@ -268,7 +276,7 @@ class EncDecLM(nn.Module):
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames: (B, Se, d) precomputed embeddings -> (B, Se, d) in the
         model's dtype."""
-        x = frames.to(self.cfg.dtype_torch)
+        x = constrain(frames.to(self.cfg.dtype_torch), "batch", "seq", "embed")
         for lp in self.enc_layers:
             x = remat(self.cfg, self._enc_block, lp, x)
         return L.rms_norm(self.enc_norm, x)

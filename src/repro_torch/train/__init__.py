@@ -1,5 +1,5 @@
 """The training substrate, ported from ``repro.train``: the synthetic
 token stream, AdamW with a cosine schedule and global-norm clipping, the
-train step and loop, and checkpoint/restart.  Single device; the sharded
-paths and ``fault`` wait for ``repro_torch.dist`` (ROADMAP Queue 1 item
-12)."""
+train step and loop on one device or on a device mesh (DTensor
+parameters), checkpoint/restart with a re-meshed restore, and ``fault``
+(straggler watchdog and elastic re-mesh plans)."""

@@ -1,4 +1,5 @@
-"""Checkpointing with atomic commit, ported from ``repro.train.checkpoint``.
+"""Checkpointing with atomic commit and elastic (re-meshed) restore, ported
+from ``repro.train.checkpoint``.
 
 Layout:  <dir>/step_<k>/
              manifest.json       leaf names, state paths, shapes, dtypes, step
@@ -11,9 +12,19 @@ checkpoint (restore only ever sees fully committed directories, and
 
 numpy has no bfloat16, so a bf16 leaf is stored as its raw 16-bit
 pattern (``int16``) and the manifest records ``bfloat16``; restore views
-the bits back, so a restart is bitwise.  The re-meshed (sharded) restore
-of the JAX package waits for ``repro_torch.dist`` (ROADMAP Queue 1 item
-12).
+the bits back, so a restart is bitwise.
+
+On a device mesh (DTensor leaves) every rank calls ``save``: each leaf is
+gathered whole (``full_tensor``), rank 0 writes the same files as on one
+device, and the ranks meet at a barrier after the commit.  The on-disk
+format is unpartitioned, so ``restore`` places each leaf as the leaf of
+``like`` it is read into is placed, as the reference's ``device_put``
+places it by its target sharding: a checkpoint written on one mesh
+restores onto another (an elastic shrink), onto one device, or from one
+device onto a mesh.  The port's state holds the model's own parameters,
+so the target layout is set on the model (``launch.train.shard_model``,
+by ``launch.shardings.param_shardings``) before ``init_state`` and
+``restore``; the moments follow their parameters.
 """
 from __future__ import annotations
 
@@ -24,6 +35,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.train.optimizer import AdamState
 
@@ -39,9 +52,15 @@ def _leaves(state) -> List[Tuple[str, object]]:
     return out
 
 
+def _on_mesh(state) -> bool:
+    return any(isinstance(v, DTensor) for _, v in _leaves(state))
+
+
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     if isinstance(leaf, int):
         return np.asarray(leaf, dtype=np.int32), "int32"
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().cpu()
     dtype = str(t.dtype).split(".")[-1]
     if t.dtype == torch.bfloat16:
@@ -58,18 +77,37 @@ def _write(path: str, arr: np.ndarray) -> None:
 
 def save(directory: str, state, step: Optional[int] = None,
          keep: int = 3) -> str:
-    """Write ``state`` as ``<directory>/step_<step>`` and return its path."""
+    """Write ``state`` as ``<directory>/step_<step>`` and return its path.
+    On a mesh every rank calls it and rank 0 writes."""
     step = state.step if step is None else int(step)
     final = os.path.join(directory, f"step_{step:08d}")
+    # one leaf at a time: a gather (on a mesh) and a write, then the next
+    arrays = ((path, _to_numpy(leaf)) for path, leaf in _leaves(state))
+    if not _on_mesh(state):
+        _commit(directory, final, step, arrays, keep)
+        return final
+    if dist.get_rank() == 0:
+        _commit(directory, final, step, arrays, keep)
+    else:
+        for _ in arrays:       # take part in every leaf's gather
+            pass
+    dist.barrier()
+    return final
+
+
+def _commit(directory: str, final: str, step: int, arrays, keep: int
+            ) -> None:
+    """Write ``arrays`` ((path, (array, dtype)) pairs, made one by one) into
+    ``final`` with atomic commit, and keep the newest ``keep``
+    checkpoints."""
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
 
     manifest = {"step": step, "leaves": []}
-    for i, (path, leaf) in enumerate(_leaves(state)):
+    for i, (path, (arr, dtype)) in enumerate(arrays):
         name = f"leaf_{i:05d}"
-        arr, dtype = _to_numpy(leaf)
         _write(os.path.join(tmp, name + ".npy"), arr)
         manifest["leaves"].append({"name": name, "path": path,
                                    "shape": list(arr.shape), "dtype": dtype})
@@ -85,7 +123,6 @@ def save(directory: str, state, step: Optional[int] = None,
                    if d.startswith("step_") and not d.endswith(".tmp"))
     for old in ckpts[:-keep]:
         shutil.rmtree(os.path.join(directory, old))
-    return final
 
 
 def find_latest(directory: str) -> Optional[str]:
@@ -102,7 +139,9 @@ def find_latest(directory: str) -> Optional[str]:
 def restore(path: str, like):
     """Load the checkpoint at ``path`` into the tensors of ``like`` (a
     ``TrainState`` of the same model: the model's parameters and the
-    moments are overwritten in place) and return the restored state."""
+    moments are overwritten in place) and return the restored state.  A
+    DTensor leaf of ``like`` takes its shard of the whole array on every
+    rank; a plain leaf takes the whole array."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     leaves = _leaves(like)
@@ -126,6 +165,9 @@ def restore(path: str, like):
         t = torch.from_numpy(arr)
         if leaf.dtype == torch.bfloat16:
             t = t.view(torch.bfloat16)
+        if isinstance(leaf, DTensor):
+            t = distribute_tensor(t.to(leaf.device), leaf.device_mesh,
+                                  leaf.placements, src_data_rank=None)
         leaf.copy_(t)
     return type(like)(step=steps["step"], params=like.params,
                       opt=AdamState(steps["opt/step"], like.opt.mu,

@@ -7,16 +7,16 @@ checkpoint at step k and asking for ``batch_at(k)`` reproduces exactly the
 batch the interrupted run would have seen.  The counters and draws are the
 reference's, so the batches are bitwise the JAX package's.  Per-host
 sharding slices the global batch by host index.  ``stream_for_shape``
-waits for ``ShapeConfig`` (ROADMAP Queue 1 item 12).
+is the stream of one ``ShapeConfig`` cell.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
 
 
 @dataclasses.dataclass
@@ -76,3 +76,10 @@ class TokenStream:
         out["tokens"] = toks[:, :-1].astype(np.int32)
         out["labels"] = toks[:, 1:].astype(np.int32)
         return out
+
+
+def stream_for_shape(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+                     host_index: int = 0, host_count: int = 1,
+                     batch_override: Optional[int] = None) -> TokenStream:
+    return TokenStream(cfg, batch_override or shape.global_batch,
+                       shape.seq_len, seed, host_index, host_count)

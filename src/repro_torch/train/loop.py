@@ -14,8 +14,16 @@ parameters and the moments in place and returns a ``TrainState`` holding
 them; ``TrainState.params`` are the model's own ``nn.Parameter``s, by
 name.  ``init_state`` takes the weights the model was built with (its
 ``torch.Generator``), where the reference draws them from a key.
-Single device: the sharded step waits for ``repro_torch.dist`` (ROADMAP
-Queue 1 item 12).
+
+On a device mesh (``repro_torch.dist.sharding.use_mesh`` active, the
+model's parameters DTensors from ``distribute_params``) the same step
+runs sharded: every rank is handed the global batch and keeps its rows
+(``shard_batch``), as the reference's sharded jit sees the global batch;
+the loss is gathered to a plain scalar before the backward pass; each
+gradient is redistributed to its parameter's placements before the
+clip and AdamW (a sharded weight's gradient comes back as a ``Partial``
+sum); and the clip's norm is taken over every rank.  Without a mesh the
+step is unchanged.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import (active_mesh, gathered,
+                                      like_placements, shard_batch)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import (AdamState, AdamW, Tree,
                                          apply_updates, clip_by_global_norm,
@@ -63,6 +73,13 @@ def _on_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _placed(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This rank's share of a global batch on the active mesh; the batch
+    itself without one."""
+    mesh = active_mesh()
+    return batch if mesh is None else shard_batch(batch, mesh)
+
+
 def make_train_step(model, tc: TrainConfig) -> Callable:
     """Returns step(state, batch) -> (state, metrics); ``batch`` holds numpy
     arrays or tensors (``TokenStream.batch_at``)."""
@@ -70,9 +87,12 @@ def make_train_step(model, tc: TrainConfig) -> Callable:
     lr_fn = cosine_schedule(tc.lr, tc.warmup_steps, tc.total_steps)
 
     def loss_and_grads(params: Tree, batch):
-        loss, metrics = model.loss(batch)
+        loss, metrics = model.loss(_placed(batch))
+        loss = gathered(loss)
         grads = torch.autograd.grad(loss, list(params.values()))
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        grads = [like_placements(g, p) for g, p in zip(grads,
+                                                        params.values())]
+        metrics = {k: gathered(v).detach() for k, v in metrics.items()}
         return loss.detach(), metrics, dict(zip(params, grads))
 
     def accumulated_grads(params: Tree, batch):
@@ -80,7 +100,7 @@ def make_train_step(model, tc: TrainConfig) -> Callable:
         micro = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
                  for k, v in batch.items()}
         loss = torch.zeros((), dtype=torch.float32, device=model.device)
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = [torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
                for p in params.values()]
         metrics = {}
         for i in range(n):

@@ -12,6 +12,13 @@ old state is not read again.  The arithmetic is done with
 ``torch._foreach_*`` over groups of tensors, to keep the host's op count
 and the f32 temporaries small.  ``RMSProp`` (the A2C baseline's
 optimizer, ``repro_torch.core.rl``) has the same API.
+
+On a device mesh the parameters, gradients and moments are DTensors:
+each gradient arrives in its parameter's placements (the train step
+redistributes it), the moments are made ``zeros_like`` their parameter
+and so share its placements, and ``global_norm`` sums every rank's
+squares (``full_tensor`` of each leaf's sum).  Without a mesh every
+tensor is plain and the arithmetic is unchanged.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 Tree = Dict[str, torch.Tensor]
 GROUP_ELEMENTS = 1 << 28      # the f32 temporaries of one group: 1 GiB each
@@ -31,9 +39,15 @@ class AdamState(NamedTuple):
     nu: Tree
 
 
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    s = torch.sum(torch.square(g.float()))
+    return s.full_tensor() if isinstance(s, DTensor) else s
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32 (0-d)."""
-    sq = [torch.sum(torch.square(g.float())) for g in tree.values()]
+    """sqrt of the sum of squares of every leaf, in float32 (0-d); over
+    every rank's shard for DTensor leaves."""
+    sq = [_square_sum(g) for g in tree.values()]
     return torch.sqrt(torch.stack(sq).sum())
 
 
@@ -78,8 +92,8 @@ class AdamW:
 
     def init(self, params: Tree) -> AdamState:
         def zeros():
-            return {k: torch.zeros(p.shape, dtype=self.state_dtype,
-                                   device=p.device)
+            return {k: torch.zeros_like(p, dtype=self.state_dtype,
+                                        requires_grad=False)
                     for k, p in params.items()}
         return AdamState(step=0, mu=zeros(), nu=zeros())
 

@@ -1,0 +1,316 @@
+"""Rank processes of ``tests/test_torch_mesh_train.py``: a gloo group of
+CPU ranks started with ``torch.multiprocessing`` spawn, each running the
+port's mesh training on its shard and writing what the test compares to
+``<out>/<job>_<rank>.pt``.
+
+This module imports only ``torch``, numpy and ``repro_torch``: the rank
+processes never load JAX.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+GRANITE = dict(dtype="float32", d_model=64, d_ff=128)
+BATCH, SEQ = 4, 16
+TRAIN = dict(lr=3e-3, warmup_steps=2, total_steps=40)
+STEPS = 25
+ELASTIC_CKPT_STEP, ELASTIC_STEPS = 2, 5
+
+
+def granite_cfg():
+    from repro_torch.configs import get_smoke_config
+    return get_smoke_config("granite-3-2b").replace(**GRANITE)
+
+
+def smoke_cfg(arch):
+    from repro_torch.configs import get_smoke_config
+    return get_smoke_config(arch).replace(dtype="float32")
+
+
+def _model(cfg, weights=None, seed=0):
+    from repro_torch.models.registry import get_model
+    model = get_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(seed))
+    if weights is not None:
+        model.load_state_dict(torch.load(weights))
+    return model
+
+
+def _quiet():
+    return dict(log_every=0, log_fn=lambda *_: None)
+
+
+def job_granite(rank, out, weights, ckpt_dir):
+    """The (2, 2) mesh: local shard shapes, then STEPS steps with a
+    checkpoint after ELASTIC_CKPT_STEP and the whole state at that step."""
+    from repro_torch.dist.sharding import make_mesh, use_mesh
+    from repro_torch.launch.train import shard_model
+    from repro_torch.launch.shardings import param_shardings
+    from repro_torch.models.registry import sharding_rules
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.loop import TrainConfig, train
+
+    cfg = granite_cfg()
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    rules = sharding_rules(cfg, 2)
+    model = shard_model(_model(cfg, weights), mesh, rules)
+    _, sh = param_shardings(model, mesh, rules)
+    shapes = {k: (tuple(p.to_local().shape), tuple(p.placements),
+                  tuple(sh[k].placements)) for k, p in
+              model.named_parameters()}
+    tc = TrainConfig(**TRAIN)
+    stream = TokenStream(cfg, BATCH, SEQ, seed=0)
+    hist = []
+    with use_mesh(mesh, rules):
+        state = train(model, tc, stream, ELASTIC_CKPT_STEP,
+                      checkpoint_dir=ckpt_dir, history=hist, **_quiet())
+        at_ckpt = {k: v.full_tensor().clone() for k, v in
+                   state.params.items()}
+        state = train(model, tc, stream, STEPS, state=state, history=hist,
+                      **_quiet())
+    return {"shapes": shapes, "coords": mesh.get_coordinate(),
+            "losses": [h["loss"] for h in hist],
+            "at_ckpt": at_ckpt if rank == 0 else None}
+
+
+def job_elastic(rank, out, weights, ckpt_dir):
+    """Restart on the 2-rank mesh an ElasticController plans after losing
+    a host of the (2, 2) run: place the model on the new mesh, restore
+    the step-2 checkpoint into it (every leaf in the placements that
+    ``train_state_shardings`` gives) and continue to ELASTIC_STEPS."""
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.mesh import make_mesh_from_plan
+    from repro_torch.launch.shardings import train_state_shardings
+    from repro_torch.launch.train import shard_model
+    from repro_torch.models.registry import sharding_rules
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.fault import ElasticController
+    from repro_torch.train.loop import TrainConfig, init_state, train
+
+    ec = ElasticController(n_hosts=4, chips_per_host=1, model_axis=2)
+    assert ec.step({h: 1.0 for h in range(4)}) is None
+    plan = ec.step({h: 1.0 for h in range(3)})          # host 3 is lost
+    mesh = make_mesh_from_plan(plan, "cpu")
+    cfg = granite_cfg()
+    rules = sharding_rules(cfg, mesh.size(1))
+    model = shard_model(_model(cfg, seed=7), mesh, rules)   # other weights
+    _, state_sh = train_state_shardings(model, mesh, rules)
+    path = os.path.join(ckpt_dir, f"step_{ELASTIC_CKPT_STEP:08d}")
+    state = ckpt.restore(path, init_state(model))
+    want = {"params": state_sh.params, "mu": state_sh.opt.mu,
+            "nu": state_sh.opt.nu}
+    got = {"params": state.params, "mu": state.opt.mu, "nu": state.opt.nu}
+    placed = all(tuple(v.placements) == tuple(want[f][k].placements)
+                 for f in got for k, v in got[f].items())
+    hist = []
+    with use_mesh(mesh, rules):
+        train(model, TrainConfig(**TRAIN), TokenStream(cfg, BATCH, SEQ, 0),
+              ELASTIC_STEPS, state=state, history=hist, **_quiet())
+    return {"plan": (plan.shape, plan.axis_names, plan.n_chips),
+            "start": state.step, "placed": placed,
+            "losses": [h["loss"] for h in hist]}
+
+
+def job_grads(rank, out, arch):
+    """One step's loss and gathered gradients of ``arch``'s smoke config on
+    the (2, 2) mesh, then a 3-step loss trajectory."""
+    from repro_torch.dist.sharding import (gathered, make_mesh, shard_batch,
+                                          use_mesh)
+    from repro_torch.launch.train import shard_model
+    from repro_torch.models.registry import sharding_rules
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.loop import TrainConfig, train
+
+    cfg = smoke_cfg(arch)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    rules = sharding_rules(cfg, 2)
+    model = shard_model(_model(cfg), mesh, rules)
+    stream = TokenStream(cfg, BATCH, SEQ, seed=0)
+    batch = {k: torch.as_tensor(v) for k, v in stream.batch_at(0).items()}
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    with use_mesh(mesh, rules):
+        loss = gathered(model.loss(shard_batch(batch, mesh))[0])
+        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = {k: gathered(g).detach() for k, g in zip(params, grads)}
+        hist = []
+        train(model, TrainConfig(**TRAIN), stream, 3, history=hist,
+              **_quiet())
+    return {"loss": float(loss.detach()), "grads": grads if rank == 0 else None,
+            "losses": [h["loss"] for h in hist]}
+
+
+def moe_layer_inputs(d_model):
+    """The input and the output weights of ``job_moe_layer``, seeded."""
+    rng = np.random.default_rng(5)
+    return (torch.as_tensor(rng.standard_normal((BATCH, SEQ, d_model)),
+                            dtype=torch.float32),
+            torch.as_tensor(rng.standard_normal((BATCH, SEQ, d_model)),
+                            dtype=torch.float32))
+
+
+def moe_layer_grads(p, x, r, cfg, group_tokens, gather=lambda t: t):
+    """y, aux, and the gradients of ``sum(y * r) + aux`` with respect to
+    ``x`` and every parameter of the MoE layer ``p``."""
+    from repro_torch.models import layers as L
+
+    for v in p.parameters():
+        v.requires_grad_(True)
+    y, aux = L.moe(p, x, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                   capacity_factor=cfg.capacity_factor,
+                   group_tokens=group_tokens)
+    y, aux = gather(y), gather(aux)
+    names = [k for k, _ in p.named_parameters()]
+    grads = torch.autograd.grad((y * r).sum() + aux,
+                                [x] + [v for _, v in p.named_parameters()])
+    return {"y": y.detach(), "aux": aux.detach(),
+            "grads": dict(zip(["x"] + names,
+                              (gather(g).detach() for g in grads)))}
+
+
+def job_moe_layer(rank, out):
+    """One MoE layer of qwen2-moe's smoke config on the (2, 2) mesh, its
+    routing groups the batch rows (split as the batch is) and the grouped
+    layout (one group of every token)."""
+    from repro_torch.dist.sharding import (gathered, make_mesh, shard_batch,
+                                          use_mesh)
+    from repro_torch.launch.train import shard_model
+    from repro_torch.models.registry import sharding_rules
+
+    cfg = smoke_cfg("qwen2-moe-a2.7b")
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    rules = sharding_rules(cfg, 2)
+    p = shard_model(_model(cfg), mesh, rules).layers[0].moe
+    x, r = moe_layer_inputs(cfg.d_model)
+    res = {}
+    with use_mesh(mesh, rules):
+        for group_tokens in (False, True):
+            xd = shard_batch({"x": x}, mesh)["x"].requires_grad_(True)
+            res[group_tokens] = moe_layer_grads(p, xd, r, cfg, group_tokens,
+                                                gathered)
+    res["placements"] = {k: tuple(v.placements)
+                         for k, v in p.named_parameters()}
+    return res if rank == 0 else {}
+
+
+def job_launcher(rank, out, ckpt_dir):
+    """The launcher's ``main`` in the 4-rank group: granite and qwen2-moe
+    train 3 steps; falcon-mamba on the mesh raises."""
+    from repro_torch.launch import train as launch_train
+
+    res = {}
+    for arch in ("granite-3-2b", "qwen2-moe-a2.7b"):
+        d = os.path.join(ckpt_dir, arch)
+        model, state, hist = launch_train.main(
+            ["--arch", arch, "--smoke", "--steps", "3", "--batch", "4",
+             "--seq", "16", "--device", "cpu", "--ckpt-dir", d],
+            log_fn=lambda *_: None)
+        res[arch] = {"losses": [h["loss"] for h in hist], "step": state.step,
+                     "mesh": tuple(next(model.parameters()).device_mesh
+                                   .mesh.shape),
+                     "ckpt": sorted(os.listdir(d))}
+    try:
+        launch_train.main(["--arch", "falcon-mamba-7b", "--smoke", "--steps",
+                           "1", "--device", "cpu"], log_fn=lambda *_: None)
+        res["ssm"] = "trained"
+    except NotImplementedError as e:
+        res["ssm"] = str(e)
+    return res
+
+
+def job_compress(rank, out, world):
+    """Three compressed-gradient steps of a linear least-squares model."""
+    from repro_torch.dist.compression import (init_error_buffers,
+                                              make_compressed_grad_fn)
+    from repro_torch.dist.sharding import flat_mesh
+
+    mesh = flat_mesh(world, "data", "cpu")
+    rng = np.random.default_rng(0)
+    X = torch.as_tensor(rng.standard_normal((64, 16)).astype(np.float32))
+    y = X @ torch.arange(16, dtype=torch.float32) * 0.1
+
+    def loss_fn(params, batch):
+        Xb, yb = batch
+        return torch.mean((Xb @ params["w"] + params["b"] - yb) ** 2)
+
+    params = {"w": torch.zeros(16), "b": torch.zeros(())}
+    fn = make_compressed_grad_fn(loss_fn, mesh, "data")
+    errors = init_error_buffers(params, n_shards=world)
+    n = X.shape[0] // world
+    local = (X[rank * n:(rank + 1) * n], y[rank * n:(rank + 1) * n])
+    steps = []
+    for _ in range(3):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        local_loss = loss_fn(leaves, local)
+        local_grads = dict(zip(leaves, torch.autograd.grad(
+            local_loss, list(leaves.values()))))
+        prev = {k: v.clone() for k, v in errors.items()}
+        loss, grads, errors = fn(params, (X, y), errors)
+        steps.append({"local_loss": local_loss.detach(),
+                      "local_grads": local_grads, "prev_errors": prev,
+                      "loss": loss, "grads": grads,
+                      "errors": {k: v.clone() for k, v in errors.items()}})
+        params = {k: params[k] - 0.05 * grads[k] for k in params}
+    try:
+        fn(params, (X, y), init_error_buffers(params, n_shards=world + 1))
+        bad = "no error"
+    except ValueError as e:
+        bad = str(e)
+    return {"steps": steps, "bad": bad}
+
+
+def job_placements(rank, out):
+    """``to_placements`` on a ("pod", "data") mesh: each rank's shard and
+    the ``full_tensor`` reassembly of several specs."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist.sharding import make_mesh, to_placements
+
+    mesh = make_mesh((2, 2), ("pod", "data"), "cpu")
+    x = torch.arange(8 * 6, dtype=torch.float32).reshape(8, 6)
+    res = {"coords": tuple(mesh.get_coordinate())}
+    for spec in ((("pod", "data"), None), (None, "data"), ("data", "pod"),
+                 (("pod",), ("data",))):
+        d = distribute_tensor(x, mesh, to_placements(spec, mesh, 2))
+        res[spec] = {"local": d.to_local().clone(),
+                     "whole": torch.equal(d.full_tensor(), x)}
+    return res
+
+
+JOBS = {"placements": job_placements, "granite": job_granite,
+        "elastic": job_elastic, "grads": job_grads,
+        "moe_layer": job_moe_layer, "launcher": job_launcher,
+        "compress": job_compress}
+
+
+def run(rank, world, store, out, jobs):
+    """Rank ``rank`` of ``world``: start the gloo group on the file store,
+    run each (name, job, kwargs) of ``jobs`` and save its result (or the
+    traceback) as ``<out>/<name>_<rank>.pt``."""
+    torch.set_num_threads(1)
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        for name, job, kwargs in jobs:
+            t0 = time.perf_counter()
+            try:
+                res = JOBS[job](rank, out, **kwargs)
+            except Exception:
+                res = {"error": traceback.format_exc()}
+            res["wall_s"] = time.perf_counter() - t0
+            torch.save(res, os.path.join(out, f"{name}_{rank}.pt"))
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()

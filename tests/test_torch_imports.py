@@ -44,6 +44,23 @@ def test_port_package_is_walked():
     for part in (("kernels", "makespan.py"), ("memo", "engine.py"),
                  ("memo", "store.py"), ("memo", "fingerprint.py"),
                  ("obs", "trace.py"), ("core", "warmstart.py"),
-                 ("launch", "serve.py"), ("launch", "train.py")):
+                 ("launch", "serve.py"), ("launch", "train.py"),
+                 ("launch", "mesh.py"), ("launch", "shardings.py"),
+                 ("dist", "sharding.py"), ("dist", "compression.py"),
+                 ("train", "fault.py")):
         assert os.path.join(PORT, *part) in files
     assert len(files) > 20
+
+
+def test_mesh_rank_processes_import_only_the_port():
+    """The gloo ranks of ``test_torch_mesh_train.py`` run
+    ``_torch_mesh_worker``: it must not load JAX or the reference."""
+    path = os.path.join(HERE, "_torch_mesh_worker.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+            for a in n.names]
+    mods += [n.module for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module]
+    assert not [m for m in mods if _forbidden(m)]
+    assert any(m.startswith("repro_torch") for m in mods)

@@ -339,8 +339,8 @@ def test_checkpoint_restart_resumes_bitwise(tmp_path):
 @pytest.mark.parametrize("arch", [ARCH, "falcon-mamba-7b", "zamba2-1.2b",
                                   "seamless-m4t-medium"])
 def test_launcher_trains_and_resumes_on_cpu(tmp_path, arch):
-    """The launcher trains every family but MoE; 4 steps, a checkpoint
-    and 2 more from it equal 6 steps straight, bitwise."""
+    """The launcher trains every family; 4 steps, a checkpoint and 2 more
+    from it equal 6 steps straight, bitwise."""
     d = str(tmp_path / "ck")
     lines = []
     args = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "4",
@@ -361,6 +361,7 @@ def test_launcher_trains_and_resumes_on_cpu(tmp_path, arch):
     assert any("restored step 4" in line for line in lines)
     for k, p in straight.params.items():
         assert torch.equal(state2.params[k], p), k
-    with pytest.raises(NotImplementedError, match="not ported"):
-        launch_train.main(["--arch", "qwen2-moe-a2.7b", "--smoke",
-                           "--device", "cpu", "--steps", "1"])
+    _, moe_state, moe_hist = launch_train.main(
+        ["--arch", "qwen2-moe-a2.7b", "--smoke", "--device", "cpu",
+         "--steps", "1", "--batch", "2", "--seq", "16"], **quiet)
+    assert moe_state.step == 1 and np.isfinite(moe_hist[0]["loss"])
