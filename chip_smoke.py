@@ -101,7 +101,11 @@ Phases, in order; any failure raises and exits non-zero:
               asserted), each method's wall, each sweep's wall beside
               its rows run one by one, one MAGMA sweep under
               torch.profiler (the device's busy share, device ops per
-              generation and chunk), and the phase's wall
+              generation and chunk), and the phase's wall.  The MAGMA S4
+              sweep runs again split into two shards on the one card
+              (device list [cuda:0, cuda:0], chunks of 3 rounded up to
+              4): every row bitwise its standalone search, one makespan
+              launch per generation, shard and chunk
 
  13. memo     the schedule memo and the Section V-C warm start through
               M3E(memo=ScheduleMemo(MemoStore(<fresh dir under build/>)))
@@ -231,8 +235,23 @@ Phases, in order; any failure raises and exits non-zero:
               with 2 layers (its full depth with AdamW state does not fit
               one card), 2 steps on the mesh and 2 without: finite
               losses, non-zero grad norms, every weight matrix changed,
-              losses equal within MESH_RTOL; no kernel launched; the
-              phase's wall
+              losses equal within MESH_RTOL; phase 15's three trained
+              configurations (zamba2-1.2b B=1 S=512, seamless-m4t-medium
+              B=2 S=1024, falcon-mamba-7b at 4 layers B=1 S=512), their
+              first MESH_FAMILY_STEPS steps on the mesh with phase 15's
+              seed, schedule and stream: losses within MESH_RTOL of
+              phase 15's (bitwise or not, and the grad norms', printed),
+              step ms and its ratio to phase 15's, peak memory; no kernel
+              launched; the phase's wall
+ dry-run      while phases 12 and 13 run, a process of its own on the
+              host's CPU runs repro_torch.launch.dryrun.run_cell on fake
+              tensors over a fake process group: granite-3-2b at phase
+              9's step shape on one rank (its FLOPs, compute and memory
+              terms and traced peak printed beside phase 9's measured
+              step and peak, and beside model_flops) and its train_4k
+              cell on the fake 256-rank (16, 16) mesh (wall, per-rank
+              peak, collective bytes by kind, the roofline's dominant
+              term); both cells must return ok
 
 The counts of every kernel are set to 0 before each main path (the M3E
 searches, the served batch, phases 9-10 together, "train_eval", the
@@ -282,9 +301,7 @@ FLASH_EDGES = [(2, 77, 4, 2, 20, 0, True, True),
                (2, 1, 4, 2, 64, 0, True, False),
                (1, 1, 2, 1, 120, 0, False, False),
                (1, 200, 4, 2, 120, 0, False, False)]
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
-BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 # expf results on the SFU: 16 per clock per SM (CUDA C++ Programming Guide,
 # arithmetic instruction throughput, compute capability 9.0), 132 SMs at
 # the 1,980 MHz boost clock
@@ -299,6 +316,13 @@ EVAL_BATCH, EVAL_SEQ = 1, 8192
 # to 2 layers (its full depth with AdamW state does not fit one card)
 MESH_STEPS, MESH_RTOL = 3, 1e-5
 MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_STEPS = "qwen2-moe-a2.7b", 2, 2
+# ... and phase 15's families (FAMILY_TRAIN), the first 2 steps of each
+MESH_FAMILY_STEPS = 2
+# the dry-run (repro_torch.launch.dryrun), in a process of its own on the
+# host's CPU while phases 12 and 13 run: granite-3-2b at phase 9's step
+# shape on one rank, and its train_4k cell on the fake 256-rank mesh
+DRYRUN_CELLS = (("phase9", (1, 1)), ("train_4k", None))
+DRYRUN_TIMEOUT_S = 600
 # phase 12: the Fig. 9 protocol (benchmarks/fig09_heterogeneous.py:15-19)
 # and Table IV's methods (benchmarks/common.py:24-25)
 FIG9_SETTINGS = (("S2", 16), ("S4", 256))      # setting, bw_sys in GB/s
@@ -307,6 +331,9 @@ DEVICE_METHODS = ("magma", "stdga", "de", "pso", "random")
 HOST_METHODS = ("cmaes", "tbpsa", "a2c", "ppo2", "herald_like", "ai_mt_like")
 COMPARE_SEEDS = (0, 1)
 COMPARE_CHUNK_ROWS = 3       # 4 rows a sweep: the last chunk is partial
+# the sweep also run split into two shards on the one card (device list
+# [cuda:0, cuda:0]; chunks of 3 rounded up to 4 rows, 2 a shard)
+SPLIT_SWEEP = ("magma", "S4")
 # the cut this script takes to finish in half its time limit: the host
 # methods (an RL search at 10K samples takes ~30 s on the card) run one
 # seed; G and the budget are never cut
@@ -367,6 +394,21 @@ FLEET_SKEW = dict(STREAM_TRACE, num_scenarios=24, settings=("S4",), seed=7)
 FLEET_ENGINE_REQUESTS = (("granite-3-2b", 300, 40),
                          ("qwen2-moe-a2.7b", 200, 48),
                          ("falcon-mamba-7b", 354, 32))
+
+
+def hbm_rate():
+    """The card's HBM bytes/s (H100 SXM data sheet), from
+    ``repro_torch.launch.roofline``: imported when first needed, so that
+    ``--stream-ab`` children import another checkout's package."""
+    from repro_torch.launch.roofline import HBM_BW
+    return HBM_BW
+
+
+def bf16_rate():
+    """The card's dense bf16 tensor-core FLOP/s (H100 SXM data sheet),
+    from ``repro_torch.launch.roofline``."""
+    from repro_torch.launch.roofline import PEAK_FLOPS
+    return PEAK_FLOPS
 
 
 def check(cond, msg):
@@ -450,7 +492,7 @@ def makespan_bound_ms(P, A, G):
     clock add per individual)."""
     nbytes = 2 * P * G * 4 + P * A * 4 + P * 4
     ops = P * G * (8 * A + 4)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    by_bytes, by_ops = nbytes / hbm_rate(), ops / F32_OPS_PER_S
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
                                          else "operations")
 
@@ -464,7 +506,7 @@ def ssm_bound_ms(Bt, L, D, N, x_bytes, bc_bytes):
     channel u = dt*x).  The larger of the three times."""
     nbytes = (Bt * L * D * (x_bytes + 8) + D * N * 4
               + 2 * Bt * L * N * bc_bytes + Bt * D * N * 4)
-    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_bytes = nbytes / hbm_rate()
     by_ops = max(Bt * L * D * N / SFU_EXP_PER_S,
                  Bt * L * D * (6 * N + 1) / F32_OPS_PER_S)
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
@@ -507,7 +549,7 @@ def flash_bound_ms(B, S, Hq, Hkv, D, window):
     bf16 tensor-core peak."""
     nbytes = (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * 2
     ops = flash_ops(B, S, Hq, D, window)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    by_bytes, by_ops = nbytes / hbm_rate(), ops / bf16_rate()
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
                                          else "operations")
 
@@ -637,7 +679,7 @@ def train_phase(dev, fa):
     for h in hist:
         rec = dict(h, ms=h["wall_s"] * 1e3,
                    tokens_per_s=h["tokens"] / h["wall_s"],
-                   mfu=flops / h["wall_s"] / BF16_OPS_PER_S)
+                   mfu=flops / h["wall_s"] / bf16_rate())
         records.append(rec)
         peak = ("not measured" if h["peak_bytes"] is None
                 else f"{h['peak_bytes'] / GB:.2f} GiB")
@@ -710,10 +752,12 @@ def train_phase(dev, fa):
     return model, records, restart
 
 
-def mesh_phase(dev, phase9_steps):
+def mesh_phase(dev, phase9_steps, family_train):
     """Phase 18: training on a ("data", "model") device mesh of one rank
     (an NCCL group on a file:// store under build/) through the
-    launcher's mesh function.  Returns the phase's record."""
+    launcher's mesh function, held against phase 9's meshless granite
+    run (``phase9_steps``) and phase 15's family runs (``family_train``,
+    its "train" records).  Returns the phase's record."""
     import shutil
     import tempfile
 
@@ -884,7 +928,9 @@ def mesh_phase(dev, phase9_steps):
         stream_m = TokenStream(cfg_m, TRAIN_BATCH, TRAIN_SEQ, seed=0)
         tc_m = launch_train.train_config(MESH_MOE_STEPS)
         hist_m, hist_p = [], []
-        model, _ = launch_train.train_on_mesh(
+        # the state is dropped before the meshless run: its AdamW moments
+        # would count in that run's peak
+        model, state = launch_train.train_on_mesh(
             cfg_m, mesh, tc_m, stream_m, MESH_MOE_STEPS, device=dev, seed=0,
             history=hist_m, **quiet)
         fresh = get_model(cfg_m, device=dev, generator=torch.Generator(
@@ -892,7 +938,7 @@ def mesh_phase(dev, phase9_steps):
         moved = [not torch.equal(gathered(p), f) for (_, p), f in
                  zip(model.named_parameters(), fresh.parameters())
                  if p.dim() >= 2]
-        del model, fresh
+        del model, state, fresh
         free(dev)
         train(get_model(cfg_m, device=dev, generator=torch.Generator(
             device=dev).manual_seed(0)), tc_m, stream_m, MESH_MOE_STEPS,
@@ -912,6 +958,57 @@ def mesh_phase(dev, phase9_steps):
                   f"(meshless {p['grad_norm']:.6f}); {h['wall_s'] * 1e3:.3f}"
                   f" ms (meshless {p['wall_s'] * 1e3:.3f}), peak "
                   f"{gib(h['peak_bytes'])} (meshless {gib(p['peak_bytes'])})")
+        # the SSM, hybrid and encoder-decoder families, against phase 15's
+        # meshless runs of the same configurations (seed, schedule and
+        # stream), the first MESH_FAMILY_STEPS of their steps
+        out["families"] = {}
+        for arch, steps, B, S, layers in FAMILY_TRAIN:
+            cfg_f = get_config(arch)
+            if layers is not None:
+                cfg_f = cfg_f.replace(num_layers=layers)
+            hist_f = []
+            model, state = launch_train.train_on_mesh(
+                cfg_f, mesh, launch_train.train_config(steps),
+                TokenStream(cfg_f, B, S, seed=0), MESH_FAMILY_STEPS,
+                device=dev, seed=0, history=hist_f, **quiet)
+            del model, state
+            free(dev)
+            plain = family_train[arch]["steps"][:MESH_FAMILY_STEPS]
+            loss_bitwise = same([h["loss"] for h in hist_f],
+                                [p["loss"] for p in plain],
+                                f"{arch} losses")
+            norms = [(h["grad_norm"], p["grad_norm"])
+                     for h, p in zip(hist_f, plain)]
+            rec = {"layers": cfg_f.num_layers, "B": B, "S": S,
+                   "steps": [], "losses_bitwise": loss_bitwise,
+                   "grad_norms_bitwise": all(a == b for a, b in norms),
+                   "grad_norm_max_rel_diff": max(abs(a - b) / abs(b)
+                                                 for a, b in norms)}
+            for h, p in zip(hist_f, plain):
+                ms = h["wall_s"] * 1e3
+                rec["steps"].append({
+                    "step": h["step"], "loss": h["loss"],
+                    "meshless_loss": p["loss"], "grad_norm": h["grad_norm"],
+                    "meshless_grad_norm": p["grad_norm"], "ms": ms,
+                    "meshless_ms": p["ms"], "ratio": ms / p["ms"],
+                    "tokens_per_s": h["tokens"] / h["wall_s"],
+                    "peak_bytes": h["peak_bytes"],
+                    "meshless_peak_bytes": p["peak_bytes"]})
+                print(f"[mesh] {arch} ({cfg_f.num_layers} layers, B={B} "
+                      f"S={S}) step {h['step']}: loss {h['loss']:.6f} "
+                      f"(phase 15 {p['loss']:.6f}) grad norm "
+                      f"{h['grad_norm']:.6f} (phase 15 {p['grad_norm']:.6f});"
+                      f" {ms:.3f} ms (phase 15 {p['ms']:.3f}, "
+                      f"{ms / p['ms']:.3f}x), peak {gib(h['peak_bytes'])} "
+                      f"(phase 15 {gib(p['peak_bytes'])})")
+            losses = ("bitwise" if loss_bitwise
+                      else f"within rtol {MESH_RTOL}")
+            grad_norms = ("bitwise" if rec["grad_norms_bitwise"] else
+                          f"max rel diff {rec['grad_norm_max_rel_diff']:.3e}")
+            print(f"[mesh] {arch} on the 1-rank mesh against phase 15: "
+                  f"losses {losses}, grad norms {grad_norms}")
+            out["families"][arch] = rec
+
         out["moe"] = {"layers": MESH_MOE_LAYERS,
                       "losses": [h["loss"] for h in hist_m],
                       "meshless_losses": [h["loss"] for h in hist_p],
@@ -1167,6 +1264,7 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
 
     best = {label: {} for label in labels}
     method_wall, sweeps, method_launches = {}, [], {}
+    two_shard = None
     for method in DEVICE_METHODS:
         strategy = get_strategy(method)
         generations = plan_generations(budget, strategy.ask_size)[0]
@@ -1200,13 +1298,52 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
                   f"{generations * len(alone)}")
             method_launches[method] += launched + alone_launched
             for (s, k), one in alone.items():
-                check(res.best_fitness[s, k] == one.best_fitness
-                      and np.array_equal(res.best_accel[s, k], one.best_accel)
-                      and np.array_equal(res.best_prio[s, k], one.best_prio)
-                      and np.array_equal(res.history_best[s, k],
-                                         one.history_best),
+                check(same_row(res, s, k, one),
                       f"compare {method} {setting}: sweep row [{s}, {k}] "
                       "differs from the standalone run_strategy")
+            if (method, setting) == SPLIT_SWEEP:
+                # the same sweep split into two shards on the one card
+                before = mk.LAUNCHES["makespan"]
+                t0 = time.perf_counter()
+                split = run_sweep(
+                    [fits[lab] for lab in rows], budget=budget,
+                    seeds=COMPARE_SEEDS, strategy=strategy, device=dev,
+                    sweep=SweepConfig(chunk_rows=COMPARE_CHUNK_ROWS,
+                                      devices=(dev, dev)))
+                split_wall = time.perf_counter() - t0
+                split_launched = mk.LAUNCHES["makespan"] - before
+                shards = split.num_devices * split.num_chunks
+                check(split.num_devices == 2
+                      and split_launched == generations * shards,
+                      f"compare two-shard {method} {setting}: "
+                      f"{split_launched} makespan launches on "
+                      f"{split.num_devices} shards in {split.num_chunks} "
+                      f"chunks, want one per generation, shard and chunk "
+                      f"({generations * shards})")
+                for (s, k), one in alone.items():
+                    check(same_row(split, s, k, one),
+                          f"compare two-shard {method} {setting}: row "
+                          f"[{s}, {k}] differs from the standalone "
+                          "run_strategy")
+                method_launches[method] += split_launched
+                two_shard = {"method": method, "setting": setting,
+                             "devices": [str(dev)] * 2, "rows": split.rows,
+                             "chunk_rows": split.chunk_rows,
+                             "chunks": split.num_chunks,
+                             "padded_rows": split.padded_rows,
+                             "launches": split_launched,
+                             "launches_per_generation_shard_chunk":
+                             split_launched / (generations * shards),
+                             "wall_s": split_wall,
+                             "one_shard_wall_s": sweep_wall}
+                print(f"[compare] {method} {setting} split into 2 shards on "
+                      f"{dev} (chunks of {split.chunk_rows}, {split.rows} "
+                      f"rows, {split.num_chunks} chunk(s)): makespan "
+                      f"launches {split_launched} = {generations} "
+                      f"generations x 2 shards x {split.num_chunks} "
+                      f"chunk(s); wall {split_wall:.4f} s (one shard "
+                      f"{sweep_wall:.4f} s); rows == standalone "
+                      "run_strategy, bitwise")
             for s, lab in enumerate(rows):
                 best[lab][method] = [float(x) for x in res.best_fitness[s]]
                 for k in range(len(COMPARE_SEEDS)):
@@ -1299,7 +1436,16 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
             "profile_launches": profile_launches,
             "seeds": {"device": list(COMPARE_SEEDS),
                       "host": list(HOST_SEEDS)},
-            "profile": profile, "phase_wall_s": total}
+            "profile": profile, "two_shard": two_shard,
+            "phase_wall_s": total}
+
+
+def same_row(res, s, k, one):
+    """Whether sweep row [s, k] of ``res`` is bitwise the search ``one``."""
+    return (res.best_fitness[s, k] == one.best_fitness
+            and np.array_equal(res.best_accel[s, k], one.best_accel)
+            and np.array_equal(res.best_prio[s, k], one.best_prio)
+            and np.array_equal(res.history_best[s, k], one.history_best))
 
 
 def profile_sweep(dev, fits, labels, budget):
@@ -1933,7 +2079,7 @@ def launch_phase(dev, mk, ssm, fa, full=True):
     out["tenants"] = {}
     for t in tenants:
         w = walls[t.name]
-        bound = weight_bytes[t.name] / HBM_BYTES_PER_S * 1e3
+        bound = weight_bytes[t.name] / hbm_rate() * 1e3
         row = {"prompts": [j.seq for j in prefills if j.tenant == t.name],
                "prefill_s": w["prefill"],
                "decode_ms_median": float(np.median(w["decode"])) * 1e3,
@@ -1941,7 +2087,7 @@ def launch_phase(dev, mk, ssm, fa, full=True):
                "decoded": len(w["decode"]), "bound_ms": bound}
         if t.cfg.n_experts:
             row["routed_bound_ms"] = (count_active_params(t.cfg) * 2
-                                      / HBM_BYTES_PER_S * 1e3)
+                                      / hbm_rate() * 1e3)
         out["tenants"][t.name] = row
         print(f"[launch] {t.name}: prefill of "
               + ", ".join(f"{p} tokens {s * 1e3:.3f} ms"
@@ -2130,8 +2276,8 @@ def families_phase(dev, ssm, fa):
        falcon-mamba-7b at full width with 4 layers through
        ``train.loop.train``.  Full depth does not fit one card: 7.0 B bf16
        parameters and gradients plus f32 AdamW moments need ~84 GB before
-       activations; it waits for the sharded trainer (ROADMAP Queue 1
-       item 12).  Losses finite, grad norms non-zero, every weight matrix
+       activations; ``repro_torch.launch.dryrun`` reports its per-rank
+       memory on a mesh.  Losses finite, grad norms non-zero, every weight matrix
        changed, no kernel launched.
     2. Evaluation under ``torch.no_grad()`` on ``batch_at(10_000)``:
        falcon-mamba-7b at full depth (one scan launch a layer), the
@@ -2165,10 +2311,11 @@ def families_phase(dev, ssm, fa):
         before = launches()
         t0 = time.perf_counter()
         if layers is None:
-            model, _, hist = launch_train.main(
+            model, state, hist = launch_train.main(
                 ["--arch", arch, "--steps", str(steps), "--batch", str(B),
                  "--seq", str(S), "--device", str(dev), "--seed", "0"],
                 log_fn=lambda *_: None)
+            del state    # its moments would count in the next run's peak
             cfg = model.cfg
         else:
             cfg = get_config(arch).replace(num_layers=layers)
@@ -3046,6 +3193,74 @@ def families_timing(ssm, fa, flash_ref, scan_inputs, flash_inputs_z):
     return out
 
 
+def dryrun_cells():
+    """The dry-run's cells through ``repro_torch.launch.dryrun.run_cell``
+    (fake tensors, a fake process group; the host's CPU): TRAIN_ARCH at
+    phase 9's step shape (B=TRAIN_BATCH, S=TRAIN_SEQ) on one rank, and its
+    train_4k cell on the production (16, 16) mesh."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import SHAPES, ShapeConfig
+    out = {"torch": torch.__version__}
+    for name, mesh in DRYRUN_CELLS:
+        shape = (ShapeConfig(name, TRAIN_SEQ, TRAIN_BATCH, "train")
+                 if name not in SHAPES else None)
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(TRAIN_ARCH, name, shape=shape,
+                              mesh_shape=mesh, verbose=False)
+        rec["wall_s"] = time.perf_counter() - t0
+        out[name] = rec
+    return out
+
+
+def dryrun_main(path):
+    """``python3 chip_smoke.py --dryrun PATH``: :func:`dryrun_cells`,
+    written to PATH as JSON."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    out = dryrun_cells()
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def dryrun_report(out, phase9_steps):
+    """Print the dry-run's cells: phase 9's step shape beside phase 9's
+    measured step and ``model_flops``, and the 256-rank cell's wall,
+    per-rank peak and collective bytes.  Fails when a cell failed."""
+    step, cell = out["phase9"], out["train_4k"]
+    for name in ("phase9", "train_4k"):
+        check(out[name]["ok"], f"dry-run {TRAIN_ARCH} {name} failed: "
+                               f"{out[name].get('error')}\n"
+                               f"{out[name].get('traceback', '')}")
+    steady = [p["ms"] for p in phase9_steps[1:]]
+    measured_ms = float(np.median(steady))
+    roof = step["roofline"]
+    print(f"[dryrun] torch {out['torch']}: the fake process group, "
+          "FakeTensorMode, MemTracker, FlopCounterMode and CommDebugMode ran")
+    print(f"[dryrun] {TRAIN_ARCH} at phase 9's step (B={TRAIN_BATCH}, "
+          f"S={TRAIN_SEQ}, one rank): FLOPs {step['flops_global']:.6e} "
+          f"(model_flops {step['model_flops']:.6e}, ratio "
+          f"{step['flops_global'] / step['model_flops']:.4f}); compute term "
+          f"{roof['compute_s'] * 1e3:.3f} ms, memory term "
+          f"{roof['memory_s'] * 1e3:.3f} ms (HBM bytes "
+          f"{step['hbm_bytes_per_chip']:.6e}); phase 9's measured step "
+          f"{measured_ms:.3f} ms (median of steps 2-{len(phase9_steps)}), "
+          f"{roof['compute_s'] * 1e3 / measured_ms:.4f} of it at the "
+          f"compute term; peak {step['mem_peak_gib']:.2f} GiB traced "
+          f"against {max(p['peak_bytes'] for p in phase9_steps) / GB:.2f} "
+          f"GiB measured; trace wall {step['wall_s']:.3f} s")
+    print(f"[dryrun] {TRAIN_ARCH} train_4k on the fake {cell['mesh']} mesh "
+          f"({cell['chips']} ranks): wall {cell['wall_s']:.3f} s; per rank: "
+          f"peak {cell['mem_peak_gib']:.2f} GiB (state "
+          f"{cell['mem_params_gib'] + cell['mem_grads_gib'] + cell['mem_opt_gib']:.3f}"
+          f" GiB), collective bytes {cell['collective_bytes_per_chip']:.6e} "
+          f"({', '.join(f'{k} {v:.3e}' for k, v in cell['collectives'].items())}"
+          f"), roofline dominant {cell['roofline']['dominant']}, fraction "
+          f"{cell['roofline']['roofline_fraction']:.3e}")
+    return {"phase9_shape": step, "train_4k": cell,
+            "phase9_measured_ms": measured_ms}
+
+
 def main():
     import torch
 
@@ -3671,7 +3886,7 @@ def main():
     # -- 18. mesh: training on a one-rank device mesh ---------------------
     free(dev)
     reset_counts()
-    mesh_out = mesh_phase(dev, train_steps)
+    mesh_out = mesh_phase(dev, train_steps, families_out["train"])
     mesh_counts = {"makespan": mk.LAUNCHES["makespan"],
                    "ssm_scan": ssm.LAUNCHES["ssm_scan"],
                    "flash_attention": fa.LAUNCHES["flash_attention"]}
@@ -3681,32 +3896,50 @@ def main():
           "products)")
     print(f"[mesh] mesh path launches: {mesh_counts}")
 
-    # -- 12. compare: the Fig. 9 grid, every Table IV method -------------
-    free(dev)
-    reset_counts()
-    compared = compare_phase(dev, mk)
-    compare_counts = {"makespan": mk.LAUNCHES["makespan"],
-                      "ssm_scan": ssm.LAUNCHES["ssm_scan"],
-                      "flash_attention": fa.LAUNCHES["flash_attention"]}
-    check(compare_counts["ssm_scan"] == 0
-          and compare_counts["flash_attention"] == 0
-          and compare_counts["makespan"] == compared["launches"] > 0,
-          f"compare launches {compare_counts}: want the makespan kernel "
-          f"{compared['launches']} times (the phase's parts) and no other")
-    print(f"[compare] compare path launches: {compare_counts}")
+    # -- the dry-run, in a process of its own on the host's CPU ----------
+    dry_path = os.path.join(ROOT, "build", "dryrun.json")
+    if os.path.exists(dry_path):
+        os.remove(dry_path)
+    dry_proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--dryrun", dry_path], cwd=ROOT)
+    try:
+        # -- 12. compare: the Fig. 9 grid, every Table IV method ---------
+        free(dev)
+        reset_counts()
+        compared = compare_phase(dev, mk)
+        compare_counts = {"makespan": mk.LAUNCHES["makespan"],
+                          "ssm_scan": ssm.LAUNCHES["ssm_scan"],
+                          "flash_attention": fa.LAUNCHES["flash_attention"]}
+        check(compare_counts["ssm_scan"] == 0
+              and compare_counts["flash_attention"] == 0
+              and compare_counts["makespan"] == compared["launches"] > 0,
+              f"compare launches {compare_counts}: want the makespan kernel "
+              f"{compared['launches']} times (the phase's parts) and no other")
+        print(f"[compare] compare path launches: {compare_counts}")
 
-    # -- 13. memo: exact replay, memoized sweeps, warm starts, Table V ----
-    reset_counts()
-    memo_out = memo_phase(dev, mk)
-    memo_counts = {"makespan": mk.LAUNCHES["makespan"],
-                   "ssm_scan": ssm.LAUNCHES["ssm_scan"],
-                   "flash_attention": fa.LAUNCHES["flash_attention"]}
-    check(memo_counts["ssm_scan"] == 0
-          and memo_counts["flash_attention"] == 0
-          and memo_counts["makespan"] > 0,
-          f"memo launches {memo_counts}: want the makespan kernel and no "
-          "other")
-    print(f"[memo] memo path launches: {memo_counts}")
+        # -- 13. memo: exact replay, memoized sweeps, warm starts, Table V ----
+        reset_counts()
+        memo_out = memo_phase(dev, mk)
+        memo_counts = {"makespan": mk.LAUNCHES["makespan"],
+                       "ssm_scan": ssm.LAUNCHES["ssm_scan"],
+                       "flash_attention": fa.LAUNCHES["flash_attention"]}
+        check(memo_counts["ssm_scan"] == 0
+              and memo_counts["flash_attention"] == 0
+              and memo_counts["makespan"] > 0,
+              f"memo launches {memo_counts}: want the makespan kernel and no "
+              "other")
+        print(f"[memo] memo path launches: {memo_counts}")
+
+        # the dry-run's cells, joined after phases 12 and 13
+        dry_proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if dry_proc.poll() is None:
+            dry_proc.kill()
+            dry_proc.wait()
+    check(dry_proc.returncode == 0, f"the dry-run process exited "
+                                    f"{dry_proc.returncode}")
+    with open(dry_path) as f:
+        dryrun_out = dryrun_report(json.load(f), train_steps)
 
     # -- 14, its end: the decode probe again, one profiled MoE token -----
     free(dev)
@@ -3812,7 +4045,8 @@ def main():
         "library_ms_danube": dt_["library_ms"], "shape_danube": dt_["shape"],
         "ptxas": ptxas_json(ptxas["flash_attention"]),
         "train": {"steps": train_steps, "restart": restart,
-                  "profile": train_profile, "mesh": mesh_out},
+                  "profile": train_profile, "mesh": mesh_out,
+                  "dryrun": dryrun_out},
         "eval": evals, "ok": True,
     }]
     print(f"[device] {smi}")
@@ -3826,4 +4060,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--stream-ab"]:
         sys.exit(stream_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dryrun"]:
+        sys.exit(dryrun_main(sys.argv[2]))
     sys.exit(main())

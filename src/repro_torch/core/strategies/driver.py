@@ -59,16 +59,12 @@ def row_eval_fn(strategy: SearchStrategy, params: FitnessParams,
     return eval_fn
 
 
-def scan_strategy(strategy: SearchStrategy, state, eval_fn, group_size: int,
-                  generations: int, evolve_last: bool):
-    """Run ``generations`` ask -> eval -> tell steps over the state's R
-    rows on their device.
-
-    Returns ``(best_fit (R,), best_accel (R, G), best_prio (R, G),
-    history (R, generations), state)``, all on the device.  For a
-    multi-objective strategy ``eval_fn`` returns an (R, P, M) matrix:
-    ``tell`` takes all of it and the anytime best tracks column 0.
-    """
+def scan_steps(strategy: SearchStrategy, state, eval_fn, group_size: int,
+               generations: int, evolve_last: bool):
+    """:func:`scan_strategy` as a generator: it yields once each
+    generation has been issued and returns (``StopIteration.value``) what
+    ``scan_strategy`` returns, so one thread can interleave the loops of
+    several row shards generation by generation (:func:`run_interleaved`)."""
     mo = getattr(strategy, "multi_objective", False)
     state, accel, prio = strategy.ask(state)
     R, dev = accel.shape[0], accel.device
@@ -90,7 +86,37 @@ def scan_strategy(strategy: SearchStrategy, state, eval_fn, group_size: int,
         hist[:, g] = bf
         if g + 1 < generations or evolve_last or mo:
             state = strategy.tell(state, fit)
+        yield
     return bf, ba, bp, hist, state
+
+
+def run_interleaved(loops) -> list:
+    """Drive generators such as :func:`scan_steps` one step each in turn
+    until all have returned; their return values, in order."""
+    loops = list(loops)
+    results, live = [None] * len(loops), list(range(len(loops)))
+    while live:
+        for j in list(live):
+            try:
+                next(loops[j])
+            except StopIteration as stop:
+                results[j] = stop.value
+                live.remove(j)
+    return results
+
+
+def scan_strategy(strategy: SearchStrategy, state, eval_fn, group_size: int,
+                  generations: int, evolve_last: bool):
+    """Run ``generations`` ask -> eval -> tell steps over the state's R
+    rows on their device.
+
+    Returns ``(best_fit (R,), best_accel (R, G), best_prio (R, G),
+    history (R, generations), state)``, all on the device.  For a
+    multi-objective strategy ``eval_fn`` returns an (R, P, M) matrix:
+    ``tell`` takes all of it and the anytime best tracks column 0.
+    """
+    return run_interleaved([scan_steps(strategy, state, eval_fn, group_size,
+                                       generations, evolve_last)])[0]
 
 
 def _run_loop(strategy: SearchStrategy, state, eval_fn, generations: int,

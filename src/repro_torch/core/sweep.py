@@ -1,5 +1,5 @@
 """Scenario sweeps — (strategy, scenario x seed) search grids as batched
-rows on one card, streamed in chunks.
+rows, sharded over cards and streamed in chunks.
 
 The paper's headline experiments (Fig. 8/9/11/13/17, Table IV) are grids
 of many independent searches: S stacked scenario tables (same ``(G, A)``,
@@ -15,17 +15,25 @@ axis for the comparison figures.  Any **device-resident**
      generation and chunk, where R sequential searches would issue them R
      times.  Each row keeps its own generator, seeded with its seed, and
      draws its slice of every random tensor from it;
-  2. grids larger than ``chunk_rows`` stream through in chunks; chunk
-     i+1's tables are copied to the card from pinned memory on a side
-     stream while chunk i computes.
+  2. with several devices each chunk's rows are split into contiguous
+     shards, one a device (the rows ``shard_map`` would give it in the
+     reference), each with its tables, seeds, generators and warm starts
+     on its device.  One thread issues the shards' loops interleaved,
+     one generation of each in turn, with no sync between them, and the
+     results are gathered to the host in row order.  Rows carry no
+     collective;
+  3. grids larger than ``chunk_rows`` stream through in chunks; chunk
+     i+1's tables are copied to the cards from pinned memory on a side
+     stream a card while chunk i computes.
 
 Rows are padded (by repeating the last real row: its tables, and a
 generator of its own seeded with its seed) so every chunk has the same
-shape, and padding is sliced off before results reshape back to
-``(S, K)``.  Every row is bitwise a standalone ``run_strategy`` with the
-same scenario and seed, whatever the chunking: nothing in the loop mixes
-rows, and the makespan kernel gives an individual's makespan from its own
-queues and its row's ``bw_sys`` only.
+shape and a multiple of the device count of rows, and padding is sliced
+off before results reshape back to ``(S, K)``.  Every row is bitwise a
+standalone ``run_strategy`` with the same scenario and seed, whatever the
+chunking or the device count: nothing in the loop mixes rows, and the
+makespan kernel gives an individual's makespan from its own queues and
+its row's ``bw_sys`` only, whatever the population size.
 
 ``run_sweep(memo=...)`` records every solved row in a
 ``repro_torch.memo.ScheduleMemo`` (the schedule and, for strategies with
@@ -42,14 +50,17 @@ read-back, a synchronisation by nature, runs after the guarded region.
 ``SweepConfig(obs=...)`` emits one ``sweep.chunk`` span per chunk on the
 process tracer (``repro_torch.obs.get_tracer``).  Neither changes a row.
 
-Not ported yet: sharding rows over several cards (ROADMAP Queue 1 item
-12); asking for it with several cards visible raises.
+The devices are every visible card (``cuda:0`` .. ``cuda:n-1``) for
+``device="cuda"``, the one device otherwise, or the explicit list
+``SweepConfig(devices=...)``; ``max_devices`` caps their number.  A list
+may name one device several times (two shards on one card, or on the
+CPU): that is how the split is tested without several cards.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,8 +72,9 @@ from repro_torch.core.fitness import (FitnessFn, FitnessParams,
 from repro_torch.core.magma import BatchSearchResult, MagmaConfig
 from repro_torch.core.strategies import (MagmaStrategy, SearchStrategy,
                                          WarmStart, available, get_strategy,
-                                         plan_generations, scan_strategy)
-from repro_torch.core.strategies.driver import row_eval_fn
+                                         plan_generations)
+from repro_torch.core.strategies.driver import (row_eval_fn,
+                                                run_interleaved, scan_steps)
 from repro_torch.lint.runtime import transfer_sanitizer
 from repro_torch.obs import NULL_TRACER, as_obs_config, get_tracer
 
@@ -72,10 +84,13 @@ class SweepConfig:
     """How a scenario grid is partitioned over time.
 
     chunk_rows     max (scenario, seed) rows per chunk; None runs the
-                   whole grid as one chunk.
-    max_devices    cards to shard rows over (None: one).  More than one
-                   with several cards visible raises: sharding is ROADMAP
-                   Queue 1 item 12.
+                   whole grid as one chunk.  Rounded up to a multiple of
+                   the device count, so every shard is dense.
+    max_devices    shard rows over at most this many devices (None: all
+                   of ``devices``)
+    devices        the devices to shard over, in shard order (None: every
+                   visible card for a ``cuda`` device without an index,
+                   else the one device)
     transfer_guard run each chunk's copies and generation loop under
                    ``repro_torch.lint.runtime.transfer_sanitizer``: a
                    synchronisation inside them raises (the read-back after
@@ -87,8 +102,46 @@ class SweepConfig:
     """
     chunk_rows: Optional[int] = None
     max_devices: Optional[int] = None
+    devices: Optional[Tuple[Union[str, torch.device], ...]] = None
     transfer_guard: bool = False
     obs: object = None
+
+
+def shard_devices(max_devices: Optional[int],
+                  device: Union[str, torch.device],
+                  devices: Optional[Sequence] = None
+                  ) -> Tuple[torch.device, ...]:
+    """The devices rows shard over: ``devices`` when given, else every
+    visible card (``cuda:0`` .. ``cuda:n-1``) for a ``cuda`` device
+    without an index, else ``device`` itself; at most ``max_devices`` of
+    them (None: all)."""
+    device = torch.device(device)
+    if devices is None:
+        if device.type == "cuda" and device.index is None:
+            devices = [torch.device("cuda", i)
+                       for i in range(max(torch.cuda.device_count(), 1))]
+        else:
+            devices = [device]
+    devices = tuple(torch.device(d) for d in devices)
+    if not devices:
+        raise ValueError("shard over at least one device")
+    n = len(devices) if max_devices is None else max(1, min(max_devices,
+                                                             len(devices)))
+    return devices[:n]
+
+
+def split_rows(tensors: Sequence[torch.Tensor], n: int) -> List[tuple]:
+    """Each tensor's rows in ``n`` contiguous equal parts: one tuple of
+    parts a shard."""
+    return list(zip(*(torch.chunk(x, n) for x in tensors))) if tensors \
+        else [()] * n
+
+
+def host_rows(shard_outs: Sequence[tuple]) -> Tuple[np.ndarray, ...]:
+    """Per-shard result tuples (each on its device) read back, one copy a
+    shard, and joined in row order."""
+    parts = [to_host(*out) for out in shard_outs]
+    return tuple(np.concatenate(col) for col in zip(*parts))
 
 
 @dataclasses.dataclass
@@ -115,25 +168,26 @@ class SweepResult(BatchSearchResult):
                 for w in self.chunk_wall_s]
 
 
-def _row_search(seeds: Sequence[int], params: FitnessParams,
-                strategy: SearchStrategy, generations: int,
-                evolve_last: bool, group_size: int,
-                objective: Optional[ObjectiveSpec], device,
-                keep_population: bool = False,
-                warm: Optional[WarmStart] = None):
+def _row_steps(seeds: Sequence[int], params: FitnessParams,
+               strategy: SearchStrategy, generations: int,
+               evolve_last: bool, group_size: int,
+               objective: Optional[ObjectiveSpec], device,
+               keep_population: bool = False,
+               warm: Optional[WarmStart] = None):
     """R (scenario, seed) rows on ``device`` (``params`` stacked there) --
     the trace of ``run_strategy``: seed each row's generator, init, run
-    the shared loop.  Returns ``(best_fit (R,), best_accel (R, G),
-    best_prio (R, G), history (R, T))`` on the device, and with
-    ``keep_population`` also the converged ``(pop_accel (R, P, G),
-    pop_prio (R, P, G))``.  ``warm`` is a per-row ``WarmStart`` (leading
-    R, on the device) seeding each row's initial population in ``init``;
-    neither option changes the search a row runs."""
+    the shared loop -- as a generator that yields once a generation is
+    issued.  Returns ``(best_fit (R,), best_accel (R, G), best_prio (R,
+    G), history (R, T))`` on the device, and with ``keep_population``
+    also the converged ``(pop_accel (R, P, G), pop_prio (R, P, G))``.
+    ``warm`` is a per-row ``WarmStart`` (leading R, on the device)
+    seeding each row's initial population in ``init``; neither option
+    changes the search a row runs."""
     eval_fn = row_eval_fn(strategy, params, objective)
     state = strategy.init(row_generators(seeds, device), params,
                           init_population=warm)
-    out = scan_strategy(strategy, state, eval_fn, group_size, generations,
-                        evolve_last)
+    out = yield from scan_steps(strategy, state, eval_fn, group_size,
+                                generations, evolve_last)
     if keep_population:
         pop = strategy.population(out[4])
         return out[:4] + (pop.accel, pop.prio)
@@ -142,32 +196,36 @@ def _row_search(seeds: Sequence[int], params: FitnessParams,
 
 def row_executable(strategy: SearchStrategy, generations: int,
                    evolve_last: bool, group_size: int, objective,
-                   num_devices: int = 1,
-                   device: Union[str, torch.device] = "cuda",
+                   devices: Sequence[Union[str, torch.device]] = ("cuda",),
                    keep_population: bool = False):
-    """(row-batch fn, target device): ``fn(seeds (N,), params with leading
-    N on the target, warm=None)`` -> per-row results on the device,
-    without a sync.  The function ``run_sweep`` runs each chunk through.
+    """(row-batch fn, devices): ``fn(seeds (N,), shards, warm=None)``,
+    where ``shards`` holds one ``FitnessParams`` a device (the rows split
+    contiguously, ``N / len(devices)`` each, on that device) and ``warm``
+    likewise one ``WarmStart`` a device or None, returns one tuple of
+    per-row results a shard, on its device, without a sync.  The shards'
+    generation loops are issued from this thread, one generation of each
+    in turn.  The function ``run_sweep`` runs each chunk through.
     ``keep_population`` appends the converged populations to the
-    outputs; ``warm`` (a ``WarmStart`` with leading N on the target)
-    seeds each row."""
+    outputs; ``warm`` seeds each row."""
     objective = as_objective_spec(objective)
     if getattr(strategy, "multi_objective", False) and objective is None:
         raise ValueError(
             f"strategy {strategy.name!r} is multi_objective and needs a "
             "static ObjectiveSpec shared by every row; the dynamic "
             "per-row objective_code select is scalar-only")
-    if num_devices > 1:
-        raise NotImplementedError(
-            f"sharding sweep rows over {num_devices} cards is ROADMAP "
-            "Queue 1 item 12; run with max_devices=1")
-    target = torch.device(device)
+    devices = tuple(torch.device(d) for d in devices)
 
-    def fn(seeds, params, warm=None):
-        return _row_search(seeds, params, strategy, generations,
-                           evolve_last, group_size, objective, target,
-                           keep_population, warm)
-    return fn, target
+    def fn(seeds, shards, warm=None):
+        n = len(devices)
+        seeds = np.asarray(seeds)
+        per = seeds.shape[0] // n
+        return run_interleaved(
+            _row_steps(seeds[d * per:(d + 1) * per], shards[d], strategy,
+                       generations, evolve_last, group_size, objective,
+                       devices[d], keep_population,
+                       None if warm is None else warm[d])
+            for d in range(n))
+    return fn, devices
 
 
 def _flatten_grid(params: FitnessParams, seeds: np.ndarray):
@@ -249,12 +307,6 @@ class RowsResult:
     chunk_wall_s: List[float] = dataclasses.field(default_factory=list)
 
 
-def _num_devices(sweep: SweepConfig, device: torch.device) -> int:
-    visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    want = 1 if sweep.max_devices is None else max(1, sweep.max_devices)
-    return min(want, max(visible, 1))
-
-
 def run_rows(rows_params: FitnessParams, rows_seeds, *,
              strategy: SearchStrategy, generations: int, evolve_last: bool,
              objective: Optional[ObjectiveSpec] = None,
@@ -287,39 +339,44 @@ def run_rows(rows_params: FitnessParams, rows_seeds, *,
     rows_seeds = np.asarray(rows_seeds, dtype=np.int64)
     N = int(rows_seeds.shape[0])
     G = int(rows_params.lat.shape[-2])
-    ndev = _num_devices(sweep, device)
+    # never more shards than real rows
+    devices = shard_devices(sweep.max_devices, device, sweep.devices)[:N]
+    ndev = len(devices)
     warm = _host_warm(warm, N)
 
     chunk_rows = N if sweep.chunk_rows is None else max(1, sweep.chunk_rows)
     chunk_rows = min(chunk_rows, N)
+    chunk_rows = -(-chunk_rows // ndev) * ndev        # dense shards
     n_chunks = -(-N // chunk_rows)
     padded = n_chunks * chunk_rows   # the last partial chunk is padded
     rows_params, rows_seeds, warm = _pad_rows(rows_params, rows_seeds,
                                               padded, warm)
     keep_pop = memo is not None and strategy.supports_init_population
-    fn, target = row_executable(strategy, generations, evolve_last, G,
-                                objective, ndev, device,
-                                keep_population=keep_pop)
-    # the tensors each chunk copies to the target: the tables, then the
+    fn, _ = row_executable(strategy, generations, evolve_last, G, objective,
+                           devices, keep_population=keep_pop)
+    # the tensors each chunk copies to the devices: the tables, then the
     # warm starts' fields
     host = tuple(rows_params) + (() if warm is None else tuple(warm))
     n_params = len(rows_params)
 
-    cuda = target.type == "cuda"
-    side = torch.cuda.Stream(target) if cuda else None
+    cuda = devices[0].type == "cuda"
+    sides = {d: torch.cuda.Stream(d) for d in set(devices)} if cuda else {}
     if cuda:     # pinned host rows: the copies below run asynchronously
         host = tuple(x.pin_memory() for x in host)
 
     def put_chunk(i):
-        """Chunk i's tensors on the target; on a card, copied on the side
-        stream (an event marks the copy's end)."""
+        """Chunk i's tensors, one (tensors, copy-done event) a shard on its
+        device; on a card, copied on that card's side stream."""
         sl = slice(i * chunk_rows, (i + 1) * chunk_rows)
+        shards = split_rows(tuple(x[sl] for x in host), ndev)
         if not cuda:
-            return tuple(x[sl] for x in host), None
-        with torch.cuda.stream(side):
-            xs = tuple(x[sl].to(target, non_blocking=True) for x in host)
-            done = side.record_event()
-        return xs, done
+            return [(xs, None) for xs in shards]
+        out = []
+        for d, xs in zip(devices, shards):
+            with torch.cuda.stream(sides[d]):
+                xs = tuple(x.to(d, non_blocking=True) for x in xs)
+                out.append((xs, sides[d].record_event()))
+        return out
 
     tracer = (get_tracer() if as_obs_config(sweep.obs).enabled
               else NULL_TRACER)
@@ -334,20 +391,21 @@ def run_rows(rows_params: FitnessParams, rows_seeds, *,
         with tracer.span("sweep.chunk", chunk=i, rows=chunk_rows,
                          devices=ndev):
             with transfer_sanitizer(guard):
-                xs, done = buf
-                if done is not None:
-                    stream = torch.cuda.current_stream(target)
-                    stream.wait_event(done)
-                    for x in xs:
-                        x.record_stream(stream)
+                for d, (xs, done) in zip(devices, buf):
+                    if done is not None:
+                        stream = torch.cuda.current_stream(d)
+                        stream.wait_event(done)
+                        for x in xs:
+                            x.record_stream(stream)
                 out = fn(rows_seeds[i * chunk_rows:(i + 1) * chunk_rows],
-                         FitnessParams(*xs[:n_params]),
-                         None if warm is None else WarmStart(*xs[n_params:]))
+                         [FitnessParams(*xs[:n_params]) for xs, _ in buf],
+                         None if warm is None else
+                         [WarmStart(*xs[n_params:]) for xs, _ in buf])
                 # the next chunk's copy overlaps this chunk's generations
                 buf = put_chunk(i + 1) if i + 1 < n_chunks else None
-            # the chunk's results in one copy: a synchronisation, so
-            # outside the guard
-            outs.append(to_host(*out))
+            # the chunk's results, one copy a shard: a synchronisation,
+            # so outside the guard
+            outs.append(host_rows(out))
         walls.append(time.perf_counter() - tc)
     wall = time.perf_counter() - t0
 

@@ -17,8 +17,10 @@ those names onto the axes of a ``torch.distributed.device_mesh.DeviceMesh``:
     size is not divisible by its mesh-axes product replicates (when the
     shape is known).  Trailing ``None`` entries are trimmed.
   - ``to_placements`` turns such a per-tensor-dim spec into DTensor's
-    per-mesh-dim list of ``Shard`` / ``Replicate``; ``Sharding`` (a mesh
-    and its placements) is the port's ``NamedSharding``.
+    per-mesh-dim list of ``Shard`` / ``Replicate`` (a dim of size 1 is
+    never split: DTensor refuses to flatten or drop a split dim of size
+    1, as a matrix product over (1, S, d) does); ``Sharding`` (a mesh and
+    its placements) is the port's ``NamedSharding``.
   - ``constrain(x, *names)`` is the in-model annotation point: the
     identity without an active ``use_mesh`` context (and for a tensor that
     is not a DTensor), a ``redistribute`` of a DTensor inside one.  The
@@ -165,18 +167,22 @@ def logical_to_spec(axes: Sequence[Optional[str]], mesh,
     return tuple(out)
 
 
-def to_placements(spec: Spec, mesh, ndim: int) -> Tuple[object, ...]:
+def to_placements(spec: Spec, mesh, ndim: int,
+                  shape: Optional[Sequence[int]] = None
+                  ) -> Tuple[object, ...]:
     """Per-tensor-dim spec -> per-mesh-dim placements.  A mesh axis named
     in dim d's entry shards dim d (``Shard(d)``); one named nowhere
     replicates.  A dim mapped to several axes, such as ("pod", "data"), is
     sharded over each of them in mesh order, which is the reference's
-    major-to-minor order when the entry lists them in mesh order."""
+    major-to-minor order when the entry lists them in mesh order.  With
+    ``shape``, a dim of size 1 (a spec entry only a mesh of size 1 along
+    it can keep) stays whole: nothing is split either way."""
     if len(spec) > ndim:
         raise ValueError(f"spec {spec} has more entries than the tensor's "
                          f"{ndim} dims")
     dim_of: Dict[str, int] = {}
     for d, entry in enumerate(spec):
-        if entry is None:
+        if entry is None or (shape is not None and shape[d] == 1):
             continue
         for a in (entry if isinstance(entry, tuple) else (entry,)):
             dim_of[a] = d
@@ -184,8 +190,9 @@ def to_placements(spec: Spec, mesh, ndim: int) -> Tuple[object, ...]:
                  for a in axis_names(mesh))
 
 
-def sharding(mesh: DeviceMesh, spec: Spec, ndim: int) -> Sharding:
-    return Sharding(mesh, to_placements(spec, mesh, ndim))
+def sharding(mesh: DeviceMesh, spec: Spec, ndim: int,
+             shape: Optional[Sequence[int]] = None) -> Sharding:
+    return Sharding(mesh, to_placements(spec, mesh, ndim, shape))
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +229,7 @@ def constrain(x, *axes: Optional[str]):
         return x
     mesh, rules = _ACTIVE[-1]
     spec = logical_to_spec(tuple(axes), mesh, rules, shape=x.shape)
-    return x.redistribute(mesh, to_placements(spec, mesh, x.dim()))
+    return x.redistribute(mesh, to_placements(spec, mesh, x.dim(), x.shape))
 
 
 def gathered(x):
@@ -264,7 +271,7 @@ def shardings_for_axes(axes_tree: Dict[str, Tuple[Optional[str], ...]],
 
     return {name: sharding(mesh, logical_to_spec(ax, mesh, rules,
                                                  shape=shape_of(name)),
-                           len(ax))
+                           len(ax), shape_of(name))
             for name, ax in axes_tree.items()}
 
 
@@ -304,7 +311,8 @@ def shard_batch(batch: Dict[str, torch.Tensor], mesh: DeviceMesh
     """Each tensor of a global batch (the same on every rank) as a DTensor
     that keeps this rank's rows: no data moves between ranks."""
     return {k: distribute_tensor(
-        v, mesh, to_placements(batch_spec(mesh, v.shape), mesh, v.dim()),
+        v, mesh, to_placements(batch_spec(mesh, v.shape), mesh, v.dim(),
+                               v.shape),
         src_data_rank=None) for k, v in batch.items()}
 
 

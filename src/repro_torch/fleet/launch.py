@@ -2,25 +2,32 @@
 
 Each worker is a fresh interpreter (``subprocess.Popen`` running
 ``repro_torch.fleet.worker.main``, never a fork, so no CUDA context
-crosses a fork) running one :class:`~repro_torch.stream.StreamingScheduler` on one
-device.  With ``device="cuda"`` (the default) each worker is pinned to
-one card with ``CUDA_VISIBLE_DEVICES``, round-robin over the cards the
-parent sees: on a host with one card every worker shares card 0, and the
-card time-slices between their contexts.  With ``device="cpu"`` the
-workers run on the CPU with one torch thread each, which is how the
-tests bring up a real subprocess fleet on a laptop.
+crosses a fork) running one :class:`~repro_torch.stream.StreamingScheduler`.
+With ``device="cuda"`` (the default) each worker is pinned with
+``CUDA_VISIBLE_DEVICES`` to one card, round-robin over the cards the
+parent sees, or with ``devices_per_worker=k`` to a group of k: worker i
+takes cards ``i*k .. i*k+k-1`` of the visible list, wrapping round, and
+its stream shards every batch over them.  On a host with one card every
+worker shares card 0, and the card time-slices between their contexts.
+With ``device="cpu"`` the workers run on the CPU with one torch thread
+each (a group of k is k ``cpu`` entries), which is how the tests bring
+up a real subprocess fleet on a laptop.
 
     cfg = FleetConfig(num_workers=2, budget=300)
     with launch_fleet(cfg) as fleet:
         results = fleet.run(generate_trace(TraceConfig(...)))
         print(fleet.last_metrics.summary())
 
+``distributed=True`` joins the workers into one ``torch.distributed``
+process group at ``init`` (rank = worker index, NCCL on ``cuda``, gloo on
+``cpu``, at a ``tcp://127.0.0.1`` address the launcher picks), as the
+reference's ``jax.distributed.initialize`` does.  Scheduling stays
+process-local, so rows stay bitwise; a worker that fails to join raises,
+and the fleet never carries on without it.
+
 ``launch_fleet`` blocks until every worker reports ready (imports and
 device init), so ``run`` measures scheduling, not startup.  A port of
-``repro.fleet.launch``: the reference's ``devices_per_worker`` (fake XLA
-host devices) has no counterpart beyond one device a worker, and its
-``distributed`` multi-controller mode is sharding (ROADMAP Queue 1
-item 12).
+``repro.fleet.launch``.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import dataclasses
 import json
 import os
 import queue
+import socket
 import subprocess
 import sys
 import threading
@@ -42,9 +50,8 @@ class FleetConfig:
     """Fleet shape + the per-worker service knobs.
 
     num_workers         scheduler processes
-    devices_per_worker  devices a worker runs on: None or 1 (a port
-                        worker runs on one device; more is sharding,
-                        ROADMAP Queue 1 item 12)
+    devices_per_worker  devices a worker shards its batches over (None:
+                        one card, or the CPU)
     budget / strategy   the per-worker StreamingScheduler defaults
     stream              StreamConfig field overrides for every worker
                         (dict, e.g. {"batch_rows": 4})
@@ -59,8 +66,9 @@ class FleetConfig:
                         double buffering: the next chunk rides the wire
                         while the current one computes)
     steal               work-stealing on (False: static partition only)
-    distributed         the reference's one global runtime across
-                        workers; True raises (ROADMAP Queue 1 item 12)
+    distributed         join the workers into one torch.distributed
+                        process group (rank = worker index; address on
+                        localhost); every worker must join
     ready_timeout_s     max wait for any worker reply: startup (imports
                         + device), a warmup, or the next message of a run
                         (a hung worker fails the call, not the caller)
@@ -71,7 +79,7 @@ class FleetConfig:
                         worker; ``mark_warm()`` sets the boundary and
                         ``worker_stats()`` reports
                         compiles / recompiles_post_warmup
-    device              "cuda" (one card a worker, round-robin) or "cpu"
+    device              "cuda" (cards a worker, round-robin) or "cpu"
     """
     num_workers: int = 2
     devices_per_worker: Optional[int] = None
@@ -96,16 +104,6 @@ class FleetConfig:
         if self.devices_per_worker is not None \
                 and self.devices_per_worker < 1:
             raise ValueError("devices_per_worker must be >= 1 or None")
-        if self.devices_per_worker is not None \
-                and self.devices_per_worker > 1:
-            raise NotImplementedError(
-                f"devices_per_worker={self.devices_per_worker}: a port "
-                "worker runs on one device; sharding a worker's batches "
-                "over several cards is ROADMAP Queue 1 item 12")
-        if self.distributed:
-            raise NotImplementedError(
-                "distributed=True (one runtime across workers) is ROADMAP "
-                "Queue 1 item 12; port workers are independent processes")
         if self.chunk_rows < 1 or self.max_outstanding < 1:
             raise ValueError("chunk_rows and max_outstanding must be >= 1")
         if self.device not in ("cuda", "cpu"):
@@ -113,6 +111,28 @@ class FleetConfig:
                              f"{self.device!r}")
         from repro_torch.obs import as_obs_config
         as_obs_config(self.obs)       # validate shape/values early
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def worker_devices(i: int, k: Optional[int], cards: List[str]
+                   ) -> Tuple[Optional[str], Optional[List[str]]]:
+    """Worker ``i``'s ``CUDA_VISIBLE_DEVICES`` and its stream's device
+    list for groups of ``k`` cards (None: one card, round-robin) out of
+    the visible ``cards`` (empty: the CPU).  A card named twice in a
+    group is listed once in the environment and twice in the devices."""
+    if not cards:
+        return None, None if k is None else ["cpu"] * k
+    if k is None:
+        return cards[i % len(cards)], None
+    group = [cards[(i * k + j) % len(cards)] for j in range(k)]
+    unique = list(dict.fromkeys(group))
+    return (",".join(unique),
+            [f"cuda:{unique.index(c)}" for c in group])
 
 
 def _visible_cards() -> List[str]:
@@ -190,11 +210,15 @@ class Fleet:
             # the build left, keyed on the source's hash)
             from repro_torch.kernels import _build
             _build.load("makespan")
+        group = (f"tcp://127.0.0.1:{_free_port()}" if cfg.distributed
+                 else None)
         try:
             for i in range(cfg.num_workers):
                 self.workers.append(self._spawn(i, cards))
+            # every init goes out before the first wait: distributed
+            # workers wait for each other inside init_process_group
             for i, w in enumerate(self.workers):
-                w.send(self._init_msg(i))
+                w.send(self._init_msg(i, cards, group))
             self._await(self.workers, "ready", cfg.ready_timeout_s,
                         "startup")
         except BaseException:
@@ -211,8 +235,9 @@ class Fleet:
             os.path.abspath(repro_torch.__file__)))
         env["PYTHONPATH"] = (root + os.pathsep + env["PYTHONPATH"]
                              if env.get("PYTHONPATH") else root)
-        if cards:
-            env["CUDA_VISIBLE_DEVICES"] = cards[i % len(cards)]
+        visible, _ = worker_devices(i, self.cfg.devices_per_worker, cards)
+        if visible is not None:
+            env["CUDA_VISIBLE_DEVICES"] = visible
         # the worker's main() (what ``python -m repro_torch.fleet.worker``
         # runs), entered without runpy re-executing a module the package
         # import already loaded
@@ -223,18 +248,24 @@ class Fleet:
             text=True)
         return WorkerHandle(f"w{i}", proc, self.inbox)
 
-    def _init_msg(self, i: int) -> Dict:
+    def _init_msg(self, i: int, cards: List[str],
+                  group: Optional[str]) -> Dict:
         cfg = self.cfg
         obs = None
         if cfg.obs is not None:
             from repro_torch.obs import as_obs_config
             obs = dataclasses.asdict(as_obs_config(cfg.obs))
+        _, devices = worker_devices(i, cfg.devices_per_worker, cards)
         return {"cmd": "init", "worker_id": f"w{i}",
                 "budget": cfg.budget, "strategy": cfg.strategy,
                 "stream": cfg.stream or {}, "memo_path": cfg.memo_path,
                 "memo_near": cfg.memo_near, "obs": obs,
                 "recompile_guard": cfg.recompile_guard,
-                "device": cfg.device}
+                "device": cfg.device, "devices": devices,
+                "distributed": None if group is None else {
+                    "init_method": group, "rank": i,
+                    "world_size": cfg.num_workers,
+                    "timeout_s": cfg.ready_timeout_s}}
 
     def _await(self, workers: Sequence[WorkerHandle], reply: str,
                timeout_s: float, what: str) -> Dict[str, Dict]:

@@ -24,9 +24,18 @@ exactly (repr shortest-round-trip), so equality survives the pipe.
 
 Device: the init message's ``device`` ("cuda" unless the caller asks for
 "cpu").  A "cuda" worker that finds no card raises at init — it never
-falls back to the CPU.  The launcher pins each worker to one card with
-``CUDA_VISIBLE_DEVICES``; a "cpu" worker runs one torch thread, so that
+falls back to the CPU.  The launcher pins each worker to its card, or its
+group of cards, with ``CUDA_VISIBLE_DEVICES``; the message's ``devices``
+(a group's list, cards named as this process sees them) become its
+stream's shard devices.  A "cpu" worker runs one torch thread, so that
 several share a host's cores.
+
+Process group: with the message's ``distributed`` set, the worker joins
+the fleet's ``torch.distributed`` group at init (its rank, the world
+size and a ``tcp://`` address the launcher picked; NCCL on a card, gloo
+on the CPU), and waits until every rank has joined or the timeout
+passes, which raises: a fleet never runs with a worker missing.
+Scheduling stays process-local, so rows are unchanged.
 
 Memo: with a shared store configured the worker opens the SAME
 :class:`~repro_torch.fleet.shared_memo.ShardedMemoStore` directory as
@@ -153,6 +162,27 @@ def _emit(msg: Dict) -> None:
     sys.stdout.flush()
 
 
+def join_group(spec: Dict, device) -> str:
+    """Join the fleet's process group as ``spec`` says: a TCP store at its
+    address (rank 0 serves it), the backend for ``device``, and a wait on
+    the store until every rank has checked in.  Returns the backend."""
+    import datetime
+    from urllib.parse import urlparse
+
+    import torch.distributed as dist
+    url = urlparse(spec["init_method"])
+    rank, world = int(spec["rank"]), int(spec["world_size"])
+    timeout = datetime.timedelta(seconds=float(spec["timeout_s"]))
+    store = dist.TCPStore(url.hostname, url.port, world,
+                          is_master=rank == 0, timeout=timeout)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world, timeout=timeout)
+    store.set(f"fleet/joined/{rank}", "1")
+    store.wait([f"fleet/joined/{r}" for r in range(world)], timeout)
+    return backend
+
+
 class _Worker:
     def __init__(self, init: Dict):
         import torch
@@ -165,6 +195,12 @@ class _Worker:
                 f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r})")
         if device.type == "cpu":
             torch.set_num_threads(1)
+        self.group = None
+        if init.get("distributed"):
+            spec = init["distributed"]
+            self.group = {"rank": int(spec["rank"]),
+                          "world_size": int(spec["world_size"]),
+                          "backend": join_group(spec, device)}
         # the guard goes up first, so the kernel library's load at the
         # first batch (or at warmup) is counted as a compile
         self.guard = None
@@ -191,6 +227,8 @@ class _Worker:
                                      near=bool(init.get("memo_near", False)),
                                      origin=self.worker_id)
         stream_d = dict(init.get("stream") or {})
+        if init.get("devices"):
+            stream_d["devices"] = tuple(init["devices"])
         obs = init.get("obs")
         if obs:
             # the fleet's ObsConfig rides the init message as a dict;
@@ -216,7 +254,9 @@ class _Worker:
         self.refinements = 0
         _emit({"ok": "ready", "worker": self.worker_id,
                "device": str(device),
-               "devices": torch.cuda.device_count()})
+               "devices": torch.cuda.device_count(),
+               "shards": [str(d) for d in self.svc.devices],
+               "group": self.group})
 
     def handle_run(self, msg: Dict) -> None:
         requests = [decode_request(d) for d in msg.get("requests", ())]
@@ -267,7 +307,9 @@ class _Worker:
              "early_flushes": self.early_flushes,
              "refinements": self.refinements, "memo": memo,
              "makespan_launches": LAUNCHES["makespan"],
-             "dispatched_generations": self.svc.dispatched_generations}
+             "dispatched_generations": self.svc.dispatched_generations,
+             "shards": [str(d) for d in self.svc.devices],
+             "group": self.group}
         if self.guard is not None:
             d["compiles"] = len(self.guard.compiles)
             d["recompiles_post_warmup"] = len(self.guard.post_warmup)
@@ -309,6 +351,9 @@ def main() -> int:
                 return 1
     if worker is not None:
         worker.svc.close()
+        if worker.group is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     return 0
 
 

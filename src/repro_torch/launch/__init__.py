@@ -1,4 +1,5 @@
 """Entry points, ported from ``repro.launch``: ``train`` (one device, or a
-``("data", "model")`` device mesh under ``torchrun``), ``serve``, and the
-meshes (``mesh``) and placements (``shardings``) they use.  The dry-run
-and roofline wait for ROADMAP Queue 1 item 12."""
+``("data", "model")`` device mesh under ``torchrun``), ``serve``, the
+meshes (``mesh``) and placements (``shardings``) they use, and the
+multi-card dry-run (``dryrun``) with its H100 roofline terms
+(``roofline``)."""

@@ -36,7 +36,7 @@ def named(mesh: DeviceMesh, spec: Spec, shape=None,
     if shape is not None:
         spec = _drop_nondivisible(spec, shape, mesh)
         ndim = len(shape)
-    return sharding(mesh, spec, len(spec) if ndim is None else ndim)
+    return sharding(mesh, spec, len(spec) if ndim is None else ndim, shape)
 
 
 def _replicated(mesh: DeviceMesh) -> Sharding:

@@ -25,8 +25,7 @@ through ``train_on_mesh``: the parameters and AdamW moments are DTensors
 placed by ``sharding_rules(cfg, model axis size)``, every rank builds the
 global batch ``stream.batch_at(step)`` and keeps its data shard, so a
 mesh run sees the meshless run's batches, and checkpoints are written
-whole by rank 0.  The SSM, hybrid and encoder-decoder families on a mesh
-of more than one rank wait for ROADMAP Queue 1 item 12.
+whole by rank 0.  Every trainable family trains on a mesh.
 """
 from __future__ import annotations
 
@@ -47,7 +46,6 @@ from repro_torch.train.data import TokenStream
 from repro_torch.train.loop import TrainConfig, train
 
 TRAINABLE = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
-MESH_TRAINABLE = ("dense", "moe", "vlm")
 
 
 def train_config(steps: int, lr: float = 3e-4,
@@ -82,11 +80,6 @@ def train_on_mesh(cfg, mesh, tc: TrainConfig, stream, steps: int, *,
     size)``, and train it under ``use_mesh`` up to step ``steps``,
     resuming from the newest checkpoint in ``checkpoint_dir``.  Returns
     (model, final TrainState)."""
-    if mesh.size() > 1 and cfg.family not in MESH_TRAINABLE:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family on a mesh of {mesh.size()} "
-            "ranks is not ported yet (ROADMAP Queue 1 item 12); on a mesh: "
-            + ", ".join(MESH_TRAINABLE))
     rules = sharding_rules(cfg, model_axis_size(mesh))
     gen = torch.Generator(device=device).manual_seed(seed)
     model = shard_model(get_model(cfg, device=device, generator=gen), mesh,

@@ -374,9 +374,9 @@ def decode_attention(p: AttnParams, x, cache: KVCache, cur_pos: int, *,
     k = apply_rope(k, pos_b, rope_theta)
 
     slot = cur_pos % C
-    cache.k[:, slot] = k[:, 0]
-    cache.v[:, slot] = v[:, 0]
-    cache.pos[:, slot] = cur_pos
+    _write_slot(cache.k, slot, k[:, 0])
+    _write_slot(cache.v, slot, v[:, 0])
+    _write_slot(cache.pos, slot, cur_pos)
     cp = cache.pos
     ck = constrain(cache.k, "batch", "kv_seq", "kv_heads", "head_dim")
     cv = constrain(cache.v, "batch", "kv_seq", "kv_heads", "head_dim")
@@ -384,10 +384,38 @@ def decode_attention(p: AttnParams, x, cache: KVCache, cur_pos: int, *,
     valid = (cp >= 0) & (cp <= cur_pos)
     if window:
         valid &= cp > cur_pos - window
-    mask = _additive(valid)[:, None, None, :]                # (B,1,1,C)
+    mask = gathered(_additive(valid)[:, None, None, :])      # (B,1,1,C)
     ctx = attend(q, ck, cv, mask, x.dtype)
     out = ctx.reshape(B, 1, n_heads * head_dim) @ p.wo
     return constrain(out, "batch", None, "embed"), cache
+
+
+def _write_slot(buf, slot: int, value) -> None:
+    """``buf[:, slot] = value``, in place.  On a mesh (``buf`` a DTensor)
+    each rank writes its own shard: the rank whose shard of dim 1 holds
+    ``slot`` writes its shard of ``value`` (laid out as ``buf`` without
+    dim 1) there; the others hold no copy of that slot."""
+    if not isinstance(buf, DTensor):
+        buf[:, slot] = value
+        return
+    mesh, placements = buf.device_mesh, tuple(buf.placements)
+    local = buf.to_local()
+    # the rank's shard of dim 1: split by each mesh dim that splits it, in
+    # mesh order, into DTensor's chunks (the last ones may be shorter)
+    start, length = 0, buf.shape[1]
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if p.is_shard(1):
+            chunk = -(-length // mesh.size(i))
+            lo = min(coord[i] * chunk, length)
+            start, length = start + lo, min(chunk, length - lo)
+    if isinstance(value, DTensor):       # every rank: a collective
+        value = value.redistribute(mesh, tuple(
+            Replicate() if p.is_shard(1) else
+            Shard(p.dim - 1) if p.is_shard() and p.dim > 1 else p
+            for p in placements)).to_local()
+    if start <= slot < start + length:
+        local[:, slot - start] = value
 
 
 def cross_attention(p: AttnParams, x, enc_kv, *, n_heads, n_kv, head_dim):

@@ -29,16 +29,32 @@ does in the reference; the hybrid's shared block is not recomputed there
 either.  Training runs ``use_flash=False``: the scan kernel has no
 gradient, so an SSM or hybrid step runs the plain loop, which is the
 reference's ``lax.scan`` route.
+
+On a device mesh (the parameters DTensors, ``use_mesh`` active) the
+blocks annotate their activations at the reference's ``constrain``
+points, and the per-channel work runs on each rank's channels of
+``inner`` (``local_map``): the causal conv, and the scan with its skip
+and gate.  The scan's recurrence is per channel, so it needs no
+collective, and its per-step operations stay plain tensor operations.
+``torch.chunk`` of the ``2·Di`` projection leaves a rank a slice of x or
+of z, not matching slices of both, so both halves are gathered and
+each is split again by channel.  The products that contract ``inner``
+(``x_proj``, ``out_proj``) and Mamba-2's gate norm (a mean over ``Di``)
+run as DTensor operations, which sum the ranks' parts.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import (ones_init, param, remat,
@@ -119,6 +135,109 @@ def _ssm_full(cfg: ModelConfig, x_c, dt, A, B_ssm, C_ssm):
     return selective_scan(x_c, dt, A, B_ssm, C_ssm, chunk=cfg.ssm_time_chunk)
 
 
+def _conv_silu(x_in, conv_w, conv_b, dtype):
+    """The causal conv and its SiLU over (Bt, S, Di) inputs, and the
+    conv's last W-1 inputs (the decode state)."""
+    W = conv_w.shape[1]
+    tail = F.pad(x_in, (0, 0, W - 1, 0))[:, -(W - 1):, :]
+    return F.silu(causal_conv1d(x_in, conv_w, conv_b).float()).to(dtype), tail
+
+
+def _scan_gate(cfg: ModelConfig, x_c, dt, A, B_ssm, C_ssm, D, z):
+    """The scan, its skip D x and the SiLU gate of z: (y, h_final), y in
+    x_c's dtype."""
+    y, h_fin = _ssm_full(cfg, x_c, dt, A, B_ssm, C_ssm)
+    y = y + D * x_c.float()
+    return y.to(x_c.dtype) * F.silu(z.float()).to(x_c.dtype), h_fin
+
+
+class _Ranks:
+    """How a Mamba block's tensors lie on the mesh, per mesh dim: a dim
+    splits the channels of ``inner`` where the parameter ``D`` (Di,) is
+    split, and the batch rows where the block's input is."""
+
+    def __init__(self, x: DTensor, D: DTensor):
+        self.mesh = x.device_mesh
+        self.ch = tuple(p.is_shard(0) for p in D.placements)
+        self.rows = tuple(p.is_shard(0) and not c
+                          for p, c in zip(x.placements, self.ch))
+
+    def _each(self, on_ch, on_rows):
+        return tuple(on_ch if c else on_rows if r else Replicate()
+                     for c, r in zip(self.ch, self.rows))
+
+    def act(self, dim: int = 2):
+        """An activation split by rows and by channels on ``dim``."""
+        return self._each(Shard(dim), Shard(0))
+
+    def rows_only(self):
+        """An activation split by rows, its channels whole."""
+        return self._each(Replicate(), Shard(0))
+
+    def rows_grad(self):
+        """The gradient of a ``rows_only`` input: each channel shard's
+        part."""
+        return self._each(Partial(), Shard(0))
+
+    def weight(self):
+        """A per-channel weight, split by channels on its dim 0."""
+        return self._each(Shard(0), Replicate())
+
+    def weight_grad(self):
+        """Its gradient: summed over the rows' shards."""
+        return self._each(Shard(0), Partial())
+
+    def run(self, fn, ins, outs):
+        """``fn`` on each rank's shards: ``ins`` is a list of (tensor,
+        placements, gradient placements), None for a non-tensor; every
+        tensor is first laid out as its placements say."""
+        args = [t if pl is None else t.redistribute(self.mesh, pl)
+                for t, pl, _ in ins]
+        return local_map(fn, out_placements=outs,
+                         in_placements=tuple(pl for _, pl, _ in ins),
+                         in_grad_placements=tuple(g for _, _, g in ins),
+                         device_mesh=self.mesh)(*args)
+
+
+def _conv_full(lp, x_in, dtype, ranks: Optional[_Ranks]):
+    """``_conv_silu`` of the block, per rank on a mesh: (x_c, tail)."""
+    if ranks is None:
+        return _conv_silu(x_in, lp.conv_w, lp.conv_b, dtype)
+    act, w, wg = ranks.act(), ranks.weight(), ranks.weight_grad()
+    return ranks.run(_conv_silu, [(x_in, act, act), (lp.conv_w, w, wg),
+                                  (lp.conv_b, w, wg), (dtype, None, None)],
+                     (act, act))
+
+
+def _scan_full(cfg, ranks: Optional[_Ranks], x_c, dt, A, B_ssm, C_ssm, D, z):
+    """``_scan_gate``, per rank on a mesh: (y, h_final)."""
+    if ranks is None:
+        return _scan_gate(cfg, x_c, dt, A, B_ssm, C_ssm, D, z)
+    act, rows, rows_g = ranks.act(), ranks.rows_only(), ranks.rows_grad()
+    return ranks.run(
+        functools.partial(_scan_gate, cfg),
+        [(x_c, act, act), (dt, act, act),
+         (A, ranks.weight(), ranks.weight_grad()),
+         (B_ssm, rows, rows_g), (C_ssm, rows, rows_g),
+         (D, ranks.weight(), ranks.weight_grad()), (z, act, act)],
+        (act, ranks.act(1)))
+
+
+def _on_ranks(x, D) -> Optional[_Ranks]:
+    """The block's ``_Ranks`` on a mesh; None without one."""
+    return _Ranks(x, D) if isinstance(x, DTensor) else None
+
+
+def _inner_halves(xz, ranks: Optional[_Ranks]):
+    """x and z, each split by channels on a mesh (the halves are gathered
+    across the ranks that split ``2·Di``, then split again)."""
+    x_in, z = torch.chunk(xz, 2, dim=-1)
+    if ranks is None:
+        return x_in, z
+    return (x_in.redistribute(ranks.mesh, ranks.act()),
+            z.redistribute(ranks.mesh, ranks.act()))
+
+
 def _a_log_mamba1(N: int):
     def init(gen, shape, dtype, device):
         a = torch.arange(1, N + 1, dtype=torch.float32, device=device)
@@ -174,23 +293,23 @@ def mamba1_block(lp: Mamba1Params, x, cfg: ModelConfig, state=None):
     state=(conv_state, h): single-step decode (S==1)."""
     N, dtr = cfg.ssm_state, cfg.dtr
     h_in = L.rms_norm(lp.norm, x)
-    x_in, z = torch.chunk(h_in @ lp.in_proj, 2, dim=-1)
+    xz = constrain(h_in @ lp.in_proj, "batch", "seq", "inner")
 
     if state is None:
-        x_c = causal_conv1d(x_in, lp.conv_w, lp.conv_b)
-        x_c = F.silu(x_c.float()).to(x.dtype)
-        dt_r, B_ssm, C_ssm = torch.split(x_c @ lp.x_proj, [dtr, N, N],
-                                         dim=-1)
+        ranks = _on_ranks(x, lp.D)
+        x_in, z = _inner_halves(xz, ranks)
+        x_c, conv_tail = _conv_full(lp, x_in, x.dtype, ranks)
+        dbc = x_c @ lp.x_proj
+        if ranks is not None:   # the ranks' partial sums, added
+            dbc = dbc.redistribute(ranks.mesh, ranks.rows_only())
+        dt_r, B_ssm, C_ssm = torch.split(dbc, [dtr, N, N], dim=-1)
         dt = F.softplus((dt_r @ lp.dt_w).float() + lp.dt_b)
         A = -torch.exp(lp.A_log)
-        y, h_fin = _ssm_full(cfg, x_c, dt, A, B_ssm, C_ssm)
-        y = y + lp.D * x_c.float()
-        y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-        out = y @ lp.out_proj
-        W = cfg.conv_width
-        conv_tail = F.pad(x_in, (0, 0, W - 1, 0))[:, -(W - 1):, :]
+        y, h_fin = _scan_full(cfg, ranks, x_c, dt, A, B_ssm, C_ssm, lp.D, z)
+        out = constrain(y @ lp.out_proj, "batch", "seq", "embed")
         return x + out, (conv_tail, h_fin)
 
+    x_in, z = torch.chunk(xz, 2, dim=-1)
     conv_state, h = state
     x_t, z_t = x_in[:, 0], z[:, 0]
     conv_state, x_c = conv1d_step(conv_state, x_t, lp.conv_w, lp.conv_b)
@@ -202,7 +321,7 @@ def mamba1_block(lp: Mamba1Params, x, cfg: ModelConfig, state=None):
     y = y + lp.D * x_c.float()
     y = y.to(x.dtype) * F.silu(z_t.float()).to(x.dtype)
     out = y[:, None] @ lp.out_proj
-    return x + out, (conv_state, h)
+    return x + constrain(out, "batch", None, "embed"), (conv_state, h)
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +362,7 @@ def mamba2_block(lp: Mamba2Params, x, cfg: ModelConfig, state=None):
     and dt broadcast across each head's channels."""
     N, dh = cfg.ssm_state, cfg.ssm_head_dim
     h_in = L.rms_norm(lp.norm, x)
-    x_in, z = torch.chunk(h_in @ lp.in_proj, 2, dim=-1)
+    xz = constrain(h_in @ lp.in_proj, "batch", "seq", "inner")
     B_ssm, C_ssm = torch.chunk(h_in @ lp.bc_proj, 2, dim=-1)
     dt_h = F.softplus((h_in @ lp.dt_w).float() + lp.dt_b)      # (Bt,S,H)
     A_h = -torch.exp(lp.A_log)                                 # (H,)
@@ -251,17 +370,16 @@ def mamba2_block(lp: Mamba2Params, x, cfg: ModelConfig, state=None):
     dt_full = dt_h.repeat_interleave(dh, dim=-1)               # (Bt,S,Di)
 
     if state is None:
-        x_c = causal_conv1d(x_in, lp.conv_w, lp.conv_b)
-        x_c = F.silu(x_c.float()).to(x.dtype)
-        y, h_fin = _ssm_full(cfg, x_c, dt_full, A_full, B_ssm, C_ssm)
-        y = y + lp.D * x_c.float()
-        y = L.rms_norm(lp.gate_norm,
-                       y.to(x.dtype) * F.silu(z.float()).to(x.dtype))
-        out = y @ lp.out_proj
-        W = cfg.conv_width
-        conv_tail = F.pad(x_in, (0, 0, W - 1, 0))[:, -(W - 1):, :]
+        ranks = _on_ranks(x, lp.D)
+        x_in, z = _inner_halves(xz, ranks)
+        x_c, conv_tail = _conv_full(lp, x_in, x.dtype, ranks)
+        y, h_fin = _scan_full(cfg, ranks, x_c, dt_full, A_full, B_ssm, C_ssm,
+                              lp.D, z)
+        y = L.rms_norm(lp.gate_norm, y)
+        out = constrain(y @ lp.out_proj, "batch", "seq", "embed")
         return x + out, (conv_tail, h_fin)
 
+    x_in, z = torch.chunk(xz, 2, dim=-1)
     conv_state, h = state
     x_t, z_t = x_in[:, 0], z[:, 0]
     conv_state, x_c = conv1d_step(conv_state, x_t, lp.conv_w, lp.conv_b)
@@ -272,7 +390,7 @@ def mamba2_block(lp: Mamba2Params, x, cfg: ModelConfig, state=None):
     y = L.rms_norm(lp.gate_norm,
                    y.to(x.dtype) * F.silu(z_t.float()).to(x.dtype))
     out = y[:, None] @ lp.out_proj
-    return x + out, (conv_state, h)
+    return x + constrain(out, "batch", None, "embed"), (conv_state, h)
 
 
 class _LM(nn.Module):

@@ -41,8 +41,12 @@ are sliced off).  Batching, bucket padding and arrival order therefore
 change only *when* a schedule is computed, never *what* it is.
 
 The pool builds every ``FitnessFn`` on the host; a batch's tables are
-stacked there and copied to the service's ``device`` in one go.  Rows
-run on one card: sharding them over several is ROADMAP Queue 1 item 12.
+stacked there and copied to the devices in one go.  A batch shards over
+``ndev = min(max_devices or the devices there are, bucket)`` devices,
+its bucket padded to a multiple of ``ndev``, as the reference's does: each
+device takes a contiguous shard of rows (``repro_torch.core.sweep``'s
+``row_executable``), and the batch's ``num_devices`` reaches the metrics
+and the trace.
 """
 from __future__ import annotations
 
@@ -57,14 +61,15 @@ from typing import (Dict, List, NamedTuple, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
-from repro_torch.core.encoding import Population, to_host
+from repro_torch.core.encoding import Population
 from repro_torch.core.fitness import FitnessFn, FitnessParams, ObjectiveSpec
 from repro_torch.core.magma import MagmaConfig, SearchResult
 from repro_torch.core.pareto import ParetoFront, pareto_front
 from repro_torch.core.strategies import (SearchStrategy, WarmStart,
                                          plan_generations)
 from repro_torch.core.sweep import (_pad_rows, _resolve_strategy,
-                                    row_executable)
+                                    host_rows, row_executable,
+                                    shard_devices, split_rows)
 from repro_torch.lint.runtime import transfer_sanitizer
 from repro_torch.memo.engine import row_view
 from repro_torch.obs import (FlightRecorder, NULL_SPAN, NULL_TRACER,
@@ -91,9 +96,12 @@ class StreamConfig:
                       double buffering (the next batch's copies and
                       issue overlap what the card still has queued of
                       the current one)
-    max_devices       cards to shard each batch over (None: one).  More
-                      than one raises at the service's construction:
-                      sharding is ROADMAP Queue 1 item 12
+    max_devices       shard each batch over at most this many devices
+                      (None: all of ``devices``)
+    devices           the devices to shard over, in shard order (None:
+                      every visible card for a ``cuda`` service device
+                      without an index, else the service's device); a
+                      device may be named several times
     realtime          replay trace arrival times on the wall clock; False
                       (default) replays as-fast-as-possible — arrival is
                       the submission instant, the open-loop throughput
@@ -149,6 +157,7 @@ class StreamConfig:
     analysis_workers: int = 2
     max_inflight: int = 2
     max_devices: Optional[int] = None
+    devices: Optional[Tuple[Union[str, torch.device], ...]] = None
     realtime: bool = False
     max_hold_s: float = 0.25
     slo_aware: bool = True
@@ -295,8 +304,21 @@ class _Inflight:
     num_devices: int
     compat_key: Tuple
     issued_s: float = 0.0
-    done: Optional[torch.cuda.Event] = None   # recorded after the last
-                                              # launch (None on the CPU)
+    done: Optional["_CardsDone"] = None      # recorded after the last
+                                             # launch (None on the CPU)
+
+
+class _CardsDone(NamedTuple):
+    """A batch's end on each of its cards: one event a card, recorded
+    after that card's last launch."""
+    events: Tuple[torch.cuda.Event, ...]
+
+    def query(self) -> bool:
+        return all(e.query() for e in self.events)
+
+    def synchronize(self) -> None:
+        for e in self.events:
+            e.synchronize()
 
 
 def _stack_fields(rows: Sequence[tuple], device: torch.device
@@ -336,12 +358,8 @@ class StreamingScheduler:
         self.stream = stream or StreamConfig()
         self.budget = int(budget)
         self.device = torch.device(device)
-        if self.stream.max_devices is not None and \
-                self.stream.max_devices > 1:
-            raise NotImplementedError(
-                f"sharding stream batches over {self.stream.max_devices} "
-                "cards is ROADMAP Queue 1 item 12; use max_devices=None "
-                "or 1")
+        self.devices = shard_devices(self.stream.max_devices, self.device,
+                                     self.stream.devices)
         # the schedule memo (repro_torch.memo.ScheduleMemo) consulted at
         # admission: exact hits are answered from the store and NEVER
         # enter the dispatch queue; misses are warm-seeded from the
@@ -472,8 +490,10 @@ class StreamingScheduler:
         generations, evolve_last = plan_generations(budget,
                                                     strategy.ask_size)
         self.dispatched_generations += generations
-        padded = self._bucket(len(members))   # one card: no shards
-        ndev = 1
+        bucket = self._bucket(len(members))
+        devices = self.devices[:bucket]
+        ndev = len(devices)
+        padded = -(-bucket // ndev) * ndev           # dense shards
         dev = self.device
         cuda = dev.type == "cuda"
 
@@ -501,7 +521,7 @@ class StreamingScheduler:
             host = tuple(x if x.device == dev else x.pin_memory()
                          for x in host)
         fn, _ = row_executable(
-            strategy, generations, evolve_last, G, objective, ndev, dev,
+            strategy, generations, evolve_last, G, objective, devices,
             keep_population=self._keep_population(base))
 
         # dispatch_s is stamped before the first launch: the host issues
@@ -510,13 +530,16 @@ class StreamingScheduler:
         dispatch_s = self._clock()
         done = None
         with transfer_sanitizer(self.stream.transfer_guard and cuda):
-            xs = tuple(x.to(dev, non_blocking=True) for x in host)
+            shards = [tuple(x.to(d, non_blocking=True) for x in xs)
+                      for d, xs in zip(devices, split_rows(host, ndev))]
             n_params = len(params)
-            out = fn(seeds, FitnessParams(*xs[:n_params]),
-                     WarmStart(*xs[n_params:]) if warm_seeded else None)
+            out = fn(seeds, [FitnessParams(*xs[:n_params]) for xs in shards],
+                     [WarmStart(*xs[n_params:]) for xs in shards]
+                     if warm_seeded else None)
             if cuda:
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(dev))
+                done = _CardsDone(tuple(
+                    torch.cuda.current_stream(d).record_event()
+                    for d in dict.fromkeys(devices)))
         inf = _Inflight(out=out, members=members, dispatch_s=dispatch_s,
                         padded_rows=padded, num_devices=ndev,
                         compat_key=compat_key, issued_s=self._clock(),
@@ -581,7 +604,7 @@ class StreamingScheduler:
         outside the transfer guard.  @holds:_run_lock"""
         self._wait(inf)
         done = self._clock()
-        outs = to_host(*inf.out)
+        outs = host_rows(inf.out)
         bf, ba, bp, hist = outs[:4]
         pops = outs[4:6] if len(outs) >= 6 else None
         base, _, A, _, _, budget, is_warm = inf.compat_key

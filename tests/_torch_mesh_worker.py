@@ -21,6 +21,7 @@ GRANITE = dict(dtype="float32", d_model=64, d_ff=128)
 BATCH, SEQ = 4, 16
 TRAIN = dict(lr=3e-3, warmup_steps=2, total_steps=40)
 STEPS = 25
+LAUNCHED = ("granite-3-2b", "qwen2-moe-a2.7b", "falcon-mamba-7b")
 ELASTIC_CKPT_STEP, ELASTIC_STEPS = 2, 5
 
 
@@ -119,9 +120,10 @@ def job_elastic(rank, out, weights, ckpt_dir):
             "losses": [h["loss"] for h in hist]}
 
 
-def job_grads(rank, out, arch):
+def job_grads(rank, out, arch, weights=None):
     """One step's loss and gathered gradients of ``arch``'s smoke config on
-    the (2, 2) mesh, then a 3-step loss trajectory."""
+    the (2, 2) mesh (its seed-0 weights, or the state dict at
+    ``weights``), then a 3-step loss trajectory."""
     from repro_torch.dist.sharding import (gathered, make_mesh, shard_batch,
                                           use_mesh)
     from repro_torch.launch.train import shard_model
@@ -132,7 +134,7 @@ def job_grads(rank, out, arch):
     cfg = smoke_cfg(arch)
     mesh = make_mesh((2, 2), ("data", "model"), "cpu")
     rules = sharding_rules(cfg, 2)
-    model = shard_model(_model(cfg), mesh, rules)
+    model = shard_model(_model(cfg, weights), mesh, rules)
     stream = TokenStream(cfg, BATCH, SEQ, seed=0)
     batch = {k: torch.as_tensor(v) for k, v in stream.batch_at(0).items()}
     params = dict(model.named_parameters())
@@ -146,7 +148,39 @@ def job_grads(rank, out, arch):
         train(model, TrainConfig(**TRAIN), stream, 3, history=hist,
               **_quiet())
     return {"loss": float(loss.detach()), "grads": grads if rank == 0 else None,
-            "losses": [h["loss"] for h in hist]}
+            "losses": [h["loss"] for h in hist],
+            "placements": {k: tuple(p.placements) for k, p in params.items()}}
+
+
+def job_ckpt_roundtrip(rank, out, arch, meshless_dir, ckpt_dir):
+    """A checkpoint of ``arch`` both ways: the meshless run's step-2
+    checkpoint (``meshless_dir``) restored into a model sharded on the
+    (2, 2) mesh (other weights), gathered; then 2 steps on the mesh
+    written to ``ckpt_dir``, with the gathered state at that step."""
+    from repro_torch.dist.sharding import make_mesh, use_mesh
+    from repro_torch.launch.train import shard_model
+    from repro_torch.models.registry import sharding_rules
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.loop import TrainConfig, init_state, train
+
+    cfg = smoke_cfg(arch)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    rules = sharding_rules(cfg, 2)
+    model = shard_model(_model(cfg, seed=5), mesh, rules)
+    state = ckpt.restore(ckpt.find_latest(meshless_dir), init_state(model))
+    restored = {k: v.full_tensor().clone() for k, v in state.params.items()}
+    restored_mu = {k: v.full_tensor().clone() for k, v in
+                   state.opt.mu.items()}
+    model = shard_model(_model(cfg), mesh, rules)
+    with use_mesh(mesh, rules):
+        state = train(model, TrainConfig(**TRAIN),
+                      TokenStream(cfg, BATCH, SEQ, seed=0), 2,
+                      checkpoint_dir=ckpt_dir, **_quiet())
+    written = {k: v.full_tensor().clone() for k, v in state.params.items()}
+    return {"step": state.step, "restored": restored,
+            "restored_mu": restored_mu, "written": written} \
+        if rank == 0 else {}
 
 
 def moe_layer_inputs(d_model):
@@ -202,13 +236,57 @@ def job_moe_layer(rank, out):
     return res if rank == 0 else {}
 
 
+def decode_inputs(cfg, model):
+    """A prefilled cache of ``model`` (seeded prompt of SEQ // 2 tokens,
+    capacity SEQ) and the next tokens."""
+    rng = np.random.default_rng(9)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (BATCH, SEQ // 2)),
+                             dtype=torch.int32)
+    nxt = torch.as_tensor(rng.integers(0, cfg.vocab, (BATCH, 1)),
+                          dtype=torch.int32)
+    _, cache = model.prefill({"tokens": prompt}, SEQ)
+    return cache, nxt
+
+
+def job_decode(rank, out, arch):
+    """Two decode steps of ``arch``'s smoke model on the (2, 2) mesh from
+    a meshless prefill's cache placed by ``cache_shardings``: the logits
+    and the gathered cache after them."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.dist.sharding import gathered, make_mesh, shard_batch, \
+        use_mesh
+    from repro_torch.launch.shardings import cache_shardings
+    from repro_torch.launch.train import shard_model
+    from repro_torch.models.registry import sharding_rules
+
+    cfg = smoke_cfg(arch)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    rules = sharding_rules(cfg, 2)
+    model = _model(cfg)
+    cache, nxt = decode_inputs(cfg, model)
+    model = shard_model(model, mesh, rules)
+    cache = tree_map(lambda t, sh: distribute_tensor(
+        t, sh.mesh, sh.placements, src_data_rank=None), cache,
+        cache_shardings(cache, mesh))
+    logits = []
+    with torch.no_grad(), use_mesh(mesh, rules):
+        for pos in (SEQ // 2, SEQ // 2 + 1):
+            lg, cache = model.decode_step(
+                cache, shard_batch({"t": nxt}, mesh)["t"], pos)
+            logits.append(gathered(lg).clone())
+        cache = tree_map(lambda t: gathered(t).clone(), cache)
+    return {"logits": logits, "cache": cache} if rank == 0 else {}
+
+
 def job_launcher(rank, out, ckpt_dir):
-    """The launcher's ``main`` in the 4-rank group: granite and qwen2-moe
-    train 3 steps; falcon-mamba on the mesh raises."""
+    """The launcher's ``main`` in the 4-rank group: granite, qwen2-moe and
+    falcon-mamba train 3 steps."""
     from repro_torch.launch import train as launch_train
 
     res = {}
-    for arch in ("granite-3-2b", "qwen2-moe-a2.7b"):
+    for arch in LAUNCHED:
         d = os.path.join(ckpt_dir, arch)
         model, state, hist = launch_train.main(
             ["--arch", arch, "--smoke", "--steps", "3", "--batch", "4",
@@ -218,12 +296,6 @@ def job_launcher(rank, out, ckpt_dir):
                      "mesh": tuple(next(model.parameters()).device_mesh
                                    .mesh.shape),
                      "ckpt": sorted(os.listdir(d))}
-    try:
-        launch_train.main(["--arch", "falcon-mamba-7b", "--smoke", "--steps",
-                           "1", "--device", "cpu"], log_fn=lambda *_: None)
-        res["ssm"] = "trained"
-    except NotImplementedError as e:
-        res["ssm"] = str(e)
     return res
 
 
@@ -289,6 +361,7 @@ def job_placements(rank, out):
 JOBS = {"placements": job_placements, "granite": job_granite,
         "elastic": job_elastic, "grads": job_grads,
         "moe_layer": job_moe_layer, "launcher": job_launcher,
+        "ckpt_roundtrip": job_ckpt_roundtrip, "decode": job_decode,
         "compress": job_compress}
 
 

@@ -1,0 +1,158 @@
+"""The dry-run and roofline counterpart (``repro_torch.launch.{dryrun,
+roofline}``): cells traced on fake tensors over a fake process group, on
+this host's CPU.
+
+The reference lowers its cells on fake XLA devices and reads HLO; the
+port traces the same step on ``FakeTensorMode`` over a fake process
+group, so the checks are the reference's own
+(``tests/test_sharding.py::test_roofline_terms_dominance``,
+``tests/test_rl_and_multidevice.py::test_dryrun_cell_smoke_subprocess``)
+with H100 constants:
+
+- the roofline terms: each term from its constant, the dominant term,
+  the fraction in (0, 1], the useful ratio;
+- a smoke granite train cell on one rank, a (2, 2) and a (2, 2, 2)
+  mesh: collective bytes > 0 on a mesh (the FSDP all-gathers exist) and
+  0 on one rank; global FLOPs equal on the three within 1%; FLOPs over
+  ``model_flops`` inside [1.25, 1.45].  That band is measured: 1.329 for
+  this cell (forward, the remat recompute and backward of every product
+  over the 6N rule, on the CPU), 1.400 for granite-3-2b's train_4k cell;
+- smoke falcon-mamba-7b and zamba2-1.2b train cells return ``ok``, and
+  granite and zamba2 prefill and decode cells;
+- importing the dry-run loads no JAX.
+"""
+import math
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.roofline import (HBM_BW, NIC_BW,  # noqa: E402
+                                         NVLINK_BW, PEAK_FLOPS,
+                                         RooflineTerms, axis_link_bw,
+                                         effective_link_bw)
+from repro_torch.models.config import ShapeConfig  # noqa: E402
+
+SMALL = ShapeConfig("small", 64, 8, "train")
+FLOPS_BAND = (1.25, 1.45)
+
+
+def test_roofline_terms_dominance():
+    t = RooflineTerms(chips=256, hlo_flops=1e15, hbm_bytes_per_chip=4e9,
+                      collective_bytes_per_chip=4e9, model_flops=6e14,
+                      model_bytes=1e12, link_bytes_per_s=NIC_BW).finalize()
+    assert t.compute_s == pytest.approx(1e15 / (256 * PEAK_FLOPS))
+    assert t.memory_s == pytest.approx(4e9 / HBM_BW)
+    assert t.collective_s == pytest.approx(4e9 / NIC_BW)
+    assert t.dominant == "collective"
+    assert 0 < t.roofline_fraction <= 1.0
+    assert t.useful_ratio == pytest.approx(0.6)
+    d = t.to_dict()
+    assert d["step_time_s"] == t.collective_s == t.step_time_s
+    assert d["ideal_time_s"] == pytest.approx(
+        max(6e14 / (256 * PEAK_FLOPS), 1e12 / (256 * HBM_BW)))
+
+
+def test_link_rates_by_mesh_axis():
+    """An axis whose groups stay inside an 8-card node runs on NVLink;
+    on the production meshes every axis crosses nodes."""
+    assert axis_link_bw((16, 16), 1) == axis_link_bw((16, 16), 0) == NIC_BW
+    assert axis_link_bw((2, 16, 16), 0) == NIC_BW
+    assert axis_link_bw((2, 2), 0) == axis_link_bw((2, 2, 2), 0) == NVLINK_BW
+    assert axis_link_bw((4, 4), 0) == NIC_BW       # stride 4 x 4 = 16
+    assert axis_link_bw((1, 3), 1) == NIC_BW       # groups straddle nodes
+    assert effective_link_bw({}, (2, 2)) == NVLINK_BW
+    both = effective_link_bw({0: 1e9, 1: 1e9}, (16, 16))
+    assert both == pytest.approx(NIC_BW)
+
+
+@pytest.fixture(scope="module")
+def granite_cells():
+    cfg = get_smoke_config("granite-3-2b")
+    return {ms: dryrun.run_cell("granite-3-2b", "small", cfg_override=cfg,
+                                shape=SMALL, mesh_shape=ms, verbose=False)
+            for ms in ((1, 1), (2, 2), (2, 2, 2))}
+
+
+def test_granite_cell_collectives_and_memory(granite_cells):
+    one = granite_cells[(1, 1)]
+    assert one["ok"] and one["collective_bytes_per_chip"] == 0
+    assert one["collectives"] == {}
+    for ms in ((2, 2), (2, 2, 2)):
+        rec = granite_cells[ms]
+        assert rec["ok"], rec.get("traceback")
+        assert rec["mesh"] == "x".join(map(str, ms))
+        assert rec["chips"] == math.prod(ms)
+        assert rec["collective_bytes_per_chip"] > 0
+        assert rec["collectives"]["all-gather"] > 0      # FSDP gathers
+        assert sum(rec["collective_bytes_by_axis"].values()) == \
+            pytest.approx(rec["collective_bytes_per_chip"])
+        # CommDebugMode sees the same collectives
+        assert sum(rec["comm_debug_counts"].values()) == \
+            sum(rec["collective_counts"].values())
+        # a rank holds a shard of the state: less than on one rank
+        assert rec["mem_params_gib"] < one["mem_params_gib"]
+        assert rec["mem_opt_gib"] == pytest.approx(4 * rec["mem_params_gib"])
+        assert 0 < rec["mem_args_gib"] <= rec["mem_peak_gib"]
+        assert rec["per_device_flops"] < one["per_device_flops"]
+    assert one["per_device_flops"] == one["flops_global"]
+
+
+def test_granite_global_flops_independent_of_the_mesh(granite_cells):
+    flops = [granite_cells[ms]["flops_global"] for ms in granite_cells]
+    assert min(flops) > 0
+    assert max(flops) <= 1.01 * min(flops)
+    for rec in granite_cells.values():
+        ratio = rec["flops_global"] / rec["model_flops"]
+        assert FLOPS_BAND[0] <= ratio <= FLOPS_BAND[1], ratio
+        roof = rec["roofline"]
+        assert roof["hlo_flops"] == rec["flops_global"]
+        assert roof["dominant"] in ("compute", "memory", "collective")
+        assert 0 < roof["roofline_fraction"] <= 1.0
+
+
+@pytest.mark.parametrize("mesh,batch", [((2, 2), 4), ((1, 1), 1)])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_ssm_cells_on_a_mesh(arch, mesh, batch):
+    """Smoke SSM and hybrid train cells on (2, 2), and at one row on one
+    rank (the card's one-rank mesh at B=1: a batch dim of size 1 is
+    never split)."""
+    rec = dryrun.run_cell(arch, "small", cfg_override=get_smoke_config(arch),
+                          shape=ShapeConfig("small", 32, batch, "train"),
+                          mesh_shape=mesh, verbose=False)
+    assert rec["ok"], rec.get("traceback")
+    assert (rec["collective_bytes_per_chip"] > 0) == (mesh == (2, 2))
+    assert rec["flops_global"] > 0
+    assert rec["roofline"]["chips"] == math.prod(mesh)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "zamba2-1.2b"])
+def test_serving_cells_on_a_mesh(arch, kind):
+    """The prefill and decode steps trace on (2, 2) (the decode step
+    writes its cache slot into the rank's shard of the ring)."""
+    rec = dryrun.run_cell(arch, "small", cfg_override=get_smoke_config(arch),
+                          shape=ShapeConfig("small", 32, 4, kind),
+                          mesh_shape=(2, 2), verbose=False)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["kind"] == kind and rec["flops_global"] > 0
+    assert rec["collective_bytes_per_chip"] > 0
+
+
+def test_skipped_cell_and_no_jax():
+    rec = dryrun.run_cell("granite-3-2b", "long_500k", verbose=False)
+    assert rec["ok"] and rec["skipped"] and "sub-quadratic" in \
+        rec["skip_reason"]
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, repro_torch.launch.dryrun; "
+         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+         "('jax', 'repro')))"],
+        env=dict(os.environ, PYTHONPATH=src), capture_output=True,
+        text=True, check=True)
+    assert out.stdout.strip() == "[]"

@@ -474,8 +474,6 @@ def test_codec_roundtrip_is_bitwise():
     (dict(devices_per_worker=0), ValueError, "devices_per_worker"),
     (dict(chunk_rows=0), ValueError, "chunk_rows"),
     (dict(max_outstanding=0), ValueError, "max_outstanding"),
-    (dict(devices_per_worker=2), NotImplementedError, "item 12"),
-    (dict(distributed=True), NotImplementedError, "item 12"),
     (dict(device="tpu"), ValueError, "device"),
     (dict(obs={"trace_capacity": 0}), ValueError, "trace_capacity"),
 ])
@@ -484,6 +482,36 @@ def test_fleet_config_validation(kw, exc, match):
         FleetConfig(**kw)
     assert FleetConfig().device == "cuda"          # the card by default
     assert FleetConfig(devices_per_worker=1).devices_per_worker == 1
+    assert FleetConfig(devices_per_worker=2, distributed=True).distributed
+
+
+def test_worker_device_groups():
+    """Worker i's ``CUDA_VISIBLE_DEVICES`` and shard devices: one card
+    round-robin, or a group of k cards wrapping round the visible list (a
+    card named twice is visible once and sharded twice); k ``cpu``
+    entries off a card."""
+    from repro_torch.fleet.launch import worker_devices
+    cards = ["0", "1", "2", "3"]
+    assert worker_devices(1, None, cards) == ("1", None)
+    assert worker_devices(5, None, cards) == ("1", None)
+    assert worker_devices(1, 2, cards) == ("2,3", ["cuda:0", "cuda:1"])
+    assert worker_devices(1, 3, cards) == ("3,0,1",
+                                           ["cuda:0", "cuda:1", "cuda:2"])
+    assert worker_devices(1, 2, ["0"]) == ("0", ["cuda:0", "cuda:0"])
+    assert worker_devices(0, 2, []) == (None, ["cpu", "cpu"])
+    assert worker_devices(0, None, []) == (None, None)
+
+
+def test_worker_that_cannot_join_the_group_raises():
+    """A worker whose peers never join fails its init within the
+    timeout: the fleet never runs with a worker missing."""
+    import torch.distributed as dist
+    from repro_torch.fleet.launch import _free_port
+    spec = {"init_method": f"tcp://127.0.0.1:{_free_port()}", "rank": 0,
+            "world_size": 2, "timeout_s": 2.0}
+    with pytest.raises(Exception):
+        worker.join_group(spec, torch.device("cpu"))
+    assert not dist.is_initialized()
 
 
 def test_worker_without_a_card_raises_at_init(monkeypatch):
@@ -630,6 +658,40 @@ def test_fleet_shared_store_and_worker_stats(fleet_runs):
         assert s["makespan_launches"] == 0 and s["dispatched_generations"] > 0
         assert s["compiles"] == 0 and s["recompiles_post_warmup"] == 0
     assert sum(s["scenarios"] for s in stats.values()) == 2 * len(r1)
+
+
+@pytest.mark.parametrize("kw", [dict(devices_per_worker=2),
+                                dict(distributed=True)],
+                         ids=["groups_of_2", "process_group"])
+def test_fleet_device_groups_and_process_group_rows_bitwise(kw):
+    """A 2-worker CPU fleet whose workers shard their batches over two
+    devices each, and one whose workers join one gloo process group:
+    every row is the standalone search's."""
+    trace = generate_trace(TraceConfig(
+        num_scenarios=8, group_size=8, seed=7, settings=("S1",),
+        mixes=("Light",), bw_ladder_gb=(1.0, 4.0)))
+    cfg = FleetConfig(num_workers=2, budget=BUDGET,
+                      stream={"batch_rows": 4}, chunk_rows=4, device="cpu",
+                      **kw, **FLEET_TIMEOUTS)
+    with launch_fleet(cfg) as fleet:
+        res = fleet.run(trace)
+        stats = fleet.worker_stats()
+    assert [r.request.uid for r in res] == [t.uid for t in trace]
+    for r in res:
+        fit = analyze_serial([r.request])[0].fit
+        ref = run_strategy(get_strategy("magma"), fit, budget=BUDGET,
+                           seed=r.request.seed, device="cpu")
+        assert r.best_fitness == ref.best_fitness
+        np.testing.assert_array_equal(r.best_accel, ref.best_accel)
+        np.testing.assert_array_equal(r.history_best, ref.history_best)
+    for i, w in enumerate(sorted(stats)):
+        s = stats[w]
+        if "devices_per_worker" in kw:
+            assert s["shards"] == ["cpu", "cpu"] and s["group"] is None
+        else:
+            assert s["shards"] == ["cpu"]
+            assert s["group"] == {"rank": i, "world_size": 2,
+                                  "backend": "gloo"}
 
 
 def test_engine_fleet_schedule_bitwise_in_process(fleet_runs):

@@ -1,9 +1,10 @@
 """Mesh training on the card: a one-rank NCCL group and its ("data",
-"model") mesh train the smoke granite and qwen2-moe in float32 through
-``repro_torch.launch.train.train_on_mesh``, with losses equal to the
-meshless run's on the same weights and batches within rtol 1e-5 (one
-rank: every shard is the whole tensor, so the same kernels see the same
-operands).
+"model") mesh train the smoke granite, qwen2-moe, falcon-mamba, zamba2
+and seamless in float32 through ``repro_torch.launch.train.
+train_on_mesh`` (falcon-mamba also at one row, a batch dim of size 1),
+with losses equal to the meshless run's on the same weights and batches
+within rtol 1e-5 (one rank: every shard is the whole tensor, so the same
+kernels see the same operands).
 
 Every test here is marked ``gpu`` and skips where no CUDA card is present.
 The module imports no JAX, so on the card's host these run with
@@ -40,12 +41,15 @@ def card_group(tmp_path_factory):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen2-moe-a2.7b"])
-def test_one_rank_mesh_matches_meshless_on_the_card(card_group, arch):
+@pytest.mark.parametrize("arch,batch", [
+    ("granite-3-2b", 4), ("qwen2-moe-a2.7b", 4), ("falcon-mamba-7b", 4),
+    ("falcon-mamba-7b", 1), ("zamba2-1.2b", 4), ("seamless-m4t-medium", 4)])
+def test_one_rank_mesh_matches_meshless_on_the_card(card_group, arch,
+                                                    batch):
     from repro_torch.launch.train import launch_mesh, train_on_mesh
     dev = card_group
     cfg = get_smoke_config(arch).replace(dtype="float32")
-    stream = TokenStream(cfg, 4, 32, seed=0)
+    stream = TokenStream(cfg, batch, 32, seed=0)
     quiet = dict(log_every=0, log_fn=lambda *_: None)
     mesh_hist, plain_hist = [], []
     model, state = train_on_mesh(cfg, launch_mesh(1, "cuda"),

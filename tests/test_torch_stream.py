@@ -450,8 +450,9 @@ def test_host_only_strategy_and_several_cards_rejected():
         TraceConfig(num_scenarios=1, seed=0, **QUICK)))[0].fit
     with pytest.raises(ValueError, match="host-only"):
         _svc().schedule_prepared(fit, strategy="cmaes")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _svc(stream=StreamConfig(max_devices=2))
+    # several devices asked of a CPU service: capped at the one there is
+    assert _svc(stream=StreamConfig(max_devices=2)).devices == \
+        (torch.device("cpu"),)
     with pytest.raises(ValueError, match="memo"):
         _svc(stream=StreamConfig(anytime_budget=100))
 
@@ -684,6 +685,41 @@ def test_whole_slice_against_reference():
     ratio = geomean([r.best_fitness for r in mine]) / \
         geomean([t.best_fitness for t in theirs])
     assert abs(ratio - 1.0) <= RATIO_TOL, ratio
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 4])
+def test_sharded_batches_match_reference_and_rows_stay_bitwise(
+        ndev, monkeypatch):
+    """Batches sharded over a device list of ``ndev`` CPU entries: each
+    batch's ``num_devices`` and padded bucket equal the reference's on the
+    same trace when it sees ``ndev`` devices (``jax.local_devices``
+    reports ``ndev``; its rows run on one device, which changes only
+    where they run), and every row is bitwise its standalone search."""
+    import jax
+    from repro.stream import service as ref_service
+
+    trace_kw = dict(SLICE, num_scenarios=10)
+    cfg = dict(batch_rows=8, analysis_workers=1)
+    mine_svc = _svc(stream=StreamConfig(devices=("cpu",) * ndev, **cfg))
+    mine = mine_svc.run_serial(generate_trace(TraceConfig(**trace_kw)))
+    one = jax.local_devices()[0]
+    monkeypatch.setattr(jax, "local_devices", lambda *a, **k: [one] * ndev)
+    executable = ref_service.row_executable
+    monkeypatch.setattr(ref_service, "row_executable",
+                        lambda *a, **k: executable(*a[:6], 1, **k))
+    ref_svc = ref_stream.StreamingScheduler(
+        budget=BUDGET, stream=ref_stream.StreamConfig(**cfg))
+    ref_svc.run_serial(ref_stream.generate_trace(
+        ref_stream.TraceConfig(**trace_kw)))
+    batches = [(b.rows, b.padded_rows, b.num_devices)
+               for b in mine_svc.last_batches]
+    assert batches == [(b.rows, b.padded_rows, b.num_devices)
+                       for b in ref_svc.last_batches]
+    assert max(b[2] for b in batches) == ndev
+    assert all(b[1] % b[2] == 0 for b in batches)
+    for r in mine:
+        fit = analyze_serial([r.request])[0].fit
+        _assert_rows_equal(r, _standalone(fit, r.request.seed))
 
 
 def measure_ratio_spread(seeds=range(10)):

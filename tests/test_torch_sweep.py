@@ -7,8 +7,10 @@ the batched fitness at rtol 1e-5 (the tolerance of
 bitwise on the CPU, as ``tests/test_sweep.py`` holds the reference's:
 every row ``[s, k]`` of ``run_sweep`` equals the standalone
 ``run_strategy`` of scenario s and seed ``seeds[k]``, for MAGMA and each
-device-resident baseline, chunked or not, with a partial last chunk; and
-the host-stepped ``engine="loop"`` equals the device loop.
+device-resident baseline, chunked or not, with a partial last chunk,
+and with its rows split over a device list of one, two or four CPU
+entries (the shard, pad and gather code of several cards); and the
+host-stepped ``engine="loop"`` equals the device loop.
 """
 import numpy as np
 import pytest
@@ -180,6 +182,62 @@ def test_chunked_sweep_bitwise_with_partial_last_chunk(method):
             (n_chunks, padded, 5)
         assert len(ch.chunk_wall_s) == n_chunks
     assert base.num_chunks == 1 and base.padded_rows == 5
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 4])
+@pytest.mark.parametrize("method", DEVICE_METHODS)
+def test_sharded_sweep_rows_bitwise_standalone(method, ndev):
+    """Five scenarios x one seed split over ``ndev`` devices in chunks of
+    3 rows, rounded up to a multiple of ``ndev`` (3, 4, 4): a partial last
+    chunk, and shard counts that do not divide the rows.  Every row is
+    bitwise its standalone ``run_strategy``."""
+    fns, _ = _grid(5)
+    strategy = get_strategy(method, **KW[method])
+    res = run_sweep(fns, budget=BUDGET, seeds=[7], strategy=strategy,
+                    sweep=SweepConfig(chunk_rows=3, devices=("cpu",) * ndev),
+                    device="cpu")
+    chunk = -(-3 // ndev) * ndev
+    assert (res.num_devices, res.chunk_rows, res.num_chunks,
+            res.padded_rows, res.rows) == (ndev, chunk, 2, 2 * chunk, 5)
+    for s, fn in enumerate(fns):
+        _assert_row(res, s, 0, run_strategy(strategy, fn, budget=BUDGET,
+                                            seed=7, device="cpu"))
+
+
+def test_sharded_rows_keep_warm_starts_and_populations():
+    """``run_rows`` over two devices with warm starts and the memo's
+    population hand-off: the rows and the recorded populations equal the
+    one-device run's."""
+    from repro_torch.memo import ScheduleMemo
+
+    fns, _ = _grid(3)
+    spec = normalize_scenarios(fns)
+    strategy = get_strategy("magma", cfg=CFG).bind(4)
+    rng = np.random.default_rng(2)
+    warm = (rng.integers(0, 4, (3, 20, 12)).astype(np.int32),
+            rng.random((3, 20, 12)).astype(np.float32), np.float32(0.1))
+    runs = []
+    for devices in (("cpu",), ("cpu", "cpu")):
+        memo = ScheduleMemo()
+        rr = run_rows(spec.params, [5, 6, 7], strategy=strategy,
+                      generations=3, evolve_last=False,
+                      objective=spec.objective, device="cpu", memo=memo,
+                      warm=strategy_warm(warm),
+                      sweep=SweepConfig(devices=devices))
+        runs.append((rr, memo.store._records))
+    (one, recs1), (two, recs2) = runs
+    assert two.num_devices == 2 and two.padded_rows == 4
+    _assert_same(one, two)
+    assert sorted(recs1) == sorted(recs2) and len(recs1) == 3
+    for fp, rec in recs1.items():
+        assert rec.has_population
+        for name, a in rec.arrays.items():
+            np.testing.assert_array_equal(recs2[fp].arrays[name], a)
+
+
+def strategy_warm(warm):
+    from repro_torch.core.strategies import WarmStart
+    return WarmStart(*warm)
 
 
 def test_ragged_grid_padding_sliced_off():
