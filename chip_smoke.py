@@ -241,7 +241,9 @@ Phases, in order; any failure raises and exits non-zero:
               first MESH_FAMILY_STEPS steps on the mesh with phase 15's
               seed, schedule and stream: losses within MESH_RTOL of
               phase 15's (bitwise or not, and the grad norms', printed),
-              step ms and its ratio to phase 15's, peak memory; no kernel
+              step ms and its ratio to phase 15's, peak memory; every
+              attention call of each model on the plain path (a one-rank
+              mesh splits nothing; printed and checked); no kernel
               launched; the phase's wall
  dry-run      while phases 12 and 13 run, a process of its own on the
               host's CPU runs repro_torch.launch.dryrun.run_cell on fake
@@ -249,9 +251,11 @@ Phases, in order; any failure raises and exits non-zero:
               9's step shape on one rank (its FLOPs, compute and memory
               terms and traced peak printed beside phase 9's measured
               step and peak, and beside model_flops) and its train_4k
-              cell on the fake 256-rank (16, 16) mesh (wall, per-rank
-              peak, collective bytes by kind, the roofline's dominant
-              term); both cells must return ok
+              and decode_32k cells on the fake 256-rank (16, 16) mesh
+              (wall, per-rank FLOPs against the share of the global
+              count, peak, collective bytes by kind and axis, the
+              roofline's dominant term) and the process's wall; every
+              cell must return ok
 
 The counts of every kernel are set to 0 before each main path (the M3E
 searches, the served batch, phases 9-10 together, "train_eval", the
@@ -271,6 +275,7 @@ its own with this file's measuring code (two versions of the stream held
 on one card in one call: ``git archive`` the other version into a
 directory under build/).
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -320,8 +325,10 @@ MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_STEPS = "qwen2-moe-a2.7b", 2, 2
 MESH_FAMILY_STEPS = 2
 # the dry-run (repro_torch.launch.dryrun), in a process of its own on the
 # host's CPU while phases 12 and 13 run: granite-3-2b at phase 9's step
-# shape on one rank, and its train_4k cell on the fake 256-rank mesh
-DRYRUN_CELLS = (("phase9", (1, 1)), ("train_4k", None))
+# shape on one rank, and its train_4k and decode_32k cells on the fake
+# 256-rank mesh
+DRYRUN_CELLS = (("phase9", (1, 1)), ("train_4k", None), ("decode_32k", None))
+DRYRUN_MESH_CELLS = ("train_4k", "decode_32k")
 DRYRUN_TIMEOUT_S = 600
 # phase 12: the Fig. 9 protocol (benchmarks/fig09_heterogeneous.py:15-19)
 # and Table IV's methods (benchmarks/common.py:24-25)
@@ -752,6 +759,35 @@ def train_phase(dev, fa):
     return model, records, restart
 
 
+@contextlib.contextmanager
+def attention_layouts():
+    """Record the layout of every attention call made on a mesh: the
+    split ``layers._attend_layout`` gives each mesh dim ("whole" on every
+    dim is the plain path on whole tensors)."""
+    from repro_torch.models import layers as L
+    seen, layout = [], L._attend_layout
+
+    def record(*args):
+        lay = layout(*args)
+        seen.append(lay.modes)
+        return lay
+
+    L._attend_layout = record
+    try:
+        yield seen
+    finally:
+        L._attend_layout = layout
+
+
+def plain_attention(seen, what):
+    """Check that every recorded attention call took the plain path (a
+    one-rank mesh splits nothing); the line's words for it."""
+    plain = sum(all(m == "whole" for m in modes) for modes in seen)
+    check(plain == len(seen), f"{what}: {len(seen) - plain} of {len(seen)} "
+          "attention calls on the 1-rank mesh left the plain path")
+    return f"attention: {plain} of {len(seen)} calls on the plain path"
+
+
 def mesh_phase(dev, phase9_steps, family_train):
     """Phase 18: training on a ("data", "model") device mesh of one rank
     (an NCCL group on a file:// store under build/) through the
@@ -803,9 +839,11 @@ def mesh_phase(dev, phase9_steps, family_train):
         cfg = get_config(TRAIN_ARCH)
         stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
         hist = []
-        model, state = launch_train.train_on_mesh(
-            cfg, mesh, launch_train.train_config(TRAIN_STEPS), stream,
-            MESH_STEPS, device=dev, seed=0, history=hist, **quiet)
+        with attention_layouts() as seen:
+            model, state = launch_train.train_on_mesh(
+                cfg, mesh, launch_train.train_config(TRAIN_STEPS), stream,
+                MESH_STEPS, device=dev, seed=0, history=hist, **quiet)
+        granite_attn = plain_attention(seen, cfg.name)
         plain = phase9_steps[:MESH_STEPS]
         bitwise = (same([h["loss"] for h in hist],
                         [h["loss"] for h in plain], "granite losses")
@@ -828,7 +866,8 @@ def mesh_phase(dev, phase9_steps, family_train):
                   f"{gib(h['peak_bytes'])} (phase 9 {gib(p['peak_bytes'])})")
         print(f"[mesh] {cfg.name} on the 1-rank mesh against the meshless "
               f"launcher: losses and grad norms "
-              f"{'bitwise' if bitwise else f'within rtol {MESH_RTOL}'}")
+              f"{'bitwise' if bitwise else f'within rtol {MESH_RTOL}'}; "
+              f"{granite_attn}")
 
         # every gradient tensor of one more granite step through int8
         batch = {k: torch.as_tensor(v, device=dev)
@@ -930,9 +969,11 @@ def mesh_phase(dev, phase9_steps, family_train):
         hist_m, hist_p = [], []
         # the state is dropped before the meshless run: its AdamW moments
         # would count in that run's peak
-        model, state = launch_train.train_on_mesh(
-            cfg_m, mesh, tc_m, stream_m, MESH_MOE_STEPS, device=dev, seed=0,
-            history=hist_m, **quiet)
+        with attention_layouts() as seen:
+            model, state = launch_train.train_on_mesh(
+                cfg_m, mesh, tc_m, stream_m, MESH_MOE_STEPS, device=dev,
+                seed=0, history=hist_m, **quiet)
+        moe_attn = plain_attention(seen, cfg_m.name)
         fresh = get_model(cfg_m, device=dev, generator=torch.Generator(
             device=dev).manual_seed(0))
         moved = [not torch.equal(gathered(p), f) for (_, p), f in
@@ -958,6 +999,9 @@ def mesh_phase(dev, phase9_steps, family_train):
                   f"(meshless {p['grad_norm']:.6f}); {h['wall_s'] * 1e3:.3f}"
                   f" ms (meshless {p['wall_s'] * 1e3:.3f}), peak "
                   f"{gib(h['peak_bytes'])} (meshless {gib(p['peak_bytes'])})")
+        print(f"[mesh] {cfg_m.name} on the 1-rank mesh: losses "
+              f"{'bitwise' if moe_bitwise else f'within rtol {MESH_RTOL}'} "
+              f"the meshless run's; {moe_attn}")
         # the SSM, hybrid and encoder-decoder families, against phase 15's
         # meshless runs of the same configurations (seed, schedule and
         # stream), the first MESH_FAMILY_STEPS of their steps
@@ -967,10 +1011,12 @@ def mesh_phase(dev, phase9_steps, family_train):
             if layers is not None:
                 cfg_f = cfg_f.replace(num_layers=layers)
             hist_f = []
-            model, state = launch_train.train_on_mesh(
-                cfg_f, mesh, launch_train.train_config(steps),
-                TokenStream(cfg_f, B, S, seed=0), MESH_FAMILY_STEPS,
-                device=dev, seed=0, history=hist_f, **quiet)
+            with attention_layouts() as seen:
+                model, state = launch_train.train_on_mesh(
+                    cfg_f, mesh, launch_train.train_config(steps),
+                    TokenStream(cfg_f, B, S, seed=0), MESH_FAMILY_STEPS,
+                    device=dev, seed=0, history=hist_f, **quiet)
+            family_attn = plain_attention(seen, arch)
             del model, state
             free(dev)
             plain = family_train[arch]["steps"][:MESH_FAMILY_STEPS]
@@ -1006,7 +1052,7 @@ def mesh_phase(dev, phase9_steps, family_train):
             grad_norms = ("bitwise" if rec["grad_norms_bitwise"] else
                           f"max rel diff {rec['grad_norm_max_rel_diff']:.3e}")
             print(f"[mesh] {arch} on the 1-rank mesh against phase 15: "
-                  f"losses {losses}, grad norms {grad_norms}")
+                  f"losses {losses}, grad norms {grad_norms}; {family_attn}")
             out["families"][arch] = rec
 
         out["moe"] = {"layers": MESH_MOE_LAYERS,
@@ -3197,7 +3243,9 @@ def dryrun_cells():
     """The dry-run's cells through ``repro_torch.launch.dryrun.run_cell``
     (fake tensors, a fake process group; the host's CPU): TRAIN_ARCH at
     phase 9's step shape (B=TRAIN_BATCH, S=TRAIN_SEQ) on one rank, and its
-    train_4k cell on the production (16, 16) mesh."""
+    train_4k and decode_32k cells on the production (16, 16) mesh; the
+    whole process's wall as ``wall_s``."""
+    t_all = time.perf_counter()
     import torch
     from repro_torch.launch import dryrun
     from repro_torch.models.config import SHAPES, ShapeConfig
@@ -3210,6 +3258,7 @@ def dryrun_cells():
                               mesh_shape=mesh, verbose=False)
         rec["wall_s"] = time.perf_counter() - t0
         out[name] = rec
+    out["wall_s"] = time.perf_counter() - t_all
     return out
 
 
@@ -3225,10 +3274,11 @@ def dryrun_main(path):
 
 def dryrun_report(out, phase9_steps):
     """Print the dry-run's cells: phase 9's step shape beside phase 9's
-    measured step and ``model_flops``, and the 256-rank cell's wall,
-    per-rank peak and collective bytes.  Fails when a cell failed."""
-    step, cell = out["phase9"], out["train_4k"]
-    for name in ("phase9", "train_4k"):
+    measured step and ``model_flops``, and each 256-rank cell's wall,
+    per-rank FLOPs against its share of the global count, peak and
+    collective bytes.  Fails when a cell failed."""
+    step = out["phase9"]
+    for name in ("phase9",) + DRYRUN_MESH_CELLS:
         check(out[name]["ok"], f"dry-run {TRAIN_ARCH} {name} failed: "
                                f"{out[name].get('error')}\n"
                                f"{out[name].get('traceback', '')}")
@@ -3249,16 +3299,28 @@ def dryrun_report(out, phase9_steps):
           f"compute term; peak {step['mem_peak_gib']:.2f} GiB traced "
           f"against {max(p['peak_bytes'] for p in phase9_steps) / GB:.2f} "
           f"GiB measured; trace wall {step['wall_s']:.3f} s")
-    print(f"[dryrun] {TRAIN_ARCH} train_4k on the fake {cell['mesh']} mesh "
-          f"({cell['chips']} ranks): wall {cell['wall_s']:.3f} s; per rank: "
-          f"peak {cell['mem_peak_gib']:.2f} GiB (state "
-          f"{cell['mem_params_gib'] + cell['mem_grads_gib'] + cell['mem_opt_gib']:.3f}"
-          f" GiB), collective bytes {cell['collective_bytes_per_chip']:.6e} "
-          f"({', '.join(f'{k} {v:.3e}' for k, v in cell['collectives'].items())}"
-          f"), roofline dominant {cell['roofline']['dominant']}, fraction "
-          f"{cell['roofline']['roofline_fraction']:.3e}")
-    return {"phase9_shape": step, "train_4k": cell,
-            "phase9_measured_ms": measured_ms}
+    for name in DRYRUN_MESH_CELLS:
+        cell = out[name]
+        share = cell["flops_global"] / cell["chips"]
+        state = sum(cell.get(k, 0.0) for k in ("mem_params_gib",
+                                                "mem_grads_gib",
+                                                "mem_opt_gib"))
+        print(f"[dryrun] {TRAIN_ARCH} {name} on the fake {cell['mesh']} "
+              f"mesh ({cell['chips']} ranks): wall {cell['wall_s']:.3f} s; "
+              f"per rank: FLOPs {cell['per_device_flops']:.6e} against a "
+              f"share of {share:.6e} ({cell['per_device_flops'] / share:.3f}"
+              f"x), peak {cell['mem_peak_gib']:.2f} GiB (held "
+              f"{cell['mem_args_gib']:.3f}, state {state:.3f} GiB), "
+              f"collective bytes {cell['collective_bytes_per_chip']:.6e} ("
+              + ", ".join(f"{k} {v:.3e}" for k, v in
+                          cell["collective_bytes_by_kind_axis"].items())
+              + f"), roofline dominant {cell['roofline']['dominant']}, "
+              f"fraction {cell['roofline']['roofline_fraction']:.3e}")
+    print(f"[dryrun] the side process's cells took {out['wall_s']:.3f} s "
+          "of the host's CPU")
+    return {"phase9_shape": step, "phase9_measured_ms": measured_ms,
+            "wall_s": out["wall_s"],
+            **{name: out[name] for name in DRYRUN_MESH_CELLS}}
 
 
 def main():

@@ -54,7 +54,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map
 
@@ -168,9 +168,10 @@ class RankCounter(TorchDispatchMode):
     """Counts what rank 0 issues on its shards: DTensor operations are
     let through (``NotImplemented``) and seen again as the local
     operations and collectives they run.  Collectives: output bytes and
-    counts by kind and by mesh axis (the group's axis, -1 for a group
-    that is no single axis); HBM bytes: inputs and outputs of every other
-    operation, views excepted; FLOPs: the flop counter's formulas."""
+    counts by kind, by mesh axis (the group's axis, -1 for a group that
+    is no single axis) and by both; HBM bytes: inputs and outputs of
+    every other operation, views excepted; FLOPs: the flop counter's
+    formulas, in all, by operation and by operation and input shapes."""
 
     def __init__(self, axis_of_group: Dict[str, int]):
         super().__init__()
@@ -180,6 +181,10 @@ class RankCounter(TorchDispatchMode):
         self.coll_bytes: Dict[str, float] = collections.Counter()
         self.coll_counts: Dict[str, int] = collections.Counter()
         self.axis_bytes: Dict[int, float] = collections.Counter()
+        self.kind_axis_bytes: Dict[Tuple[str, int], float] = \
+            collections.Counter()
+        self.op_flops: Dict[str, float] = collections.Counter()
+        self.shape_flops: Dict[str, float] = collections.Counter()
         self.hbm_bytes = 0.0
         self.flops = 0.0
 
@@ -199,12 +204,18 @@ class RankCounter(TorchDispatchMode):
             nb = sum(_nbytes(t) for t in tree_flatten(out)[0])
             self.coll_bytes[kind] += nb
             self.coll_counts[kind] += 1
-            self.axis_bytes[self.axis_of_group.get(group, -1)] += nb
+            axis = self.axis_of_group.get(group, -1)
+            self.axis_bytes[axis] += nb
+            self.kind_axis_bytes[kind, axis] += nb
             return out
         packet = func._overloadpacket
         if packet in self.flop_registry:
-            self.flops += self.flop_registry[packet](*args, **kwargs,
-                                                     out_val=out)
+            f = self.flop_registry[packet](*args, **kwargs, out_val=out)
+            self.flops += f
+            self.op_flops[name] += f
+            self.shape_flops[f"{name} " + " x ".join(
+                str(tuple(a.shape)) for a in args
+                if isinstance(a, torch.Tensor))] += f
         if not func.is_view and name not in _NO_TRAFFIC:
             self.hbm_bytes += sum(_nbytes(t) for t in
                                   tree_flatten((args, kwargs))[0])
@@ -274,16 +285,31 @@ def build_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh, rules):
     return step, (batch,)
 
 
+def _fake_shard(spec: torch.Tensor, sh) -> DTensor:
+    """A DTensor of ``spec``'s global shape placed by ``sh``, made from
+    the rank's shard alone: a whole tensor made first would count in the
+    traced peak (the whole cache of a decode cell on 256 ranks is 256
+    shards)."""
+    local, coord = list(spec.shape), sh.mesh.get_coordinate()
+    for i, p in enumerate(sh.placements):      # DTensor's chunks, in order
+        if p.is_shard():
+            n = local[p.dim]
+            chunk = -(-n // sh.mesh.size(i))
+            local[p.dim] = max(0, min(chunk, n - coord[i] * chunk))
+    return DTensor.from_local(torch.empty(local, dtype=spec.dtype), sh.mesh,
+                              sh.placements, run_check=False,
+                              shape=spec.shape, stride=spec.stride())
+
+
 def build_decode(cfg: ModelConfig, shape: ShapeConfig, mesh, rules):
     model = _placed_model(cfg, mesh, rules)
     cache, tok, _ = decode_input_specs(cfg, shape, get_model(cfg,
                                                              device="meta"))
-    cache = tree_map(_fake_like, cache)
     tokens = _fake_like(tok)
-    if mesh is not None:
-        shardings = cache_shardings(cache, mesh)
-        cache = tree_map(lambda t, sh: distribute_tensor(
-            t, sh.mesh, sh.placements, src_data_rank=None), cache, shardings)
+    if mesh is None:
+        cache = tree_map(_fake_like, cache)
+    else:
+        cache = tree_map(_fake_shard, cache, cache_shardings(cache, mesh))
         tokens = shard_batch({"tokens": tokens}, mesh)["tokens"]
 
     def step(cache, tokens):
@@ -385,6 +411,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             collective_bytes_by_axis={
                 (mesh_axes(mshape)[a] if a >= 0 else "other"): b
                 for a, b in counter.axis_bytes.items()},
+            collective_bytes_by_kind_axis={
+                f"{k}@{mesh_axes(mshape)[a] if a >= 0 else 'other'}": b
+                for (k, a), b in counter.kind_axis_bytes.items()},
+            per_device_flops_by_op=dict(counter.op_flops),
+            per_device_flops_top=dict(counter.shape_flops.most_common(12)),
             comm_debug_counts={str(k).split(".")[-1]: v for k, v in
                                comm.get_comm_counts().items()},
         )

@@ -34,14 +34,15 @@ Activation layouts are annotated with logical axis names through
 identity without an active mesh, so every single-device path is
 unchanged, and a DTensor redistribution inside ``use_mesh``.  On a mesh
 the MoE (top-k sort, one-hot, cumsum, scatter and gather, which have no
-DTensor sharding rule), attention's scores and the embedding lookup run
-on each rank's shards through ``local_map``.
+DTensor sharding rule) and the embedding lookup run on each rank's
+shards through ``local_map``; attention runs on each rank's shards in
+the reference's layout (``attend``).
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -140,6 +141,15 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
+def _merge_heads(ctx: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(..., n, hd) -> (..., n*hd).  On a mesh a split ``head_dim`` is
+    gathered first: the merged dim of a split minor dim is no contiguous
+    shard, and the product with ``wo`` has no sharding rule for it."""
+    if isinstance(ctx, DTensor):
+        ctx = _gather_dim_unless_divides(ctx, ctx.dim() - 1, 1)
+    return ctx.reshape(ctx.shape[:-2] + (n * hd,))
+
+
 def _gather_dim_unless_divides(x: DTensor, dim: int, n: int) -> DTensor:
     """``x`` with ``dim`` replicated when the ranks sharding it do not
     divide ``n``."""
@@ -153,21 +163,28 @@ def _gather_dim_unless_divides(x: DTensor, dim: int, n: int) -> DTensor:
 
 
 def _additive(ok: torch.Tensor) -> torch.Tensor:
-    """0 where ``ok``, -1e30 elsewhere, in float32."""
-    return torch.zeros(ok.shape, dtype=torch.float32,
-                       device=ok.device).masked_fill(~ok, -1e30)
+    """0 where ``ok``, -1e30 elsewhere, in float32 (laid out as ``ok`` on
+    a mesh)."""
+    return torch.zeros_like(ok, dtype=torch.float32).masked_fill(~ok, -1e30)
+
+
+def _logits(q, k, hd: int) -> torch.Tensor:
+    """q: (B,Sq,H,d), k: (B,Sk,Kh,d) -> float32 logits (B,H,Sq,Sk) scaled
+    by 1/sqrt(hd) (``hd`` the whole head dim: d is a rank's slice of it
+    when the head dim is split)."""
+    B, Sq, H, d = q.shape
+    Kh = k.shape[2]
+    group = H // Kh
+    qg = q.reshape(B, Sq, Kh, group, d)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                          k.float()) / math.sqrt(hd)
+    return logits.reshape(B, Kh * group, Sq, -1)
 
 
 def attention_scores(q, k, mask, dtype) -> torch.Tensor:
     """q: (B,Sq,H,hd), k: (B,Sk,Kh,hd) -> weights (B,H,Sq,Sk) given the
     additive ``mask`` broadcastable to (B, 1|H, Sq, Sk)."""
-    B, Sq, H, hd = q.shape
-    Kh = k.shape[2]
-    group = H // Kh
-    qg = q.reshape(B, Sq, Kh, group, hd)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
-                          k.float()) / math.sqrt(hd)
-    logits = logits.reshape(B, Kh * group, Sq, -1) + mask
+    logits = _logits(q, k, q.shape[-1]) + mask
     return torch.softmax(logits, dim=-1).to(dtype)
 
 
@@ -198,43 +215,217 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def _attend_shard(q, k, v, mask, dtype) -> torch.Tensor:
-    """``_attend_plain`` on one rank's shards, with contiguous output and
-    input gradients (the einsums leave both permuted)."""
-    q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
-    return _attend_plain(q, k, v, mask, dtype).contiguous()
+def _all_reduce(x: torch.Tensor, op: str, group: str) -> torch.Tensor:
+    """``x`` reduced by ``op`` ("sum", "max") over the ranks of the process
+    group named ``group`` (a functional collective, as DTensor issues)."""
+    out = torch.ops._c10d_functional.all_reduce(x.contiguous(), op, group)
+    return torch.ops._c10d_functional.wait_tensor(out)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum over a group's ranks of partial values whose gradients are
+    partial too: each rank's gradient covers only its own downstream
+    share, so the backward pass sums the gradients as well."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.group), None
+
+
+class _Layout(NamedTuple):
+    """How ``attend`` splits each mesh dim (size > 1) among the ranks:
+    "batch" (q, k, v and a per-row mask split by rows), "heads" (q's
+    heads; k and v split alike where the ranks divide Kh, else whole),
+    "head_dim" (q, k and v split on dim 3: partial logits, summed),
+    "kv_seq" (k, v and the mask split by key position: split-K) or
+    "whole"."""
+    mesh: object
+    modes: Tuple[str, ...]
+    kv_aligned: bool       # "heads" splits k and v too
+    hd: int                # the whole head dim: the logits' scale
+
+    def groups(self, mode: str):
+        """The process groups of the mesh dims split as ``mode``."""
+        return [self.mesh.get_group(i).group_name
+                for i, m in enumerate(self.modes) if m == mode]
+
+
+def _attend_layout(q: DTensor, k, mask, split_keys: bool = True
+                   ) -> _Layout:
+    """The reference's layout for one attention call: each mesh dim keeps
+    the split its inputs carry (k's ``kv_seq`` first, unless
+    ``split_keys`` is off, then the batch, the head dim and q's heads)
+    where the ranks divide what they split."""
+    mesh = q.device_mesh
+    kp = k.placements if isinstance(k, DTensor) else \
+        (Replicate(),) * mesh.ndim
+    B, H, hd, Sk = q.shape[0], q.shape[2], q.shape[3], k.shape[1]
+    modes = []
+    for i, (qp, p) in enumerate(zip(q.placements, kp)):
+        if mesh.size(i) == 1:
+            modes.append("whole")
+        elif p.is_shard(1) and split_keys:
+            modes.append("kv_seq")
+        elif qp.is_shard(0) or p.is_shard(0):
+            modes.append("batch")
+        elif qp.is_shard(3) or p.is_shard(3):
+            modes.append("head_dim")
+        elif qp.is_shard(2) or p.is_shard(2):
+            modes.append("heads")
+        else:
+            modes.append("whole")
+
+    def ranks(mode):
+        return math.prod(mesh.size(i) for i, m in enumerate(modes)
+                         if m == mode)
+
+    size = {"batch": B, "heads": H, "head_dim": hd, "kv_seq": Sk}
+    for mode, n in size.items():
+        if n % ranks(mode) or (mode == "batch" and mask is not None and
+                               mask.shape[0] not in (1, B)):
+            modes = [("whole" if m == mode else m) for m in modes]
+    return _Layout(mesh, tuple(modes), k.shape[2] % ranks("heads") == 0, hd)
+
+
+def _placements(lay: _Layout, of: str, mask_shape=None):
+    """Per-mesh-dim placements of q (and the output), k and v, or the
+    mask."""
+    dims = {"q": {"batch": 0, "heads": 2, "head_dim": 3},
+            "kv": {"batch": 0, "head_dim": 3, "kv_seq": 1,
+                   **({"heads": 2} if lay.kv_aligned else {})},
+            "mask": {"batch": 0, "heads": 1, "kv_seq": 3}}[of]
+    out = []
+    for m in lay.modes:
+        d = dims.get(m)
+        if of == "mask" and d is not None and mask_shape[d] == 1:
+            d = None
+        out.append(Replicate() if d is None else Shard(d))
+    return tuple(out)
+
+
+def _kv_for_heads(kv, first: int, n: int, group: int):
+    """The kv heads of q heads ``first .. first+n-1`` (kv head h // group
+    serves q head h): the slice of them when each serves the same number
+    of the n heads in order, else one kv head per q head."""
+    want = [(first + j) // group for j in range(n)]
+    lo, span = want[0], want[-1] - want[0] + 1
+    if n % span == 0 and want == [lo + j // (n // span) for j in range(n)]:
+        return kv[:, :, lo:lo + span]
+    return kv[:, :, want]
+
+
+def _to_ranks(q: DTensor, k, v, mask, split_keys: bool = True):
+    """(layout, and this rank's q, k, v and mask) of an attention call on
+    a mesh; ``mask`` None stays None.  k and v left whole under "heads"
+    are cut to the kv heads of the rank's q heads, and their gradients
+    marked partial sums over those ranks."""
+    lay = _attend_layout(q, k, mask, split_keys)
+    mesh, modes = lay.mesh, lay.modes
+    if "kv_seq" in modes and torch.is_grad_enabled() and \
+            any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "attention over a key sequence split among ranks (split-K) is "
+            "forward-only: decode under torch.no_grad()")
+    if not isinstance(k, DTensor):
+        k, v = (on_mesh(t, mesh) for t in (k, v))
+    kvpl = _placements(lay, "kv")
+    kv_grad = tuple(Partial() if m == "heads" and not lay.kv_aligned else p
+                    for m, p in zip(modes, kvpl))
+    ql = q.redistribute(mesh, _placements(lay, "q")).to_local()
+    kl, vl = (t.redistribute(mesh, kvpl).to_local(grad_placements=kv_grad)
+              for t in (k, v))
+    ql, kl, vl = (_ContiguousGrad.apply(t) for t in (ql, kl, vl))
+    if "heads" in modes and not lay.kv_aligned:
+        block, coord = 0, mesh.get_coordinate()
+        for i, m in enumerate(modes):
+            if m == "heads":
+                block = block * mesh.size(i) + coord[i]
+        n, group = ql.shape[2], q.shape[2] // k.shape[2]
+        kl, vl = (_kv_for_heads(t, block * n, n, group) for t in (kl, vl))
+    ml = None
+    if mask is not None:
+        mask = mask if isinstance(mask, DTensor) else on_mesh(mask, mesh)
+        ml = mask.redistribute(mesh, _placements(lay, "mask", mask.shape)
+                               ).to_local()
+    return lay, ql, kl, vl, ml
+
+
+def _attend_split_k(q, k, v, mask, dtype, hd: int, groups,
+                    hd_groups=()) -> torch.Tensor:
+    """Attention over keys split among the ranks of ``groups``, merged as
+    in split-K (flash-decoding): the global row max, then the sums of
+    exp(s - max) and of the unnormalised contexts, O(B·H·hd) bytes.  The
+    logits of a head dim split over ``hd_groups`` are summed first."""
+    logits = _logits(q, k, hd)                          # (B,H,Sq,Sk_rank)
+    for g in hd_groups:
+        logits = _all_reduce(logits, "sum", g)
+    logits = logits + mask
+    m = logits.amax(dim=-1, keepdim=True)
+    for g in groups:
+        m = _all_reduce(m, "max", g)
+    p = torch.exp(logits - m)
+    ctx = attention_context(p, v)                       # (B,Sq,H,hd) f32
+    lsum = p.sum(dim=-1).transpose(1, 2)[..., None]     # (B,Sq,H,1)
+    both = torch.cat([ctx, lsum], dim=-1)
+    for g in groups:
+        both = _all_reduce(both, "sum", g)
+    return (both[..., :-1] / both[..., -1:]).to(dtype)
+
+
+def _attend_ranks(lay: _Layout, q, k, v, mask, dtype) -> torch.Tensor:
+    """One rank's attention on its local q, k, v and mask (``_to_ranks``)
+    in the layout ``lay``."""
+    keys, dims = lay.groups("kv_seq"), lay.groups("head_dim")
+    if keys:
+        return _attend_split_k(q, k, v, mask, dtype, lay.hd, keys, dims)
+    if not dims:
+        return _attend_plain(q, k, v, mask, dtype)
+    logits = _logits(q, k, lay.hd)
+    for g in dims:
+        logits = _SumOverRanks.apply(logits, g)
+    w = torch.softmax(logits + mask, dim=-1).to(dtype)
+    return attention_context(w, v).to(dtype)
+
+
+def _from_ranks(lay: _Layout, out: torch.Tensor) -> DTensor:
+    """The (B, Sq, H, hd) DTensor of each rank's attention output."""
+    return DTensor.from_local(out.contiguous(), lay.mesh,
+                              _placements(lay, "q"), run_check=False)
 
 
 def attend(q, k, v, mask, dtype) -> torch.Tensor:
     """Softmax attention of q (B, Sq, H, hd) over k, v (B, Sk, Kh, hd)
-    under the additive ``mask``: (B, Sq, H, hd) in ``dtype``.
+    under the additive 4-d ``mask`` (B|1, 1, Sq|1, Sk): (B, Sq, H, hd) in
+    ``dtype``.
 
-    On a mesh the scores and context run on each rank's shard
-    (``local_map``): the einsums' reshapes flatten the sharded head dim
-    into the batch, which DTensor refuses.  Heads are independent, so a
-    rank keeps the q heads of the kv heads it holds: a mesh dim shards
-    the heads only where it divides Kh (GQA groups stay whole), and the
-    batch where the mask is shared by all rows; on every other mesh dim
-    q, k and v are replicated, so each rank computes whole gradients."""
+    On a mesh each rank attends on its shards, in the reference's layout
+    (``_attend_layout``): nothing the reference leaves split is gathered.
+    The scores' reshapes flatten the heads into the batch, which DTensor
+    refuses on a split dim, so the products run on local tensors:
+
+    - "heads": a rank's H/m q heads attend over the kv heads they read
+      (h // (H/Kh)); where the ranks do not divide Kh, k and v stay whole
+      on every rank and their gradients are partial sums (reduced by
+      DTensor where they meet the whole tensors).
+    - "head_dim": the logits are partial sums over the slices of the head
+      dim, summed over the ranks (forward and backward) before the mask
+      and the softmax; the context is the rank's slice.
+    - "kv_seq": split-K over the ranks' key positions
+      (``_attend_split_k``).  Decode runs it without gradients; a
+      grad-enabled call whose inputs require grad raises.
+    - "batch": rows are independent; a per-row mask is split alike.
+
+    A mesh dim of size 1 splits nothing, so on a one-rank mesh this is
+    ``_attend_plain`` on the whole tensors, bitwise."""
     if not isinstance(q, DTensor):
         return _attend_plain(q, k, v, mask, dtype)
-    mesh, Kh = q.device_mesh, k.shape[2]
-    shared_mask = mask.dim() < 4 or mask.shape[0] == 1
-    placements, heads = [], 1
-    for i, p in enumerate(q.placements):
-        if p.is_shard(0) and shared_mask:
-            placements.append(Shard(0))
-        elif p.is_shard(2) and Kh % (heads * mesh.size(i)) == 0:
-            heads *= mesh.size(i)
-            placements.append(Shard(2))
-        else:
-            placements.append(Replicate())
-    placements = tuple(placements)
-    q, k, v = (t.redistribute(mesh, placements) for t in (q, k, v))
-    fn = local_map(_attend_shard, out_placements=(placements,),
-                   in_placements=(placements, placements, placements, None,
-                                  None), device_mesh=mesh)
-    return fn(q, k, v, mask, dtype)
+    lay, ql, kl, vl, ml = _to_ranks(q, k, v, mask)
+    return _from_ranks(lay, _attend_ranks(lay, ql, kl, vl, ml, dtype))
 
 
 def causal_mask(sq: int, sk: int, window: int = 0, q_offset: int = 0,
@@ -248,11 +439,19 @@ def causal_mask(sq: int, sk: int, window: int = 0, q_offset: int = 0,
     return _additive(ok)[None, None]
 
 
-def _chunked_attention(q, k, v, *, causal, window, q_chunk, dtype):
+def _chunked_attention(q, k, v, *, causal, window, q_chunk, dtype,
+                       attend_fn=attend):
     """Exact attention with the query axis processed in chunks of
     ``q_chunk``: a row's softmax does not depend on other rows, so the
     score buffer is (B, H, q_chunk, Sk).  With a sliding window each
-    chunk attends only to its q_chunk + window columns."""
+    chunk attends only to its q_chunk + window columns.  On a mesh the
+    chunks run on each rank's shards in one layout, so the partial
+    gradients of whole k and v are reduced once, not once a chunk."""
+    if isinstance(q, DTensor):
+        lay, ql, kl, vl, _ = _to_ranks(q, k, v, None, split_keys=False)
+        return _from_ranks(lay, _chunked_attention(
+            ql, kl, vl, causal=causal, window=window, q_chunk=q_chunk,
+            dtype=dtype, attend_fn=functools.partial(_attend_ranks, lay)))
     B, S, H, D = q.shape
     use_kv_slice = bool(window) and window + q_chunk < S
     chunks = []
@@ -274,8 +473,8 @@ def _chunked_attention(q, k, v, *, causal, window, q_chunk, dtype):
             ok &= kpos <= qpos
         if window:
             ok &= kpos > qpos - window
-        chunks.append(attend(q_i, k_i, v_i, _additive(ok)[None, None],
-                             dtype))
+        chunks.append(attend_fn(q_i, k_i, v_i, _additive(ok)[None, None],
+                                dtype))
     return torch.cat(chunks, dim=1)
 
 
@@ -290,7 +489,7 @@ def full_attention(p: AttnParams, x, *, n_heads, n_kv, head_dim, rope_theta,
     rest through dense attention.  The JAX package's unused layer index
     ``li``, its ``flash_interpret`` switch and its ``positions`` argument
     (no caller passes it) have no counterpart."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     q = _split_heads(x @ p.wq, n_heads, head_dim)
     k = _split_heads(x @ p.wk, n_kv, head_dim)
@@ -311,7 +510,7 @@ def full_attention(p: AttnParams, x, *, n_heads, n_kv, head_dim, rope_theta,
                 torch.zeros((1, 1, 1, S), device=x.device))
         ctx = attend(q, k, v, mask, x.dtype)
     ctx = constrain(ctx, "batch", "seq", "heads", "head_dim")
-    out = ctx.reshape(B, S, n_heads * head_dim) @ p.wo
+    out = _merge_heads(ctx, n_heads, head_dim) @ p.wo
     return constrain(out, "batch", "seq", "embed")
 
 
@@ -335,7 +534,7 @@ def prefill_attention(p: AttnParams, x, capacity: int, *, n_heads, n_kv,
     else:
         mask = causal_mask(S, S, window, device=x.device)
         ctx = attend(q, k, v, mask, x.dtype)
-    out = ctx.reshape(B, S, n_heads * head_dim) @ p.wo
+    out = _merge_heads(ctx, n_heads, head_dim) @ p.wo
 
     C = capacity
     if S >= C:
@@ -384,9 +583,9 @@ def decode_attention(p: AttnParams, x, cache: KVCache, cur_pos: int, *,
     valid = (cp >= 0) & (cp <= cur_pos)
     if window:
         valid &= cp > cur_pos - window
-    mask = gathered(_additive(valid)[:, None, None, :])      # (B,1,1,C)
+    mask = _additive(valid)[:, None, None, :]      # (B,1,1,C)
     ctx = attend(q, ck, cv, mask, x.dtype)
-    out = ctx.reshape(B, 1, n_heads * head_dim) @ p.wo
+    out = _merge_heads(ctx, n_heads, head_dim) @ p.wo
     return constrain(out, "batch", None, "embed"), cache
 
 
@@ -421,12 +620,11 @@ def _write_slot(buf, slot: int, value) -> None:
 def cross_attention(p: AttnParams, x, enc_kv, *, n_heads, n_kv, head_dim):
     """Decoder -> encoder attention over the precomputed ``enc_kv`` = (k,
     v), each (B, Se, Kh, hd): no rope and no mask over the encoder."""
-    B, S, _ = x.shape
     q = _split_heads(x @ p.wq, n_heads, head_dim)
     k, v = enc_kv
     mask = torch.zeros((1, 1, 1, k.shape[1]), device=x.device)
     ctx = attend(q, k, v, mask, x.dtype)
-    out = ctx.reshape(B, S, n_heads * head_dim) @ p.wo
+    out = _merge_heads(ctx, n_heads, head_dim) @ p.wo
     return constrain(out, "batch", "seq", "embed")
 
 
@@ -755,6 +953,26 @@ def pad_vocab(vocab: int, multiple: int = 128) -> int:
     return int(math.ceil(vocab / multiple) * multiple)
 
 
+def _gather_last(x, idx):
+    return torch.gather(x, -1, idx)
+
+
+def _take_last(x, idx):
+    """``torch.gather(x, -1, idx)``.  On a mesh each rank gathers from its
+    rows with the last dim whole (``local_map``): DTensor's gather
+    backward would make a zeros of x's global shape, replicated, on every
+    rank (for the loss, the whole batch's logits)."""
+    if not isinstance(x, DTensor):
+        return _gather_last(x, idx)
+    mesh = x.device_mesh
+    x = _gather_dim_unless_divides(x, x.dim() - 1, 1)
+    idx = (idx if isinstance(idx, DTensor) else on_mesh(idx, mesh)
+           ).redistribute(mesh, x.placements)
+    return local_map(_gather_last, out_placements=(x.placements,),
+                     in_placements=(x.placements, x.placements),
+                     device_mesh=mesh)(x, idx)
+
+
 def nll_loss(table, h, labels, vocab: int, vocab_padded: int,
              seq_chunk: int = 0) -> torch.Tensor:
     """Next-token NLL (float32 scalar) of the tied head over ``h`` (B, S,
@@ -773,7 +991,7 @@ def nll_loss(table, h, labels, vocab: int, vocab_padded: int,
         lp = torch.log_softmax(logits, dim=-1)
         # an ignored label (< 0) reads entry 0; the mask zeroes it
         idx = lab_i.long().clamp_min(0)[..., None]
-        tgt = torch.gather(lp, -1, idx)[..., 0]
+        tgt = _take_last(lp, idx)[..., 0]
         mask = (lab_i >= 0).float()
         return (tgt * mask).sum(), mask.sum()
 

@@ -8,6 +8,7 @@ processes never load JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import time
@@ -30,9 +31,9 @@ def granite_cfg():
     return get_smoke_config("granite-3-2b").replace(**GRANITE)
 
 
-def smoke_cfg(arch):
+def smoke_cfg(arch, **overrides):
     from repro_torch.configs import get_smoke_config
-    return get_smoke_config(arch).replace(dtype="float32")
+    return get_smoke_config(arch).replace(dtype="float32", **overrides)
 
 
 def _model(cfg, weights=None, seed=0):
@@ -120,10 +121,39 @@ def job_elastic(rank, out, weights, ckpt_dir):
             "losses": [h["loss"] for h in hist]}
 
 
-def job_grads(rank, out, arch, weights=None):
-    """One step's loss and gathered gradients of ``arch``'s smoke config on
-    the (2, 2) mesh (its seed-0 weights, or the state dict at
-    ``weights``), then a 3-step loss trajectory."""
+@contextlib.contextmanager
+def attend_probe():
+    """Record every attention call's layout (``layers._attend_layout``:
+    the split of each mesh dim) and the local shapes of q and k at its
+    products (``layers._logits``, after a rank's kv heads are picked)."""
+    from repro_torch.models import layers as L
+
+    seen = {"modes": [], "shapes": []}
+    layout, logits = L._attend_layout, L._logits
+
+    def rec_layout(*args):
+        lay = layout(*args)
+        seen["modes"].append(lay.modes)
+        return lay
+
+    def rec_logits(q, k, hd):
+        seen["shapes"].append((tuple(q.shape), tuple(k.shape)))
+        return logits(q, k, hd)
+
+    L._attend_layout, L._logits = rec_layout, rec_logits
+    try:
+        yield seen
+    finally:
+        L._attend_layout, L._logits = layout, logits
+
+
+def job_grads(rank, out, arch, weights=None, mesh_shape=(2, 2), seq=SEQ,
+              overrides=None):
+    """One step's loss and gathered gradients of ``arch``'s smoke config
+    (with ``overrides``) on a ("data", "model") mesh of ``mesh_shape``
+    (its seed-0 weights, or the state dict at ``weights``), with the
+    attention calls' layouts and local shapes; then a 3-step loss
+    trajectory."""
     from repro_torch.dist.sharding import (gathered, make_mesh, shard_batch,
                                           use_mesh)
     from repro_torch.launch.train import shard_model
@@ -131,24 +161,25 @@ def job_grads(rank, out, arch, weights=None):
     from repro_torch.train.data import TokenStream
     from repro_torch.train.loop import TrainConfig, train
 
-    cfg = smoke_cfg(arch)
-    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
-    rules = sharding_rules(cfg, 2)
+    cfg = smoke_cfg(arch, **(overrides or {}))
+    mesh = make_mesh(mesh_shape, ("data", "model"), "cpu")
+    rules = sharding_rules(cfg, mesh_shape[1])
     model = shard_model(_model(cfg, weights), mesh, rules)
-    stream = TokenStream(cfg, BATCH, SEQ, seed=0)
+    stream = TokenStream(cfg, BATCH, seq, seed=0)
     batch = {k: torch.as_tensor(v) for k, v in stream.batch_at(0).items()}
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
     with use_mesh(mesh, rules):
-        loss = gathered(model.loss(shard_batch(batch, mesh))[0])
+        with attend_probe() as seen:
+            loss = gathered(model.loss(shard_batch(batch, mesh))[0])
         grads = torch.autograd.grad(loss, list(params.values()))
         grads = {k: gathered(g).detach() for k, g in zip(params, grads)}
         hist = []
         train(model, TrainConfig(**TRAIN), stream, 3, history=hist,
               **_quiet())
     return {"loss": float(loss.detach()), "grads": grads if rank == 0 else None,
-            "losses": [h["loss"] for h in hist],
+            "losses": [h["loss"] for h in hist], "attend": seen,
             "placements": {k: tuple(p.placements) for k, p in params.items()}}
 
 
@@ -280,6 +311,53 @@ def job_decode(rank, out, arch):
     return {"logits": logits, "cache": cache} if rank == 0 else {}
 
 
+def greedy_inputs(cfg, model):
+    """A prefilled cache of ``model`` (seeded prompt of SEQ // 2 tokens,
+    capacity SEQ), the prompt and the greedy next tokens."""
+    rng = np.random.default_rng(11)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (BATCH, SEQ // 2)),
+                             dtype=torch.int32)
+    with torch.no_grad():
+        lg, cache = model.prefill({"tokens": prompt}, SEQ)
+    return cache, prompt, torch.argmax(lg[:, -1], -1)[:, None]
+
+
+def job_greedy(rank, out, arch, weights=None, steps=SEQ // 2):
+    """``steps`` greedy decode steps of ``arch``'s smoke model (weights at
+    ``weights``) on the (2, 2) mesh, from a meshless prefill's cache
+    placed by ``cache_shardings`` (the ring split over 'model', the rows
+    over 'data'): each step's logits and token, and the attention calls'
+    layouts and local shapes."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.dist.sharding import gathered, make_mesh, shard_batch, \
+        use_mesh
+    from repro_torch.launch.shardings import cache_shardings
+    from repro_torch.launch.train import shard_model
+    from repro_torch.models.registry import sharding_rules
+
+    cfg = smoke_cfg(arch)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    rules = sharding_rules(cfg, 2)
+    model = _model(cfg, weights)
+    cache, _, cur = greedy_inputs(cfg, model)
+    model = shard_model(model, mesh, rules)
+    cache = tree_map(lambda t, sh: distribute_tensor(
+        t, sh.mesh, sh.placements, src_data_rank=None), cache,
+        cache_shardings(cache, mesh))
+    logits, tokens = [], []
+    with torch.no_grad(), use_mesh(mesh, rules), attend_probe() as seen:
+        for s in range(steps):
+            lg, cache = model.decode_step(
+                cache, shard_batch({"t": cur}, mesh)["t"], SEQ // 2 + s)
+            lg = gathered(lg)
+            cur = torch.argmax(lg[:, -1], -1)[:, None]
+            logits.append(lg.clone())
+            tokens.append(cur.clone())
+    return {"logits": logits, "tokens": tokens, "attend": seen}
+
+
 def job_launcher(rank, out, ckpt_dir):
     """The launcher's ``main`` in the 4-rank group: granite, qwen2-moe and
     falcon-mamba train 3 steps."""
@@ -362,7 +440,7 @@ JOBS = {"placements": job_placements, "granite": job_granite,
         "elastic": job_elastic, "grads": job_grads,
         "moe_layer": job_moe_layer, "launcher": job_launcher,
         "ckpt_roundtrip": job_ckpt_roundtrip, "decode": job_decode,
-        "compress": job_compress}
+        "greedy": job_greedy, "compress": job_compress}
 
 
 def run(rank, world, store, out, jobs):

@@ -156,3 +156,142 @@ def test_skipped_cell_and_no_jax():
         env=dict(os.environ, PYTHONPATH=src), capture_output=True,
         text=True, check=True)
     assert out.stdout.strip() == "[]"
+
+
+def _attention_on_fake_mesh(mesh_shape, arch="granite-3-2b", B=2, S=16):
+    """One ``layers.attend`` call, forward and backward, at the smoke
+    config's widths: q, k and v laid out as ``full_attention`` lays them
+    out, counted by the dry-run's ``RankCounter`` on a fake mesh of
+    ``mesh_shape`` (rank 0), and the meshless count of the same call by
+    the flop counter.  (per-rank FLOPs by op, meshless FLOPs by op,
+    collective bytes by (kind, mesh axis name), the call's layout)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.dist.sharding import make_mesh, on_mesh, use_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import sharding_rules
+
+    cfg = get_smoke_config(arch)
+    H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    axes = dryrun.mesh_axes(mesh_shape)
+
+    def inputs():
+        return (torch.randn(B, S, H, hd), torch.randn(B, S, Kh, hd),
+                torch.randn(B, S, Kh, hd), L.causal_mask(S, S))
+
+    with FakeTensorMode():
+        q, k, v, mask = inputs()
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        with FlopCounterMode(display=False) as fc:
+            L.attend(q, k, v, mask, torch.float32).sum().backward()
+    meshless = {str(op).split(".")[-1]: n for op, n in
+                fc.get_flop_counts()["Global"].items()}
+    layouts = []
+    with dryrun.fake_group(math.prod(mesh_shape)), \
+            dryrun._global_shapes_unseen():
+        mesh = make_mesh(mesh_shape, axes, "cpu")
+        rules = sharding_rules(cfg, mesh.size(mesh.ndim - 1))
+        groups = {mesh.get_group(i).group_name: i for i in range(mesh.ndim)}
+        with FakeTensorMode(), use_mesh(mesh, rules):
+            q, k, v, mask = inputs()
+            q = on_mesh(q, mesh, "attn_batch", "seq", "heads", "head_dim")
+            k, v = (on_mesh(t, mesh, "attn_batch", "seq", "kv_heads",
+                            "head_dim") for t in (k, v))
+            for t in (q, k, v):
+                t.requires_grad_(True)
+            layouts.append(L._attend_layout(q, k, mask).modes)
+            counter = dryrun.RankCounter(groups)
+            with counter:
+                L.attend(q, k, v, mask, torch.float32).sum().backward()
+    coll = {(kind, axes[a] if a >= 0 else "other"): b
+            for (kind, a), b in counter.kind_axis_bytes.items()}
+    return dict(counter.op_flops), meshless, coll, layouts[0]
+
+
+def test_attention_flops_split_over_model_ranks_on_a_fake_mesh():
+    """granite's smoke widths (H=4, Kh=2) on a fake (2, 4) mesh: the 4
+    'model' ranks split q's heads, which they do not divide into kv heads,
+    so each rank's products (forward and backward) are a quarter of the
+    meshless count, and no all-gather runs on 'model' (q is never made
+    whole; k and v are whole on every rank already)."""
+    flops, meshless, coll, modes = _attention_on_fake_mesh((2, 4))
+    assert modes == ("whole", "heads")
+    assert meshless["bmm"] > 0
+    assert flops["bmm"] == meshless["bmm"] / 4
+    assert coll.get(("all-gather", "model"), 0) == 0, coll
+
+
+def test_attention_flops_split_over_head_dim_on_a_fake_mesh():
+    """phi3's smoke widths (5 heads, hd 16) on a fake (2, 2) mesh: 'model'
+    splits the head dim, so each rank's products are half the meshless
+    count and the logits' partial sums are all-reduced (forward and
+    backward) on 'model', with no all-gather there."""
+    flops, meshless, coll, modes = _attention_on_fake_mesh(
+        (2, 2), arch="phi3-medium-14b")
+    assert modes == ("whole", "head_dim")
+    assert flops["bmm"] == meshless["bmm"] / 2
+    assert coll.get(("all-gather", "model"), 0) == 0, coll
+    assert coll[("all-reduce", "model")] > 0
+
+
+def _decode_cell(seq, **overrides):
+    cfg = get_smoke_config("granite-3-2b").replace(**overrides)
+    rec = dryrun.run_cell("granite-3-2b", "small", cfg_override=cfg,
+                          shape=ShapeConfig("small", seq, 4, "decode"),
+                          mesh_shape=(2, 2), with_flops=False, verbose=False)
+    assert rec["ok"], rec.get("traceback")
+    return cfg, rec
+
+
+@pytest.mark.parametrize("fsdp", [True, False])
+def test_decode_cell_collectives_do_not_move_the_cache(fsdp):
+    """A decode step on (2, 2), the cache's ring over 'model' and its rows
+    over 'data': the collective bytes a rank moves do not depend on the
+    cache's length (split-K merges O(B·H·hd) a layer where the cache was
+    once gathered), and without FSDP's weight gathers they stay under 24
+    float32 values of (B, H·hd) a layer and two of (B, vocab) (the
+    logits), at most 5% of the rank's share of the cache at C=8192."""
+    cfg, short = _decode_cell(256, fsdp=fsdp)
+    _, long = _decode_cell(8192, fsdp=fsdp)
+    assert long["collective_bytes_per_chip"] == \
+        short["collective_bytes_per_chip"]
+    if fsdp:
+        return
+    B = 4
+    bound = (24 * cfg.num_layers * B * cfg.n_heads * cfg.hd +
+             2 * B * cfg.vocab) * 4
+    cache = (2 * cfg.num_layers * B * 8192 * cfg.n_kv_heads * cfg.hd *
+             cfg.dtype_torch.itemsize) / 4
+    assert 0 < long["collective_bytes_per_chip"] <= bound
+    assert bound <= 0.05 * cache
+    assert "all-gather@data" not in long["collective_bytes_by_kind_axis"]
+
+
+def test_split_k_attention_refuses_gradients():
+    """Attention over a cache split by key position (decode's ``kv_seq``
+    over 'model') is forward-only: a grad-enabled call whose inputs
+    require grad raises, one under ``torch.no_grad`` runs split-K."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.dist.sharding import make_mesh, on_mesh, use_mesh
+    from repro_torch.models import layers as L
+
+    with dryrun.fake_group(4), dryrun._global_shapes_unseen():
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        with FakeTensorMode(), use_mesh(mesh, {}):
+            q = on_mesh(torch.randn(4, 1, 4, 16), mesh, "batch", None,
+                        "heads", "head_dim")
+            k, v = (on_mesh(torch.randn(4, 32, 2, 16), mesh, "batch",
+                            "kv_seq", "kv_heads", "head_dim")
+                    for _ in range(2))
+            mask = on_mesh(torch.zeros(4, 1, 1, 32), mesh, "batch", None,
+                           None, "kv_seq")
+            assert L._attend_layout(q, k, mask).modes == ("batch", "kv_seq")
+            with torch.no_grad():
+                out = L.attend(q, k, v, mask, torch.float32)
+            assert out.shape == (4, 1, 4, 16)
+            q.requires_grad_(True)
+            with pytest.raises(RuntimeError, match="split-K"):
+                L.attend(q, k, v, mask, torch.float32)

@@ -32,6 +32,17 @@ run on the same weights and batches, and the reference's
   ``quantize_int8`` / ``dequantize_int8`` of its gradient; the
   all-reduced mean within 1e-6 of numpy's mean of the ranks' values
   (the ring adds in its own order).
+- attention at the reference's layout, where the old one gathered
+  (``layers.attend``): granite and h2o-danube (window, dense and
+  query-chunked) on (1, 4), whose 4 ranks do not divide the 2 kv heads,
+  and phi3 on (2, 2), whose head dim is split: loss within rtol 1e-6
+  and every gradient (``wk`` and ``wv`` included) within 1e-5 x max|g|
+  of the meshless port; against ``jax.grad`` of the reference's loss,
+  rtol 1e-4 and 1e-5 x max|g|.  Greedy decode of granite and zamba2 on
+  (2, 2), the rows over 'data' and the cache's ring over 'model'
+  (split-K): logits within 1e-5 of the meshless port's and of the
+  reference's, the tokens equal, for 8 steps.  Each call's layout and
+  each rank's local shapes at the products are the reference layout's.
 """
 import os
 import time
@@ -97,22 +108,32 @@ FAMILIES = {"falcon": "falcon-mamba-7b", "zamba2": "zamba2-1.2b",
             "seamless": "seamless-m4t-medium"}
 CKPT_ARCH = "falcon-mamba-7b"
 DECODE_ARCHS = ("granite-3-2b", "zamba2-1.2b")
+# attention jobs: name -> (arch, mesh shape, sequence, config overrides);
+# 4 'model' ranks do not divide 2 kv heads, phi3's 5 heads take the
+# head_dim rule on 2
+SPLITS = {"split_granite": ("granite-3-2b", (1, 4), W.SEQ, {}),
+          "split_danube": ("h2o-danube-3-4b", (1, 4), 2 * W.SEQ, {}),
+          "split_danube_chunked": ("h2o-danube-3-4b", (1, 4), 2 * W.SEQ,
+                                   {"attn_q_chunk": 8}),
+          "split_phi3": ("phi3-medium-14b", (2, 2), W.SEQ, {})}
 
 
-def _reference_weights(arch, path):
-    """The reference's float32 smoke weights of ``arch`` (seed 0), carried
-    into the port and saved as a state dict; (JAX model, value tree)."""
+def _reference_weights(arch, path, **overrides):
+    """The reference's float32 smoke weights of ``arch`` (seed 0, config
+    ``overrides``), carried into the port and saved as a state dict;
+    (JAX model, value tree)."""
     jax = pytest.importorskip("jax")
     from repro.configs import get_smoke_config as jsmoke
     from repro.models import module as jmodule
     from repro.models import registry as jregistry
     from repro_torch.convert import model_from_numpy
 
-    jm = jregistry.get_model(jsmoke(arch).replace(dtype="float32"))
+    jm = jregistry.get_model(jsmoke(arch).replace(dtype="float32",
+                                                  **overrides))
     values, _ = jmodule.split(jm.init(jax.random.PRNGKey(0)))
     values = jax.tree.map(np.asarray, values)
-    torch.save(model_from_numpy(W.smoke_cfg(arch), values, "cpu")
-               .state_dict(), path)
+    torch.save(model_from_numpy(W.smoke_cfg(arch, **overrides), values,
+                                "cpu").state_dict(), path)
     return jm, values
 
 
@@ -138,6 +159,13 @@ def runs(tmp_path_factory):
     family = {job: (os.path.join(d, f"{job}.pt"),) for job in FAMILIES}
     for job, arch in FAMILIES.items():
         family[job] += _reference_weights(arch, family[job][0])
+    for job, (arch, _, _, over) in SPLITS.items():
+        family[job] = (os.path.join(d, f"{job}.pt"),)
+        family[job] += _reference_weights(arch, family[job][0], **over)
+    family["greedy_granite-3-2b"] = (os.path.join(d, "granite_smoke.pt"),)
+    family["greedy_granite-3-2b"] += _reference_weights(
+        "granite-3-2b", family["greedy_granite-3-2b"][0])
+    family["greedy_zamba2-1.2b"] = family["zamba2"]
     meshless = _meshless_checkpoint(mk)
     res = _spawn(4, d, [
         ("placements", "placements", {}),
@@ -150,6 +178,12 @@ def runs(tmp_path_factory):
         ("ssm_ckpt", "ckpt_roundtrip", dict(arch=CKPT_ARCH, meshless_dir=mk,
                                             ckpt_dir=sk)),
         *((f"decode_{arch}", "decode", dict(arch=arch))
+          for arch in DECODE_ARCHS),
+        *((job, "grads", dict(arch=arch, weights=family[job][0],
+                              mesh_shape=ms, seq=seq, overrides=over))
+          for job, (arch, ms, seq, over) in SPLITS.items()),
+        *((f"greedy_{arch}", "greedy",
+           dict(arch=arch, weights=family[f"greedy_{arch}"][0]))
           for arch in DECODE_ARCHS),
         ("launcher", "launcher", dict(ckpt_dir=lk)),
         ("compress4", "compress", dict(world=4))])
@@ -246,6 +280,26 @@ def _family_weights(runs, job):
     return runs["family"][job][0] if job in FAMILIES else None
 
 
+def _meshless_step(cfg, weights, seq):
+    """The meshless port's loss and {name: gradient} on batch 0."""
+    model = W._model(cfg, weights)
+    stream = TokenStream(cfg, W.BATCH, seq, seed=0)
+    batch = {k: torch.as_tensor(v) for k, v in stream.batch_at(0).items()}
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    loss, _ = model.loss(batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), dict(zip(params, grads))
+
+
+def _grads_within(got, want, rel=1e-5):
+    """Every gradient of ``want`` matched within ``rel`` x its max|g|."""
+    for name, g in want.items():
+        scale = float(g.abs().max()) or 1.0
+        assert float((got[name] - g).abs().max()) <= rel * scale, name
+
+
 @pytest.mark.parametrize("job,arch", [("moe", "qwen2-moe-a2.7b"),
                                       ("llava", "llava-next-mistral-7b"),
                                       *FAMILIES.items()])
@@ -253,19 +307,10 @@ def test_mesh_loss_and_grads_match_meshless(runs, job, arch):
     res = _ok(runs, job)[0]
     cfg = W.smoke_cfg(arch)
     weights = _family_weights(runs, job)
-    model = W._model(cfg, weights)
     stream = TokenStream(cfg, W.BATCH, W.SEQ, seed=0)
-    batch = {k: torch.as_tensor(v) for k, v in stream.batch_at(0).items()}
-    params = dict(model.named_parameters())
-    for p in params.values():
-        p.requires_grad_(True)
-    loss, _ = model.loss(batch)
-    grads = torch.autograd.grad(loss, list(params.values()))
-    np.testing.assert_allclose(res["loss"], float(loss.detach()), rtol=1e-4)
-    for (name, g) in zip(params, grads):
-        got = res["grads"][name]
-        scale = float(g.abs().max()) or 1.0
-        assert float((got - g).abs().max()) <= 1e-5 * scale, name
+    loss, grads = _meshless_step(cfg, weights, W.SEQ)
+    np.testing.assert_allclose(res["loss"], loss, rtol=1e-4)
+    _grads_within(res["grads"], grads)
     hist = []
     train(W._model(cfg, weights), TrainConfig(**W.TRAIN), stream, 3,
           history=hist, **W._quiet())
@@ -435,6 +480,111 @@ def test_mesh_decode_matches_meshless(runs, arch):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+def _reference_step(jm, values, cfg, seq):
+    """The reference's loss and gradients (``jax.grad``) on batch 0."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    batch = TokenStream(cfg, W.BATCH, seq, seed=0).batch_at(0)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    return jax.value_and_grad(lambda v: jm.loss(v, jb)[0])(
+        jax.tree.map(jnp.asarray, values))
+
+
+@pytest.mark.parametrize("job", list(SPLITS))
+def test_mesh_attention_split_matches_meshless_and_reference(runs, job):
+    """Attention split where the old layout gathered: q's heads over ranks
+    that do not divide the kv heads (granite, danube with its window,
+    dense and query-chunked; ``wk`` and ``wv`` gradients partial sums on
+    the ranks), or the head dim (phi3).  Meshless: loss rtol 1e-6, every
+    gradient 1e-5 x max|g|; the reference's ``jax.grad``: rtol 1e-4,
+    1e-5 x the largest |g|."""
+    arch, _, seq, over = SPLITS[job]
+    res = _ok(runs, job)[0]
+    cfg = W.smoke_cfg(arch, **over)
+    loss, grads = _meshless_step(cfg, runs["family"][job][0], seq)
+    np.testing.assert_allclose(res["loss"], loss, rtol=1e-6)
+    assert {"wk", "wv"} <= {k.rsplit(".", 1)[-1] for k in res["grads"]}
+    _grads_within(res["grads"], grads)
+    _, jm, values = runs["family"][job]
+    jloss, jgrads = _reference_step(jm, values, cfg, seq)
+    np.testing.assert_allclose(res["loss"], float(jloss), rtol=1e-4)
+    want = {k: _reference_leaf(jgrads, k, g.shape)
+            for k, g in res["grads"].items()}
+    gmax = max(float(np.abs(g).max()) for g in want.values())
+    for name, g in res["grads"].items():
+        np.testing.assert_allclose(g.numpy(), want[name], rtol=0,
+                                   atol=1e-5 * gmax, err_msg=name)
+
+
+@pytest.mark.parametrize("job", list(SPLITS) + [f"greedy_{a}" for a in
+                                                 DECODE_ARCHS])
+def test_mesh_attention_local_shapes_follow_reference_layout(runs, job):
+    """Each rank's q and k at attention's products: granite and danube on
+    (1, 4) hold H/4 = 1 q head and its one kv head, phi3 on (2, 2) its
+    hd/2 slice of every head; decode on (2, 2) holds B/2 rows of q and
+    C/2 ring slots of k."""
+    B, C = W.BATCH, W.SEQ
+    for res in _ok(runs, job):
+        seen = res["attend"]
+        assert seen["modes"] and seen["shapes"]
+        if job.startswith("greedy"):
+            arch = job.split("_", 1)[1]
+            cfg = W.smoke_cfg(arch)
+            assert set(seen["modes"]) == {("batch", "kv_seq")}
+            for (q, k) in seen["shapes"]:
+                assert q == (B // 2, 1, cfg.n_heads, cfg.hd)
+                assert k == (B // 2, C // 2, cfg.n_kv_heads, cfg.hd)
+            continue
+        arch, (_, m), seq, over = SPLITS[job]
+        cfg = W.smoke_cfg(arch, **over)
+        for (q, k) in seen["shapes"]:
+            if job == "split_phi3":
+                assert q[2:] == (cfg.n_heads, cfg.hd // m), q
+                assert k[2:] == (cfg.n_kv_heads, cfg.hd // m), k
+            else:
+                assert q[0] == B and q[2:] == (cfg.n_heads // m, cfg.hd), q
+                assert k[2:] == (1, cfg.hd), k
+        want = ("whole", "head_dim" if job == "split_phi3" else "heads")
+        assert set(seen["modes"]) == {want}
+    if job == "split_danube_chunked":
+        assert {q[1] for q, _ in seen["shapes"]} == {8}
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_mesh_greedy_decode_matches_meshless_and_reference(runs, arch):
+    """8 greedy decode steps on (2, 2), split-K over the ring's halves:
+    each step's logits within 1e-5 (absolute and relative) of the
+    meshless port's and of the reference's, the tokens equal."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    res = _ok(runs, f"greedy_{arch}")[0]
+    path, jm, values = runs["family"][f"greedy_{arch}"]
+    cfg = W.smoke_cfg(arch)
+    model = W._model(cfg, path)
+    cache, prompt, cur = W.greedy_inputs(cfg, model)
+    jl, jc = jm.prefill(values, {"tokens": jnp.asarray(prompt.numpy())},
+                        W.SEQ)
+    jcur = jnp.argmax(jl[:, -1], -1)[:, None].astype(jnp.int32)
+    np.testing.assert_array_equal(cur.numpy(), np.asarray(jcur))
+    assert len(res["logits"]) == W.SEQ // 2
+    with torch.no_grad():
+        for s, (lg_mesh, tok_mesh) in enumerate(zip(res["logits"],
+                                                    res["tokens"])):
+            pos = W.SEQ // 2 + s
+            lg, cache = model.decode_step(cache, cur, pos)
+            jl, jc = jm.decode_step(values, jc, jcur, jnp.int32(pos))
+            np.testing.assert_allclose(lg_mesh.numpy(), lg.numpy(),
+                                       rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(lg_mesh.numpy(), np.asarray(jl),
+                                       rtol=1e-5, atol=1e-5)
+            cur = torch.argmax(lg[:, -1], -1)[:, None]
+            jcur = jnp.argmax(jl[:, -1], -1)[:, None].astype(jnp.int32)
+            assert torch.equal(tok_mesh, cur), s
+            np.testing.assert_array_equal(cur.numpy(), np.asarray(jcur))
 
 
 def test_launcher_main_trains_on_a_4_rank_mesh(runs):
