@@ -94,7 +94,8 @@ Phases, in order; any failure raises and exits non-zero:
               chunk and whose every row must equal bitwise the same
               search run alone by run_strategy; cmaes, tbpsa, a2c, ppo2,
               herald_like and ai_mt_like run through M3E.search (one
-              seed: HOST_SEEDS); every best individual is re-evaluated
+              seed: HOST_SEEDS; a2c and ppo2 on S4 / Mix alone:
+              HOST_PROBLEMS); every best individual is re-evaluated
               by the plain version on the CPU (rtol 1e-4).  Prints the
               Fig. 9 table normalized to MAGMA, the geomean MAGMA
               advantage per method and their order (reported, not
@@ -255,7 +256,11 @@ Phases, in order; any failure raises and exits non-zero:
               (wall, per-rank FLOPs against the share of the global
               count, peak, collective bytes by kind and axis, the
               roofline's dominant term) and the process's wall; every
-              cell must return ok
+              cell must return ok.  The train_4k rank's FLOPs, peak,
+              largest buffer and top products with their output widths
+              are printed; no product may take a whole FSDP x TP weight
+              (its 'model' dim whole) and no large buffer the whole
+              vocabulary
 
 The counts of every kernel are set to 0 before each main path (the M3E
 searches, the served batch, phases 9-10 together, "train_eval", the
@@ -341,10 +346,12 @@ COMPARE_CHUNK_ROWS = 3       # 4 rows a sweep: the last chunk is partial
 # the sweep also run split into two shards on the one card (device list
 # [cuda:0, cuda:0]; chunks of 3 rounded up to 4 rows, 2 a shard)
 SPLIT_SWEEP = ("magma", "S4")
-# the cut this script takes to finish in half its time limit: the host
-# methods (an RL search at 10K samples takes ~30 s on the card) run one
-# seed; G and the budget are never cut
+# the cuts this script takes to finish in half its time limit: the host
+# methods run one seed, and the two RL mappers (a search at 10K samples
+# takes 30-52 s on the card's host) one problem of the grid, Fig. 9's S4
+# / Mix; G and the budget are never cut
 HOST_SEEDS = (0,)
+HOST_PROBLEMS = {"a2c": ("Mix-S4-bw256",), "ppo2": ("Mix-S4-bw256",)}
 # a host search launches the makespan kernel once per fitness batch: one
 # per entry of its history, plus, for the RL mappers, the batch of 32
 # random schedules that sets the reward scale
@@ -416,6 +423,12 @@ def bf16_rate():
     from ``repro_torch.launch.roofline``."""
     from repro_torch.launch.roofline import PEAK_FLOPS
     return PEAK_FLOPS
+
+
+def mark(phase):
+    """Prints the seconds since ``main`` began, as ``phase`` begins."""
+    print(f"[time] {time.perf_counter() - mark.t0:.1f} s: {phase}",
+          flush=True)
 
 
 def check(cond, msg):
@@ -1272,7 +1285,8 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
     chunks of COMPARE_CHUNK_ROWS) that must launch the makespan kernel
     once per generation and chunk, and whose rows must equal bitwise the
     same searches run one by one with ``run_strategy``; the host methods
-    run through ``M3E.search``.  Every best individual, re-evaluated by
+    run through ``M3E.search`` (on HOST_PROBLEMS alone where it names
+    them).  Every best individual, re-evaluated by
     the plain version on the CPU, must give its best fitness at rtol
     1e-4.  Every part's makespan launches are counted against what it
     must launch (a host search: one per fitness batch, i.e. per entry of
@@ -1423,6 +1437,8 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
         for setting, bw in FIG9_SETTINGS:
             for task in FIG9_TASKS:
                 label = f"{task}-{setting}-bw{bw}"
+                if label not in HOST_PROBLEMS.get(method, labels):
+                    continue
                 vals = []
                 for seed in HOST_SEEDS:
                     before = mk.LAUNCHES["makespan"]
@@ -1440,28 +1456,32 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
                                res.best_accel, res.best_prio)
                     vals.append(res.best_fitness)
                 best[label][method] = vals
-        print(f"[compare] {method}: {len(labels) * len(HOST_SEEDS)} "
+        ran = sum(method in best[lab] for lab in labels)
+        print(f"[compare] {method}: {ran * len(HOST_SEEDS)} "
               f"searches through M3E.search, wall {method_wall[method]:.4f} s")
 
     methods = DEVICE_METHODS + HOST_METHODS
-    mean = {lab: {m: float(np.mean(best[lab][m])) for m in methods}
+    mean = {lab: {m: float(np.mean(v)) for m, v in best[lab].items()}
             for lab in labels}
+    normalized = {lab: {m: v / mean[lab]["magma"]
+                        for m, v in mean[lab].items()} for lab in labels}
     print("[compare] Fig. 9 (best throughput normalized to magma; magma "
           "in GFLOP/s):")
     print("[compare] problem," + ",".join(methods) + ",magma_GFLOPs")
     for lab in labels:
-        norm = mean[lab]["magma"]
         print(f"[compare] {lab}," + ",".join(
-            f"{mean[lab][m] / norm:.4f}" for m in methods)
-            + f",{norm / 1e9:.1f}")
-    advantage = {m: geomean([mean[lab]["magma"] / mean[lab][m]
-                             for lab in labels])
+            f"{normalized[lab][m]:.4f}" if m in normalized[lab] else "-"
+            for m in methods) + f",{mean[lab]['magma'] / 1e9:.1f}")
+    # each over the problems the method ran
+    advantage = {m: geomean([1 / normalized[lab][m] for lab in labels
+                             if m in normalized[lab]])
                  for m in methods if m != "magma"}
     order = sorted(methods, key=lambda m: -geomean(
-        [mean[lab][m] for lab in labels]))
+        [normalized[lab][m] for lab in labels if m in normalized[lab]]))
     print("[compare] geomean MAGMA advantage: " + ", ".join(
         f"{m} {v:.4f}" for m, v in advantage.items()))
-    print(f"[compare] methods by geomean best fitness: {' > '.join(order)}")
+    print("[compare] methods by geomean best fitness over magma's: "
+          f"{' > '.join(order)}")
     print("[compare] wall per method (s): " + ", ".join(
         f"{m} {w:.3f}" for m, w in method_wall.items()))
     launches = sum(method_launches.values()) + profile_launches
@@ -1471,17 +1491,19 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
           + f"; profiled sweep {profile_launches}; phase {launches}")
     total = time.perf_counter() - t_phase
     print(f"[compare] cuts: host methods at {len(HOST_SEEDS)} seed(s) "
-          f"({len(COMPARE_SEEDS)} for device methods); G={group_size} and "
-          f"budget={budget} not cut; phase wall {total:.3f} s")
-    return {"best_fitness": best, "normalized": {
-                lab: {m: mean[lab][m] / mean[lab]["magma"] for m in methods}
-                for lab in labels},
+          f"({len(COMPARE_SEEDS)} for device methods), "
+          + ", ".join(f"{m} on {', '.join(p)}"
+                      for m, p in HOST_PROBLEMS.items())
+          + f" only; G={group_size} and budget={budget} not cut; phase "
+          f"wall {total:.3f} s")
+    return {"best_fitness": best, "normalized": normalized,
             "magma_advantage": advantage, "order": order,
             "method_wall_s": method_wall, "sweeps": sweeps,
             "launches": launches, "launches_by_method": method_launches,
             "profile_launches": profile_launches,
             "seeds": {"device": list(COMPARE_SEEDS),
                       "host": list(HOST_SEEDS)},
+            "host_problems": {m: list(p) for m, p in HOST_PROBLEMS.items()},
             "profile": profile, "two_shard": two_shard,
             "phase_wall_s": total}
 
@@ -3272,6 +3294,35 @@ def dryrun_main(path):
     return 0
 
 
+def train_4k_products(cell):
+    """The matrix products of the train_4k cell's ``per_device_flops_top``
+    as (op, operand shapes, FLOPs).  Fails when an operand is one of
+    TRAIN_ARCH's FSDP x TP weights whole on 'model': (d, d_ff), (d_ff,
+    d), (d, H·hd) or (H·hd, d), which the rank should hold a 'model'
+    slice of; or when one of the rank's largest buffers spans the whole
+    padded vocabulary, which the loss reduces over its 'model' slices."""
+    import re
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import pad_vocab
+    cfg = get_config(TRAIN_ARCH)
+    d, qkv = cfg.d_model, cfg.n_heads * cfg.hd
+    whole = {(d, cfg.d_ff), (cfg.d_ff, d), (d, qkv), (qkv, d)}
+    vocab = f", {pad_vocab(cfg.vocab)}) "
+    big = [k for k in cell["per_device_largest_outputs"] if vocab in k]
+    check(not big, f"dry-run train_4k: {big} span the whole vocabulary")
+    out = []
+    for key, f in cell["per_device_flops_top"].items():
+        op = key.split(" ", 1)[0]
+        if op not in ("mm", "addmm", "bmm"):
+            continue
+        shapes = [tuple(int(n) for n in m.split(",") if n.strip())
+                  for m in re.findall(r"\(([\d, ]*)\)", key)]
+        check(not any(s in whole for s in shapes),
+              f"dry-run train_4k: {key} runs a whole FSDP x TP weight")
+        out.append((op, shapes, f))
+    return out
+
+
 def dryrun_report(out, phase9_steps):
     """Print the dry-run's cells: phase 9's step shape beside phase 9's
     measured step and ``model_flops``, and each 256-rank cell's wall,
@@ -3316,6 +3367,15 @@ def dryrun_report(out, phase9_steps):
                           cell["collective_bytes_by_kind_axis"].items())
               + f"), roofline dominant {cell['roofline']['dominant']}, "
               f"fraction {cell['roofline']['roofline_fraction']:.3e}")
+    products = train_4k_products(out["train_4k"])
+    largest = next(iter(out["train_4k"]["per_device_largest_outputs"]))
+    print(f"[dryrun] {TRAIN_ARCH} train_4k per rank: FLOPs "
+          f"{out['train_4k']['per_device_flops']:.6e}, peak "
+          f"{out['train_4k']['mem_peak_gib']:.2f} GiB (largest buffer: "
+          f"{largest}); top products "
+          "(op, operands, output width, FLOPs): " + "; ".join(
+              f"{op} {' x '.join(map(str, shapes))} -> {shapes[-1][-1]} "
+              f"{f:.3e}" for op, shapes, f in products))
     print(f"[dryrun] the side process's cells took {out['wall_s']:.3f} s "
           "of the host's CPU")
     return {"phase9_shape": step, "phase9_measured_ms": measured_ms,
@@ -3325,8 +3385,10 @@ def dryrun_report(out, phase9_steps):
 
 def main():
     import torch
+    mark.t0 = time.perf_counter()
 
     # -- 1. device --------------------------------------------------------
+    mark("1. device")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}")
     check(torch.cuda.is_available(), "no CUDA device: this script measures "
                                      "the port on the card and nothing else")
@@ -3361,6 +3423,7 @@ def main():
         fa.reset_launches()
 
     # -- 2. build ---------------------------------------------------------
+    mark("2. build")
     names = ("makespan", "ssm_scan", "flash_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
@@ -3382,6 +3445,7 @@ def main():
                   f"bytes spill stores, {spill_ld} bytes spill loads")
 
     # -- 3. kernel check --------------------------------------------------
+    mark("3. kernel check")
     group = build_task_groups("Mix", group_size=100, seed=0)[0]
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -3550,6 +3614,7 @@ def main():
     flash_zamba2 = flash_main.pop("zamba2")
 
     # -- 14. launch: the serving launcher at full width -------------------
+    mark("14. launch")
     # taken here, before the process's first profiler session (phase 5):
     # one session slows every later host-bound decode step; the profiled
     # token comes last (launch_profile)
@@ -3560,6 +3625,7 @@ def main():
     free(dev)
 
     # -- 15. families: SSM, hybrid and encoder-decoder training and eval --
+    mark("15. families")
     # also before the first profiler session: the plain scan's training
     # step is host-bound
     reset_counts()
@@ -3580,6 +3646,7 @@ def main():
     free(dev)
 
     # -- 16. stream: the streaming service at full width ------------------
+    mark("16. stream")
     # also before the first profiler session: its walls are host walls
     reset_counts()
     stream_out = stream_phase(dev, mk)
@@ -3594,6 +3661,7 @@ def main():
     free(dev)
 
     # -- 17. fleet: the scheduling fleet's workers on the one card --------
+    mark("17. fleet")
     # also before the first profiler session: its walls are host walls
     reset_counts()
     fleet_out = fleet_phase(dev, mk)
@@ -3612,6 +3680,7 @@ def main():
     free(dev)
 
     # -- 4. main path -----------------------------------------------------
+    mark("4. main path")
     setting, budget, bw_sys_main = "S4", 10_000, 256 * GB
     m3e = M3E(get_setting(setting), bw_sys=bw_sys_main, device=dev)
     cpu_fit = FitnessFn(table, bw_sys=bw_sys_main, device="cpu")
@@ -3646,6 +3715,7 @@ def main():
     print(f"[main] makespan kernel launches over 4 searches: {launches}")
 
     # -- 5. timing --------------------------------------------------------
+    mark("5. timing")
     P, A, G = qlat.shape
     bq = big_q
 
@@ -3707,6 +3777,7 @@ def main():
               "not measured")
 
     # -- 6. serve ----------------------------------------------------------
+    mark("6. serve")
     from repro_torch.configs import get_config
     from repro_torch.core.strategies import plan_generations
     from repro_torch.models.registry import count_params, get_model
@@ -3812,6 +3883,7 @@ def main():
               f"{len(dec)}, mean {np.mean(dec) * 1e3:.3f})")
 
     # -- 7. whole model: kernel path against plain path -------------------
+    mark("7. whole model")
     def greedy(model, cfg, prompt):
         """Prefill logits and GENERATE greedy tokens of ``model`` run with
         ``cfg`` (the same weights; cfg.use_flash picks the scan)."""
@@ -3874,6 +3946,7 @@ def main():
               f"at token {same.index(False)}")
 
     # -- 8. timing: the scan kernel, and where a served request's time goes
+    mark("8. timing")
     ssm_times = {}
     for key, args in ssm_main.items():
         Bt, L, D = args[0].shape
@@ -3922,6 +3995,7 @@ def main():
               "not measured")
 
     # -- 9. train, 10. eval: the dense slice ------------------------------
+    mark("9. train, 10. eval")
     del tenants, engine, traced_jobs, traced_out, jobs, served, again
     free(dev)
     reset_counts()
@@ -3939,6 +4013,7 @@ def main():
     compare_routes(dev, fa, evals)
 
     # -- 11. timing: the flash kernel, and where a training step goes -----
+    mark("11. timing")
     flash_times = flash_timing(fa, flash_attention_ref, flash_main,
                                time_cuda)
     del flash_main
@@ -3946,6 +4021,7 @@ def main():
     train_profile = profile_train_step(dev)
 
     # -- 18. mesh: training on a one-rank device mesh ---------------------
+    mark("18. mesh")
     free(dev)
     reset_counts()
     mesh_out = mesh_phase(dev, train_steps, families_out["train"])
@@ -3959,6 +4035,7 @@ def main():
     print(f"[mesh] mesh path launches: {mesh_counts}")
 
     # -- the dry-run, in a process of its own on the host's CPU ----------
+    mark("dry-run started")
     dry_path = os.path.join(ROOT, "build", "dryrun.json")
     if os.path.exists(dry_path):
         os.remove(dry_path)
@@ -3966,6 +4043,7 @@ def main():
                                  "--dryrun", dry_path], cwd=ROOT)
     try:
         # -- 12. compare: the Fig. 9 grid, every Table IV method ---------
+        mark("12. compare")
         free(dev)
         reset_counts()
         compared = compare_phase(dev, mk)
@@ -3980,6 +4058,7 @@ def main():
         print(f"[compare] compare path launches: {compare_counts}")
 
         # -- 13. memo: exact replay, memoized sweeps, warm starts, Table V ----
+        mark("13. memo")
         reset_counts()
         memo_out = memo_phase(dev, mk)
         memo_counts = {"makespan": mk.LAUNCHES["makespan"],
@@ -3994,6 +4073,7 @@ def main():
 
         # the dry-run's cells, joined after phases 12 and 13
         dry_proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        mark("dry-run joined")
     finally:
         if dry_proc.poll() is None:
             dry_proc.kill()
@@ -4004,14 +4084,17 @@ def main():
         dryrun_out = dryrun_report(json.load(f), train_steps)
 
     # -- 14, its end: the decode probe again, one profiled MoE token -----
+    mark("14, its end")
     free(dev)
     launch_profile(dev, probe_prompts, launch_out)
     del probe_prompts
 
     # -- 15, its end: a zamba2 training step and two evaluations profiled -
+    mark("15, its end")
     families_profile(dev, families_out)
 
     # -- 16, its end: the card's own busy share in a pipelined stream run -
+    mark("16, its end")
     stream_out["card_busy"] = stream_card_busy(dev)
 
     max_abs = max(e[0] for e in errs)
@@ -4111,6 +4194,7 @@ def main():
                   "dryrun": dryrun_out},
         "eval": evals, "ok": True,
     }]
+    mark("end")
     print(f"[device] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

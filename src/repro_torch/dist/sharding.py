@@ -25,6 +25,9 @@ those names onto the axes of a ``torch.distributed.device_mesh.DeviceMesh``:
     identity without an active ``use_mesh`` context (and for a tensor that
     is not a DTensor), a ``redistribute`` of a DTensor inside one.  The
     constraints are layout only: they never change a value.
+    ``fsdp_whole(w)`` makes only a parameter's FSDP split whole before a
+    product, so its tensor-parallel split stays (the reference's compiled
+    FSDP x TP product).
   - ``distribute_params`` makes a model's parameters DTensors with the
     placements ``shardings_for_axes`` gives them, and ``shard_batch``
     keeps each rank's share of a global batch.  Inside ``use_mesh`` a
@@ -230,6 +233,30 @@ def constrain(x, *axes: Optional[str]):
     mesh, rules = _ACTIVE[-1]
     spec = logical_to_spec(tuple(axes), mesh, rules, shape=x.shape)
     return x.redistribute(mesh, to_placements(spec, mesh, x.dim(), x.shape))
+
+
+def fsdp_whole(w):
+    """The parameter ``w`` with its FSDP split made whole: each mesh dim
+    that the active rules' "embed" names (and that has more than one
+    rank) replicates it, every other placement is kept, so a
+    tensor-parallel split on 'model' stays.  A product ``x @ fsdp_whole(
+    w)`` then runs on the rank's slice of ``w``'s columns (or rows), as
+    the reference's compiled FSDP x TP product does; on ``w`` itself
+    DTensor gathers it on every mesh dim.  The identity without an
+    active mesh, for a plain tensor, and on a mesh whose FSDP dims are
+    of size 1."""
+    if not _ACTIVE or not isinstance(w, DTensor):
+        return w
+    mesh, rules = w.device_mesh, _ACTIVE[-1][1]
+    entry = _resolve("embed", mesh, rules)
+    fsdp = set(entry if isinstance(entry, tuple) else (entry,))
+    names = axis_names(mesh)
+    placements = tuple(
+        Replicate() if names[i] in fsdp and mesh.size(i) > 1 else p
+        for i, p in enumerate(w.placements))
+    if placements == tuple(w.placements):
+        return w
+    return w.redistribute(mesh, placements)
 
 
 def gathered(x):

@@ -20,6 +20,8 @@ the card runs, and record, for rank 0:
     unfused eager run moves; it errs high where the 50 MB L2 keeps an
     operand between operations, and low where a kernel reads an operand
     more than once (a matrix product's tiles);
+  - the largest buffers: the (operation, shape, dtype) of the eight
+    largest outputs of the rank's operations, ``per_device_largest_outputs``;
   - FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` over the same step
     traced without a mesh, at global shapes (remat recompute included),
     so the count does not depend on the mesh, as the reference's unrolled
@@ -79,6 +81,7 @@ COLLECTIVES = {"all_gather_into_tensor": "all-gather",
                "reduce_scatter_tensor": "reduce-scatter",
                "all_to_all_single": "all-to-all",
                "shard_dim_alltoall": "all-to-all"}
+LARGEST_OUTPUTS = 8          # outputs a rank's record keeps, by bytes
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
                "new_empty_strided", "detach", "alias", "lift_fresh",
                "_unsafe_view", "wait_tensor", "_to_copy_meta"}
@@ -171,7 +174,9 @@ class RankCounter(TorchDispatchMode):
     counts by kind, by mesh axis (the group's axis, -1 for a group that
     is no single axis) and by both; HBM bytes: inputs and outputs of
     every other operation, views excepted; FLOPs: the flop counter's
-    formulas, in all, by operation and by operation and input shapes."""
+    formulas, in all, by operation and by operation and input shapes;
+    the LARGEST_OUTPUTS largest outputs it made, by (operation, shape,
+    dtype)."""
 
     def __init__(self, axis_of_group: Dict[str, int]):
         super().__init__()
@@ -185,6 +190,7 @@ class RankCounter(TorchDispatchMode):
             collections.Counter()
         self.op_flops: Dict[str, float] = collections.Counter()
         self.shape_flops: Dict[str, float] = collections.Counter()
+        self.outputs: Dict[tuple, int] = {}
         self.hbm_bytes = 0.0
         self.flops = 0.0
 
@@ -219,8 +225,30 @@ class RankCounter(TorchDispatchMode):
         if not func.is_view and name not in _NO_TRAFFIC:
             self.hbm_bytes += sum(_nbytes(t) for t in
                                   tree_flatten((args, kwargs))[0])
-            self.hbm_bytes += sum(_nbytes(t) for t in tree_flatten(out)[0])
+            for t in tree_flatten(out)[0]:
+                self.hbm_bytes += _nbytes(t)
+                if isinstance(t, torch.Tensor):
+                    self._output(name, t)
         return out
+
+    def _output(self, name: str, t: torch.Tensor) -> None:
+        """Keeps ``t`` among the largest outputs (the first seen of equal
+        ones)."""
+        nb, full = _nbytes(t), len(self.outputs) >= LARGEST_OUTPUTS
+        if full and nb <= min(self.outputs.values()):
+            return
+        self.outputs[name, tuple(t.shape), t.dtype] = nb
+        if len(self.outputs) > LARGEST_OUTPUTS:
+            least = min(self.outputs.values())
+            del self.outputs[next(k for k in reversed(list(self.outputs))
+                                  if self.outputs[k] == least)]
+
+    def largest_outputs(self) -> Dict[str, int]:
+        """{"op (shape) dtype": bytes} of the largest outputs, largest
+        first."""
+        return {f"{name} {shape} {str(dtype).split('.')[-1]}": nb
+                for (name, shape, dtype), nb in sorted(
+                    self.outputs.items(), key=lambda kv: -kv[1])}
 
 
 def _fake_like(spec: torch.Tensor) -> torch.Tensor:
@@ -416,6 +444,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 for (k, a), b in counter.kind_axis_bytes.items()},
             per_device_flops_by_op=dict(counter.op_flops),
             per_device_flops_top=dict(counter.shape_flops.most_common(12)),
+            per_device_largest_outputs=counter.largest_outputs(),
             comm_debug_counts={str(k).split(".")[-1]: v for k, v in
                                comm.get_comm_counts().items()},
         )

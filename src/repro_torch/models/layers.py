@@ -36,7 +36,14 @@ unchanged, and a DTensor redistribution inside ``use_mesh``.  On a mesh
 the MoE (top-k sort, one-hot, cumsum, scatter and gather, which have no
 DTensor sharding rule) and the embedding lookup run on each rank's
 shards through ``local_map``; attention runs on each rank's shards in
-the reference's layout (``attend``).
+the reference's layout (``attend``).  The weight products keep the
+reference's tensor-parallel split: a weight's FSDP split alone is made
+whole (``fsdp_whole``), a column-parallel product (``columns``) gives
+each 'model' rank its columns and a row-parallel one a partial sum that
+the next ``constrain`` reduces, and the products' input gradients are
+summed once (``grad_as_input``).  The loss reduces its log-softmax over
+the ranks' slices of the vocabulary (``nll_loss``).  A mesh of one rank
+takes the plain products.
 """
 from __future__ import annotations
 
@@ -51,7 +58,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.sharding import constrain, gathered, on_mesh
+from repro_torch.dist.sharding import (constrain, fsdp_whole, gathered,
+                                      on_mesh)
 from repro_torch.models.module import ones_init, param
 
 
@@ -142,12 +150,76 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
 
 
 def _merge_heads(ctx: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    """(..., n, hd) -> (..., n*hd).  On a mesh a split ``head_dim`` is
-    gathered first: the merged dim of a split minor dim is no contiguous
-    shard, and the product with ``wo`` has no sharding rule for it."""
+    """(..., n, hd) -> (..., n*hd), laid out as ``wo``'s rows ("qkv").  On
+    a mesh a split ``head_dim`` is gathered first: the merged dim of a
+    split minor dim is no contiguous shard, and the product with ``wo``
+    has no sharding rule for it.  The merged tensor is then split again
+    by ``wo``'s rows (each rank keeps its slice: no data moves), so the
+    row-parallel product and its weight's gradient run on the rank's
+    rows, and the gradient, gathered back, splits into heads."""
     if isinstance(ctx, DTensor):
         ctx = _gather_dim_unless_divides(ctx, ctx.dim() - 1, 1)
-    return ctx.reshape(ctx.shape[:-2] + (n * hd,))
+    out = ctx.reshape(ctx.shape[:-2] + (n * hd,))
+    return constrain(out, "batch", "seq", "qkv") if _splits(out) else out
+
+
+def _splits(x) -> bool:
+    """``x`` is a DTensor on a mesh of more than one rank."""
+    return isinstance(x, DTensor) and x.device_mesh.size() > 1
+
+
+class _GradAsInput(torch.autograd.Function):
+    """The identity, whose gradient is laid out as its input is."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.layout = (x.device_mesh, tuple(x.placements))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, placements = ctx.layout
+        if isinstance(g, DTensor) and tuple(g.placements) != placements:
+            g = g.redistribute(mesh, placements)
+        return g
+
+
+def grad_as_input(x):
+    """``x``, whose gradient is laid out as ``x`` is: one that arrives as
+    partial sums over ranks is summed here, one split where ``x`` is
+    whole is gathered.  On the input of column-parallel products
+    (``columns``), whose input gradients are partial sums over the ranks'
+    columns: they are summed once (all-reduced in the backward pass), as
+    the reference's compiled backward does, not carried on as partial
+    sums that DTensor would meet in the products before them by gathering
+    their weights whole.  The identity off a mesh of more than one rank
+    and without autograd; idempotent."""
+    if not _splits(x) or not torch.is_grad_enabled():
+        return x
+    return _GradAsInput.apply(x)
+
+
+def columns(x, axis: str, *ws) -> Tuple[torch.Tensor, ...]:
+    """The column-parallel products ``x @ w`` of activations (B, S, d)
+    with each weight (d, n) of ``ws``, whose columns the logical ``axis``
+    names.  On a mesh of more than one rank ``x`` comes through
+    ``grad_as_input`` once, each ``w``'s FSDP split is made whole
+    (``fsdp_whole``) and each output is constrained to ("batch", "seq",
+    ``axis``) at once: each rank computes its own columns and nothing
+    moves, as in the reference's compiled products."""
+    if not _splits(x):
+        return tuple(x @ w for w in ws)
+    x = grad_as_input(x)
+    return tuple(constrain(x @ fsdp_whole(w), "batch", "seq", axis)
+                 for w in ws)
+
+
+def _qkv(p: AttnParams, x, n_heads: int, n_kv: int, head_dim: int):
+    """q (B, S, H, hd), k and v (B, S, Kh, hd): the column-parallel
+    products of ``x`` with ``wq``, ``wk`` and ``wv``."""
+    q, k, v = columns(x, "qkv", p.wq, p.wk, p.wv)
+    return (_split_heads(q, n_heads, head_dim),
+            _split_heads(k, n_kv, head_dim), _split_heads(v, n_kv, head_dim))
 
 
 def _gather_dim_unless_divides(x: DTensor, dim: int, n: int) -> DTensor:
@@ -491,9 +563,7 @@ def full_attention(p: AttnParams, x, *, n_heads, n_kv, head_dim, rope_theta,
     (no caller passes it) have no counterpart."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-    q = _split_heads(x @ p.wq, n_heads, head_dim)
-    k = _split_heads(x @ p.wk, n_kv, head_dim)
-    v = _split_heads(x @ p.wv, n_kv, head_dim)
+    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     q = constrain(q, "attn_batch", "seq", "heads", "head_dim")
@@ -510,7 +580,7 @@ def full_attention(p: AttnParams, x, *, n_heads, n_kv, head_dim, rope_theta,
                 torch.zeros((1, 1, 1, S), device=x.device))
         ctx = attend(q, k, v, mask, x.dtype)
     ctx = constrain(ctx, "batch", "seq", "heads", "head_dim")
-    out = _merge_heads(ctx, n_heads, head_dim) @ p.wo
+    out = _merge_heads(ctx, n_heads, head_dim) @ fsdp_whole(p.wo)
     return constrain(out, "batch", "seq", "embed")
 
 
@@ -520,9 +590,7 @@ def prefill_attention(p: AttnParams, x, capacity: int, *, n_heads, n_kv,
     layout, capacity ``capacity``)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
-    q = _split_heads(x @ p.wq, n_heads, head_dim)
-    k = _split_heads(x @ p.wk, n_kv, head_dim)
-    v = _split_heads(x @ p.wv, n_kv, head_dim)
+    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     q = constrain(q, "batch", "seq", "heads", "head_dim")
@@ -534,7 +602,7 @@ def prefill_attention(p: AttnParams, x, capacity: int, *, n_heads, n_kv,
     else:
         mask = causal_mask(S, S, window, device=x.device)
         ctx = attend(q, k, v, mask, x.dtype)
-    out = _merge_heads(ctx, n_heads, head_dim) @ p.wo
+    out = _merge_heads(ctx, n_heads, head_dim) @ fsdp_whole(p.wo)
 
     C = capacity
     if S >= C:
@@ -566,9 +634,7 @@ def decode_attention(p: AttnParams, x, cache: KVCache, cur_pos: int, *,
     B = x.shape[0]
     C = cache.k.shape[1]
     pos_b = torch.full((B, 1), cur_pos, dtype=torch.int32, device=x.device)
-    q = _split_heads(x @ p.wq, n_heads, head_dim)
-    k = _split_heads(x @ p.wk, n_kv, head_dim)
-    v = _split_heads(x @ p.wv, n_kv, head_dim)
+    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
     q = apply_rope(q, pos_b, rope_theta)
     k = apply_rope(k, pos_b, rope_theta)
 
@@ -585,8 +651,22 @@ def decode_attention(p: AttnParams, x, cache: KVCache, cur_pos: int, *,
         valid &= cp > cur_pos - window
     mask = _additive(valid)[:, None, None, :]      # (B,1,1,C)
     ctx = attend(q, ck, cv, mask, x.dtype)
-    out = _merge_heads(ctx, n_heads, head_dim) @ p.wo
+    out = _merge_heads(ctx, n_heads, head_dim) @ fsdp_whole(p.wo)
     return constrain(out, "batch", None, "embed"), cache
+
+
+def _shard_range(x: DTensor, dim: int) -> Tuple[int, int]:
+    """(start, length) of this rank's shard of ``x``'s ``dim``: split by
+    each mesh dim that splits it, in mesh order, into DTensor's chunks
+    (the last ones may be shorter)."""
+    start, length = 0, x.shape[dim]
+    coord = x.device_mesh.get_coordinate()
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            chunk = -(-length // x.device_mesh.size(i))
+            lo = min(coord[i] * chunk, length)
+            start, length = start + lo, min(chunk, length - lo)
+    return start, length
 
 
 def _write_slot(buf, slot: int, value) -> None:
@@ -599,15 +679,7 @@ def _write_slot(buf, slot: int, value) -> None:
         return
     mesh, placements = buf.device_mesh, tuple(buf.placements)
     local = buf.to_local()
-    # the rank's shard of dim 1: split by each mesh dim that splits it, in
-    # mesh order, into DTensor's chunks (the last ones may be shorter)
-    start, length = 0, buf.shape[1]
-    coord = mesh.get_coordinate()
-    for i, p in enumerate(placements):
-        if p.is_shard(1):
-            chunk = -(-length // mesh.size(i))
-            lo = min(coord[i] * chunk, length)
-            start, length = start + lo, min(chunk, length - lo)
+    start, length = _shard_range(buf, 1)
     if isinstance(value, DTensor):       # every rank: a collective
         value = value.redistribute(mesh, tuple(
             Replicate() if p.is_shard(1) else
@@ -620,18 +692,18 @@ def _write_slot(buf, slot: int, value) -> None:
 def cross_attention(p: AttnParams, x, enc_kv, *, n_heads, n_kv, head_dim):
     """Decoder -> encoder attention over the precomputed ``enc_kv`` = (k,
     v), each (B, Se, Kh, hd): no rope and no mask over the encoder."""
-    q = _split_heads(x @ p.wq, n_heads, head_dim)
+    q = _split_heads(columns(x, "qkv", p.wq)[0], n_heads, head_dim)
     k, v = enc_kv
     mask = torch.zeros((1, 1, 1, k.shape[1]), device=x.device)
     ctx = attend(q, k, v, mask, x.dtype)
-    out = _merge_heads(ctx, n_heads, head_dim) @ p.wo
+    out = _merge_heads(ctx, n_heads, head_dim) @ fsdp_whole(p.wo)
     return constrain(out, "batch", "seq", "embed")
 
 
 def encode_cross_kv(p: AttnParams, enc_out, *, n_kv, head_dim):
     """The cross attention's (k, v) of the encoder's output (B, Se, d)."""
-    return (_split_heads(enc_out @ p.wk, n_kv, head_dim),
-            _split_heads(enc_out @ p.wv, n_kv, head_dim))
+    k, v = columns(enc_out, "qkv", p.wk, p.wv)
+    return _split_heads(k, n_kv, head_dim), _split_heads(v, n_kv, head_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -653,9 +725,10 @@ class MlpParams(nn.Module):
 
 
 def mlp(p: MlpParams, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu((x @ p.w_gate).float()).to(x.dtype) * (x @ p.w_up)
+    gate, up = columns(x, "mlp", p.w_gate, p.w_up)
+    h = F.silu(gate.float()).to(x.dtype) * up
     h = constrain(h, "batch", "seq", "mlp")
-    return constrain(h @ p.w_down, "batch", "seq", "embed")
+    return constrain(h @ fsdp_whole(p.w_down), "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -946,7 +1019,8 @@ def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def logits_head(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied LM head: (B, S, d) @ (V, d)^T -> (B, S, V)."""
-    return constrain(x @ table.t(), "batch", "seq", "vocab")
+    return constrain(columns(x, "vocab", table.t())[0], "batch", "seq",
+                     "vocab")
 
 
 def pad_vocab(vocab: int, multiple: int = 128) -> int:
@@ -973,25 +1047,98 @@ def _take_last(x, idx):
                      device_mesh=mesh)(x, idx)
 
 
+class _VocabShardLogProb(torch.autograd.Function):
+    """Each row's log-probability of its label from this rank's slice
+    (..., V/m) of float32 logits split by vocabulary over the ranks of
+    ``groups``, the slice starting at entry ``start``: the row max by an
+    all-reduce of max, then the sum of exponentials and the label's logit
+    (taken by the rank that holds it, 0 on the others) by one all-reduce
+    of sums.  Entries at or past ``vocab`` (the padding) count as -1e30,
+    as the plain path masks them.  The backward pass is the rank's slice
+    of (onehot - softmax) times each row's gradient, with no collective:
+    the rows' log-probabilities are the same on every rank of
+    ``groups``."""
+
+    @staticmethod
+    def forward(ctx, logits, idx, start, vocab, groups):
+        n = logits.shape[-1]
+        cols = start + torch.arange(n, device=logits.device)
+        logits = logits.masked_fill(cols >= vocab, -1e30)
+        m = logits.amax(dim=-1)
+        for g in groups:
+            m = _all_reduce(m, "max", g)
+        e = torch.exp(logits - m[..., None])
+        local = idx - start
+        mine = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        tgt = torch.gather(logits, -1, local[..., None])[..., 0]
+        both = torch.stack([e.sum(dim=-1), torch.where(mine, tgt, 0.0)], -1)
+        for g in groups:
+            both = _all_reduce(both, "sum", g)
+        total, tgt = both.unbind(-1)
+        ctx.save_for_backward(e, total, local, mine)
+        return tgt - m - torch.log(total)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, local, mine = ctx.saved_tensors
+        onehot = torch.zeros_like(e).scatter_(
+            -1, local[..., None], mine[..., None].to(e.dtype))
+        return ((onehot - e / total[..., None]) * g[..., None],
+                None, None, None, None)
+
+
+def _vocab_split(x) -> Tuple[str, ...]:
+    """The process groups of the mesh dims (of more than one rank) that
+    split ``x``'s last dim; () for a plain tensor."""
+    if not isinstance(x, DTensor):
+        return ()
+    mesh, last = x.device_mesh, x.dim() - 1
+    return tuple(mesh.get_group(i).group_name
+                 for i, p in enumerate(x.placements)
+                 if p.is_shard(last) and mesh.size(i) > 1)
+
+
+def _label_logprob_by_shards(logits: DTensor, idx, vocab: int):
+    """Each row's log-probability of label ``idx`` under ``logits`` (...,
+    V) split by vocabulary among ranks (``_VocabShardLogProb`` on each
+    rank's slice): laid out as the rows of ``logits``."""
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    rows = tuple(Replicate() if p.is_shard(last) else p
+                 for p in logits.placements)
+    idx = (idx if isinstance(idx, DTensor) else on_mesh(idx, mesh)
+           ).redistribute(mesh, rows).to_local()
+    out = _VocabShardLogProb.apply(logits.to_local(), idx,
+                                   _shard_range(logits, last)[0], vocab,
+                                   _vocab_split(logits))
+    return DTensor.from_local(out, mesh, rows, run_check=False)
+
+
 def nll_loss(table, h, labels, vocab: int, vocab_padded: int,
              seq_chunk: int = 0) -> torch.Tensor:
     """Next-token NLL (float32 scalar) of the tied head over ``h`` (B, S,
     d) against ``labels`` (B, S); labels < 0 are ignored, and the padded
     vocabulary entries are masked to -1e30.  With ``seq_chunk`` > 0 the
     (B, S, V) logits are never materialized whole: the sequence goes in
-    chunks, each recomputed in the backward pass when autograd records."""
+    chunks, each recomputed in the backward pass when autograd records.
+    On a mesh whose ranks split the vocabulary the log-softmax reduces
+    over the ranks' slices (``_label_logprob_by_shards``), as the
+    reference's does; the vocabulary is never made whole."""
     S = h.shape[1]
     pad = (torch.arange(vocab_padded, device=h.device) >= vocab
            if vocab_padded > vocab else None)
 
     def chunk_nll(h_i, lab_i):
         logits = logits_head(table, h_i).float()
-        if pad is not None:
-            logits = logits.masked_fill(pad, -1e30)
-        lp = torch.log_softmax(logits, dim=-1)
         # an ignored label (< 0) reads entry 0; the mask zeroes it
-        idx = lab_i.long().clamp_min(0)[..., None]
-        tgt = _take_last(lp, idx)[..., 0]
+        idx = lab_i.long().clamp_min(0)
+        if _vocab_split(logits):
+            tgt = _label_logprob_by_shards(logits, idx, vocab)
+        else:
+            if pad is not None:
+                logits = logits.masked_fill(pad, -1e30)
+            lp = torch.log_softmax(logits, dim=-1)
+            tgt = _take_last(lp, idx[..., None])[..., 0]
         mask = (lab_i >= 0).float()
         return (tgt * mask).sum(), mask.sum()
 

@@ -54,7 +54,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist.sharding import constrain, fsdp_whole
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import (ones_init, param, remat,
@@ -293,7 +293,7 @@ def mamba1_block(lp: Mamba1Params, x, cfg: ModelConfig, state=None):
     state=(conv_state, h): single-step decode (S==1)."""
     N, dtr = cfg.ssm_state, cfg.dtr
     h_in = L.rms_norm(lp.norm, x)
-    xz = constrain(h_in @ lp.in_proj, "batch", "seq", "inner")
+    xz, = L.columns(h_in, "inner", lp.in_proj)
 
     if state is None:
         ranks = _on_ranks(x, lp.D)
@@ -306,7 +306,8 @@ def mamba1_block(lp: Mamba1Params, x, cfg: ModelConfig, state=None):
         dt = F.softplus((dt_r @ lp.dt_w).float() + lp.dt_b)
         A = -torch.exp(lp.A_log)
         y, h_fin = _scan_full(cfg, ranks, x_c, dt, A, B_ssm, C_ssm, lp.D, z)
-        out = constrain(y @ lp.out_proj, "batch", "seq", "embed")
+        out = constrain(y @ fsdp_whole(lp.out_proj), "batch", "seq",
+                        "embed")
         return x + out, (conv_tail, h_fin)
 
     x_in, z = torch.chunk(xz, 2, dim=-1)
@@ -320,7 +321,7 @@ def mamba1_block(lp: Mamba1Params, x, cfg: ModelConfig, state=None):
     h, y = selective_step(h, x_c, dt, A, B_t, C_t)
     y = y + lp.D * x_c.float()
     y = y.to(x.dtype) * F.silu(z_t.float()).to(x.dtype)
-    out = y[:, None] @ lp.out_proj
+    out = y[:, None] @ fsdp_whole(lp.out_proj)
     return x + constrain(out, "batch", None, "embed"), (conv_state, h)
 
 
@@ -361,10 +362,12 @@ def mamba2_block(lp: Mamba2Params, x, cfg: ModelConfig, state=None):
     """Mamba-2: scalar per-head decay; reuses the mamba1 recurrence with A
     and dt broadcast across each head's channels."""
     N, dh = cfg.ssm_state, cfg.ssm_head_dim
-    h_in = L.rms_norm(lp.norm, x)
-    xz = constrain(h_in @ lp.in_proj, "batch", "seq", "inner")
-    B_ssm, C_ssm = torch.chunk(h_in @ lp.bc_proj, 2, dim=-1)
-    dt_h = F.softplus((h_in @ lp.dt_w).float() + lp.dt_b)      # (Bt,S,H)
+    # the products below share h_in, whose gradient they sum once
+    h_in = L.grad_as_input(L.rms_norm(lp.norm, x))
+    xz, = L.columns(h_in, "inner", lp.in_proj)
+    B_ssm, C_ssm = torch.chunk(h_in @ fsdp_whole(lp.bc_proj), 2, dim=-1)
+    dt_h = F.softplus((h_in @ fsdp_whole(lp.dt_w)).float()
+                      + lp.dt_b)                               # (Bt,S,H)
     A_h = -torch.exp(lp.A_log)                                 # (H,)
     A_full = A_h.repeat_interleave(dh)[:, None].repeat(1, N)   # (Di, N)
     dt_full = dt_h.repeat_interleave(dh, dim=-1)               # (Bt,S,Di)
@@ -376,7 +379,8 @@ def mamba2_block(lp: Mamba2Params, x, cfg: ModelConfig, state=None):
         y, h_fin = _scan_full(cfg, ranks, x_c, dt_full, A_full, B_ssm, C_ssm,
                               lp.D, z)
         y = L.rms_norm(lp.gate_norm, y)
-        out = constrain(y @ lp.out_proj, "batch", "seq", "embed")
+        out = constrain(y @ fsdp_whole(lp.out_proj), "batch", "seq",
+                        "embed")
         return x + out, (conv_tail, h_fin)
 
     x_in, z = torch.chunk(xz, 2, dim=-1)
@@ -389,7 +393,7 @@ def mamba2_block(lp: Mamba2Params, x, cfg: ModelConfig, state=None):
     y = y + lp.D * x_c.float()
     y = L.rms_norm(lp.gate_norm,
                    y.to(x.dtype) * F.silu(z_t.float()).to(x.dtype))
-    out = y[:, None] @ lp.out_proj
+    out = y[:, None] @ fsdp_whole(lp.out_proj)
     return x + constrain(out, "batch", None, "embed"), (conv_state, h)
 
 

@@ -1,7 +1,8 @@
-"""Rank processes of ``tests/test_torch_mesh_train.py``: a gloo group of
-CPU ranks started with ``torch.multiprocessing`` spawn, each running the
-port's mesh training on its shard and writing what the test compares to
-``<out>/<job>_<rank>.pt``.
+"""Rank processes of the port's mesh tests (``tests/test_torch_mesh_*.py``,
+started by ``tests/_torch_mesh_group.py``): a gloo group of CPU ranks
+started with ``torch.multiprocessing`` spawn, each running the port's
+mesh training, decode or loss on its shard and writing what the test
+compares to ``<out>/<job>_<rank>.pt``.
 
 This module imports only ``torch``, numpy and ``repro_torch``: the rank
 processes never load JAX.
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import json
 import os
 import time
 import traceback
@@ -436,32 +438,120 @@ def job_placements(rank, out):
     return res
 
 
+def loss_batch(cfg, seq=SEQ):
+    """Batch 0 of ``cfg``'s seeded stream with some labels ignored (< 0):
+    the head of row 0 and the tail of row 2."""
+    from repro_torch.train.data import TokenStream
+    batch = {k: np.array(v) for k, v in
+             TokenStream(cfg, BATCH, seq, seed=0).batch_at(0).items()}
+    batch["labels"][0, :5] = -1
+    batch["labels"][2, seq // 2 + 1:] = -1
+    return batch
+
+
+@contextlib.contextmanager
+def loss_probe():
+    """Record the global and the rank's shapes of the logits each
+    vocabulary-split NLL call reduces (``layers._label_logprob_by_shards``)
+    and count the calls of the whole-row gather (``layers._take_last``)."""
+    from repro_torch.models import layers as L
+
+    seen = {"split": [], "take_last": 0}
+    split, take = L._label_logprob_by_shards, L._take_last
+
+    def rec_split(logits, idx, vocab):
+        seen["split"].append((tuple(logits.shape),
+                              tuple(logits.to_local().shape)))
+        return split(logits, idx, vocab)
+
+    def rec_take(x, idx):
+        seen["take_last"] += 1
+        return take(x, idx)
+
+    L._label_logprob_by_shards, L._take_last = rec_split, rec_take
+    try:
+        yield seen
+    finally:
+        L._label_logprob_by_shards, L._take_last = split, take
+
+
+def job_vocab_loss(rank, out, weights, overrides, mesh_shape=(1, 4)):
+    """The loss and gathered gradients of granite's smoke config (with
+    ``overrides``, weights at ``weights``) on ``loss_batch`` on a ("data",
+    "model") mesh whose 'model' ranks split the vocabulary, with what
+    ``loss_probe`` saw."""
+    from repro_torch.dist.sharding import (gathered, make_mesh, shard_batch,
+                                          use_mesh)
+    from repro_torch.launch.train import shard_model
+    from repro_torch.models.registry import sharding_rules
+
+    cfg = smoke_cfg("granite-3-2b", **overrides)
+    mesh = make_mesh(mesh_shape, ("data", "model"), "cpu")
+    rules = sharding_rules(cfg, mesh_shape[1])
+    model = shard_model(_model(cfg, weights), mesh, rules)
+    batch = {k: torch.as_tensor(v) for k, v in loss_batch(cfg).items()}
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    with use_mesh(mesh, rules), loss_probe() as seen:
+        loss = gathered(model.loss(shard_batch(batch, mesh))[0])
+        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = {k: gathered(g).detach() for k, g in zip(params, grads)}
+    return {"loss": float(loss.detach()), "seen": seen,
+            "grads": grads if rank == 0 else None}
+
+
 JOBS = {"placements": job_placements, "granite": job_granite,
         "elastic": job_elastic, "grads": job_grads,
         "moe_layer": job_moe_layer, "launcher": job_launcher,
         "ckpt_roundtrip": job_ckpt_roundtrip, "decode": job_decode,
-        "greedy": job_greedy, "compress": job_compress}
+        "greedy": job_greedy, "compress": job_compress,
+        "vocab_loss": job_vocab_loss}
 
 
-def run(rank, world, store, out, jobs):
-    """Rank ``rank`` of ``world``: start the gloo group on the file store,
-    run each (name, job, kwargs) of ``jobs`` and save its result (or the
-    traceback) as ``<out>/<name>_<rank>.pt``."""
+def progress_path(store, rank):
+    """The file where rank ``rank`` of the group on ``store`` says what it
+    is doing."""
+    return f"{store}.rank{rank}.json"
+
+
+def _say(path, doing, done):
+    """Write ``{"doing", "since", "done": [[job, wall_s], ...]}`` to
+    ``path`` (whole, or not at all)."""
+    with open(path + ".tmp", "w") as f:
+        json.dump({"doing": doing, "since": time.time(), "done": done}, f)
+    os.replace(path + ".tmp", path)
+
+
+def run(rank, world, store, out, jobs, timeout_s):
+    """Rank ``rank`` of ``world``: start the gloo group on the file store
+    (each collective waits at most ``timeout_s``), run each (name, job,
+    kwargs) of ``jobs`` and save its result (or the traceback, headed by
+    the rank and the job) as ``<out>/<name>_<rank>.pt``.  What the rank is
+    doing, and each finished job's wall, is kept in
+    ``progress_path(store, rank)``."""
     torch.set_num_threads(1)
     os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
                       LOCAL_RANK=str(rank))
+    path, done = progress_path(store, rank), []
+    _say(path, "joining the group", done)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=60))
+                            timeout=datetime.timedelta(seconds=timeout_s))
     try:
         for name, job, kwargs in jobs:
+            _say(path, name, done)
             t0 = time.perf_counter()
             try:
                 res = JOBS[job](rank, out, **kwargs)
             except Exception:
-                res = {"error": traceback.format_exc()}
+                res = {"error": f"rank {rank}, job {name}:\n"
+                                f"{traceback.format_exc()}"}
             res["wall_s"] = time.perf_counter() - t0
             torch.save(res, os.path.join(out, f"{name}_{rank}.pt"))
+            done.append([name, res["wall_s"]])
+            _say(path, f"the barrier after {name}", done)
             dist.barrier()
+        _say(path, None, done)
     finally:
         dist.destroy_process_group()

@@ -19,8 +19,12 @@ with H100 constants:
   over the 6N rule, on the CPU), 1.400 for granite-3-2b's train_4k cell;
 - smoke falcon-mamba-7b and zamba2-1.2b train cells return ``ok``, and
   granite and zamba2 prefill and decode cells;
+- granite's smoke decode step on (2, 4) gathers the weights to the
+  shapes the reference's step compiled by XLA gathers them
+  (``tests/_torch_xla_layout.py``);
 - importing the dry-run loads no JAX.
 """
+import json
 import math
 import os
 import subprocess
@@ -234,6 +238,173 @@ def test_attention_flops_split_over_head_dim_on_a_fake_mesh():
     assert flops["bmm"] == meshless["bmm"] / 2
     assert coll.get(("all-gather", "model"), 0) == 0, coll
     assert coll[("all-reduce", "model")] > 0
+
+
+def _granite_products_on_fake_mesh(mesh_shape, shape):
+    """granite's smoke train step at ``shape`` traced by ``run_cell`` on a
+    fake mesh of ``mesh_shape``: (the record, the (mesh axis name, input
+    shape) of every all-gather rank 0 issued outside the embedding lookup
+    ``layers.embed``, which reads the whole table)."""
+    from repro_torch.models import layers as L
+    gathers, in_embed = [], []
+
+    def embed(*args):
+        in_embed.append(True)
+        try:
+            return lookup(*args)
+        finally:
+            in_embed.pop()
+
+    class Counter(dryrun.RankCounter):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.__name__.split(".")[0] == "all_gather_into_tensor" \
+                    and not in_embed \
+                    and not any(issubclass(t, DTensor) for t in types):
+                group = next(a for a in reversed(args) if isinstance(a, str))
+                gathers.append((dryrun.mesh_axes(mesh_shape)[
+                    self.axis_of_group[group]], tuple(args[0].shape)))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    from torch.distributed.tensor import DTensor
+    saved, dryrun.RankCounter = dryrun.RankCounter, Counter
+    lookup, L.embed = L.embed, embed
+    try:
+        rec = dryrun.run_cell("granite-3-2b", "small",
+                              cfg_override=get_smoke_config("granite-3-2b"),
+                              shape=shape, mesh_shape=mesh_shape,
+                              with_flops=False, verbose=False)
+    finally:
+        dryrun.RankCounter, L.embed = saved, lookup
+    assert rec["ok"], rec.get("traceback")
+    return rec, gathers
+
+
+def test_fsdp_tp_products_split_over_both_axes_on_a_fake_mesh():
+    """granite's smoke train step on a fake (2, 4) mesh: the batch splits
+    over 'data' and ``mlp``, ``qkv`` and the vocabulary over 'model', so
+    each rank's matrix products (``mm``, ``addmm``: forward, remat
+    recompute and backward) are an eighth of the meshless count; the
+    weights are gathered on 'data' only (FSDP), never on 'model'."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models.registry import get_model
+
+    cfg = get_smoke_config("granite-3-2b")
+    model = get_model(cfg, device="meta")
+    with FakeTensorMode():
+        fn, args = dryrun._build(cfg, SMALL, None, {}, None)
+        with FlopCounterMode(display=False) as fc:
+            fn(*args)
+    meshless = {str(op).split(".")[-1]: n for op, n in
+                fc.get_flop_counts()["Global"].items()}
+    rec, gathers = _granite_products_on_fake_mesh((2, 4), SMALL)
+    flops = rec["per_device_flops_by_op"]
+    products = [op for op in ("mm", "addmm") if op in meshless]
+    assert products
+    for op in products:
+        assert flops[op] * 8 == meshless[op], (op, flops[op], meshless[op])
+    # what an all-gather of a product's weight on 'model' would take in:
+    # its 'model' shard, its FSDP dim whole or split
+    shards = set()
+    for name, p in model.named_parameters():
+        prefix, _, field = name.rpartition(".")
+        owner = model.get_submodule(prefix) if prefix else model
+        axes = owner.AXES[field]
+        if p.dim() != 2:
+            continue
+        for a in (1, 2):
+            shards.add(tuple(n // (4 if ax in ("qkv", "mlp", "vocab") else
+                                   a if ax == "embed" else 1)
+                             for n, ax in zip(p.shape, axes)))
+    on_model = [shape for axis, shape in gathers if axis == "model"]
+    assert not [s for s in on_model if s in shards], on_model
+    assert [shape for axis, shape in gathers if axis == "data"]
+
+
+def test_vocab_split_loss_moves_no_vocabulary():
+    """``layers.nll_loss`` on a fake (2, 4) mesh, the logits' vocabulary
+    split over 'model': forward and backward run no all-gather on
+    'model', and its 'model' collectives do not grow with the
+    vocabulary: the row max and the two row sums, 3·B_l·S float32
+    values; the backward pass adds only the head's input gradient (B_l,
+    S, d), summed once over the ranks' slices (``layers.grad_as_input``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.dist.sharding import (make_mesh, on_mesh, shard_batch,
+                                          use_mesh)
+    from repro_torch.models import layers as L
+
+    B, S, d = 4, 16, 64
+    got = {}
+    for V in (256, 1024):
+        with dryrun.fake_group(8), dryrun._global_shapes_unseen():
+            mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+            groups = {mesh.get_group(i).group_name: i for i in range(2)}
+            with FakeTensorMode(), use_mesh(mesh, {}):
+                table = on_mesh(torch.randn(V, d), mesh, "vocab", "embed")
+                h = on_mesh(torch.randn(B, S, d), mesh, "batch", "seq",
+                            "embed")
+                labels = shard_batch(
+                    {"l": torch.zeros(B, S, dtype=torch.long)}, mesh)["l"]
+                for t in (table, h):
+                    t.requires_grad_(True)
+                for grad in (False, True):
+                    counter = dryrun.RankCounter(groups)
+                    with counter, torch.set_grad_enabled(grad):
+                        loss = L.nll_loss(table, h, labels, V - 6, V)
+                        if grad:
+                            loss.backward()
+                    got[V, grad] = {
+                        (k, ("data", "model")[a]): b for (k, a), b in
+                        counter.kind_axis_bytes.items()}
+    for (V, grad), coll in got.items():
+        assert coll.get(("all-gather", "model"), 0) == 0, (V, grad, coll)
+    B_l = B // 2
+    assert got[256, False][("all-reduce", "model")] == 3 * B_l * S * 4
+    assert got[256, True][("all-reduce", "model")] == \
+        3 * B_l * S * 4 + B_l * S * d * 4
+    for grad in (False, True):
+        assert {k: b for k, b in got[1024, grad].items() if k[1] == "model"} \
+            == {k: b for k, b in got[256, grad].items() if k[1] == "model"}
+
+
+def test_decode_gathers_the_weights_as_the_reference_compiles_it():
+    """granite's smoke decode step on a (2, 4) mesh, the reference's
+    compiled by XLA on eight fake CPU devices (``tests/_torch_xla_layout.py``)
+    and the port's traced: XLA makes each weight's FSDP split whole on
+    'data' and keeps its 'model' split (the rows stay on their rank), and
+    the port gathers the same weights to the same shapes on 'data', none
+    on 'model', and moves no activations on 'data'."""
+    helper = os.path.join(os.path.dirname(__file__), "_torch_xla_layout.py")
+    proc = subprocess.run([sys.executable, helper, "granite-3-2b",
+                           "--batch", "8", "--seq", "32"],
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ref = json.loads(proc.stdout.strip().splitlines()[-1])
+    # the reference's weights: every rank-2 gather (a norm scale reads
+    # (1, d)), all of them on 'data'
+    weights = [g for g in ref["gathers"] if len(g["shape"]) == 2]
+    assert weights and {g["axis"] for g in weights} == {"data"}
+    want = {tuple(n for n in g["shape"] if n != 1) for g in weights}
+
+    rec, gathers = _granite_products_on_fake_mesh(
+        (2, 4), ShapeConfig("small", 32, 8, "decode"))
+    on_data = {shape for axis, shape in gathers if axis == "data"}
+
+    def whole(shape):
+        """The shapes a gather of ``shape`` over 'data' (2 ranks) makes."""
+        return {shape[:i] + (n * 2,) + shape[i + 1:]
+                for i, n in enumerate(shape)}
+
+    got = set().union(*(whole(s) for s in on_data))
+    assert want <= got, (want, on_data)
+    assert all(whole(s) & want for s in on_data), (want, on_data)
+    assert not [s for axis, s in gathers if axis == "model" and len(s) == 2]
+    moved = rec["collective_bytes_by_kind_axis"]
+    assert not {k for k in moved if k.endswith("@data")
+                and not k.startswith("all-gather")}, moved
 
 
 def _decode_cell(seq, **overrides):

@@ -2,15 +2,15 @@
 ``repro_torch.launch.{mesh,shardings,train}``, the mesh-aware train step
 and checkpoint), on gloo CPU ranks, for every family: dense (granite),
 MoE, VLM, SSM (falcon-mamba), hybrid (zamba2) and encoder-decoder
-(seamless).
+(seamless).  Attention's mesh layouts, decode and the vocabulary-split
+loss are in ``tests/test_torch_mesh_attention.py``.
 
-The ranks are started with ``torch.multiprocessing`` spawn on a
-``file://`` store under the test's temporary directory (no ports, so
-parallel test workers never clash) and run ``_torch_mesh_worker``, which
-imports only ``repro_torch``.  One 4-rank group runs the (2, 2) mesh
-jobs, the launcher and the 4-rank compression; one 2-rank group runs the
-elastic restart and the 2-rank compression.  Every join has a deadline,
-so a hung rank fails the tests instead of hanging them.
+The module fixture runs one 4-rank group (the (2, 2) mesh jobs, the
+launcher and the 4-rank compression) and one 2-rank group (the elastic
+restart and the 2-rank compression) through ``_torch_mesh_group.spawn``:
+each group has a deadline of ``MARGIN`` times its wall on an idle 8-CPU
+host, and its ranks a collective timeout of ``MARGIN`` times the longest
+job's (at least 60 s).
 
 The reference's own multi-device tests do not run on this tree, so the
 sharded runs are held against single-device runs: the port's meshless
@@ -32,20 +32,8 @@ run on the same weights and batches, and the reference's
   ``quantize_int8`` / ``dequantize_int8`` of its gradient; the
   all-reduced mean within 1e-6 of numpy's mean of the ranks' values
   (the ring adds in its own order).
-- attention at the reference's layout, where the old one gathered
-  (``layers.attend``): granite and h2o-danube (window, dense and
-  query-chunked) on (1, 4), whose 4 ranks do not divide the 2 kv heads,
-  and phi3 on (2, 2), whose head dim is split: loss within rtol 1e-6
-  and every gradient (``wk`` and ``wv`` included) within 1e-5 x max|g|
-  of the meshless port; against ``jax.grad`` of the reference's loss,
-  rtol 1e-4 and 1e-5 x max|g|.  Greedy decode of granite and zamba2 on
-  (2, 2), the rows over 'data' and the cache's ring over 'model'
-  (split-K): logits within 1e-5 of the meshless port's and of the
-  reference's, the tokens equal, for 8 steps.  Each call's layout and
-  each rank's local shapes at the products are the reference layout's.
 """
 import os
-import time
 
 import numpy as np
 import pytest
@@ -54,34 +42,28 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import _torch_mesh_worker as W  # noqa: E402
+from _torch_mesh_group import (collective_timeout,  # noqa: E402
+                               grads_within, meshless_step, ok,
+                               reference_step, reference_weights,
+                               spawn, within_reference)
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.data import TokenStream  # noqa: E402
 from repro_torch.train.loop import TrainConfig, init_state, train  # noqa: E402
 
-DEADLINE_S = {4: 180.0, 2: 80.0}
-
-
-def _spawn(world, d, jobs):
-    """Run ``jobs`` on ``world`` gloo ranks; {name: [result of each rank]}.
-    Kills every rank when the deadline passes."""
-    import torch.multiprocessing as mp
-    ctx = mp.spawn(W.run, args=(world, os.path.join(d, f"store{world}"), d,
-                                jobs), nprocs=world, join=False)
-    deadline = time.monotonic() + DEADLINE_S[world]
-    try:
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"{world}-rank group still running after "
-                                   f"{DEADLINE_S[world]} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-    out = {}
-    for name, _, _ in jobs:
-        out[name] = [torch.load(os.path.join(d, f"{name}_{r}.pt"),
-                                weights_only=False) for r in range(world)]
-    return out
+# each group's wall on an idle 8-CPU host (spawn to the last rank's
+# exit; the larger of two runs).  Under the suite's `pytest -n 6 --dist
+# loadfile` the groups took 1.3-2.1x as long (116.3 s and 13.9 s); one
+# group of this module's and the attention module's jobs (59.4 s of jobs
+# idle) overran a deadline of 180 s, 3.0x, on a busier host.  The margin
+# is twice that.  A collective waits at most for the other ranks to end
+# the job before: the longest job's idle wall (granite's 25 steps, the
+# elastic restart) sets its timeout.
+IDLE_S = {4: 54.5, 2: 11.0}
+JOB_IDLE_S = {4: 14.4, 2: 6.9}
+MARGIN = 6
+DEADLINE_S = {world: MARGIN * wall for world, wall in IDLE_S.items()}
+COLLECTIVE_S = {world: collective_timeout(MARGIN, wall)
+                for world, wall in JOB_IDLE_S.items()}
 
 
 def _granite_weights(path):
@@ -107,34 +89,6 @@ def _granite_weights(path):
 FAMILIES = {"falcon": "falcon-mamba-7b", "zamba2": "zamba2-1.2b",
             "seamless": "seamless-m4t-medium"}
 CKPT_ARCH = "falcon-mamba-7b"
-DECODE_ARCHS = ("granite-3-2b", "zamba2-1.2b")
-# attention jobs: name -> (arch, mesh shape, sequence, config overrides);
-# 4 'model' ranks do not divide 2 kv heads, phi3's 5 heads take the
-# head_dim rule on 2
-SPLITS = {"split_granite": ("granite-3-2b", (1, 4), W.SEQ, {}),
-          "split_danube": ("h2o-danube-3-4b", (1, 4), 2 * W.SEQ, {}),
-          "split_danube_chunked": ("h2o-danube-3-4b", (1, 4), 2 * W.SEQ,
-                                   {"attn_q_chunk": 8}),
-          "split_phi3": ("phi3-medium-14b", (2, 2), W.SEQ, {})}
-
-
-def _reference_weights(arch, path, **overrides):
-    """The reference's float32 smoke weights of ``arch`` (seed 0, config
-    ``overrides``), carried into the port and saved as a state dict;
-    (JAX model, value tree)."""
-    jax = pytest.importorskip("jax")
-    from repro.configs import get_smoke_config as jsmoke
-    from repro.models import module as jmodule
-    from repro.models import registry as jregistry
-    from repro_torch.convert import model_from_numpy
-
-    jm = jregistry.get_model(jsmoke(arch).replace(dtype="float32",
-                                                  **overrides))
-    values, _ = jmodule.split(jm.init(jax.random.PRNGKey(0)))
-    values = jax.tree.map(np.asarray, values)
-    torch.save(model_from_numpy(W.smoke_cfg(arch, **overrides), values,
-                                "cpu").state_dict(), path)
-    return jm, values
 
 
 def _meshless_checkpoint(d):
@@ -158,16 +112,9 @@ def runs(tmp_path_factory):
         os.makedirs(path)
     family = {job: (os.path.join(d, f"{job}.pt"),) for job in FAMILIES}
     for job, arch in FAMILIES.items():
-        family[job] += _reference_weights(arch, family[job][0])
-    for job, (arch, _, _, over) in SPLITS.items():
-        family[job] = (os.path.join(d, f"{job}.pt"),)
-        family[job] += _reference_weights(arch, family[job][0], **over)
-    family["greedy_granite-3-2b"] = (os.path.join(d, "granite_smoke.pt"),)
-    family["greedy_granite-3-2b"] += _reference_weights(
-        "granite-3-2b", family["greedy_granite-3-2b"][0])
-    family["greedy_zamba2-1.2b"] = family["zamba2"]
+        family[job] += reference_weights(arch, family[job][0])
     meshless = _meshless_checkpoint(mk)
-    res = _spawn(4, d, [
+    res = spawn(4, d, [
         ("placements", "placements", {}),
         ("granite", "granite", dict(weights=weights, ckpt_dir=ck)),
         ("moe", "grads", dict(arch="qwen2-moe-a2.7b")),
@@ -177,30 +124,16 @@ def runs(tmp_path_factory):
           for job, arch in FAMILIES.items()),
         ("ssm_ckpt", "ckpt_roundtrip", dict(arch=CKPT_ARCH, meshless_dir=mk,
                                             ckpt_dir=sk)),
-        *((f"decode_{arch}", "decode", dict(arch=arch))
-          for arch in DECODE_ARCHS),
-        *((job, "grads", dict(arch=arch, weights=family[job][0],
-                              mesh_shape=ms, seq=seq, overrides=over))
-          for job, (arch, ms, seq, over) in SPLITS.items()),
-        *((f"greedy_{arch}", "greedy",
-           dict(arch=arch, weights=family[f"greedy_{arch}"][0]))
-          for arch in DECODE_ARCHS),
         ("launcher", "launcher", dict(ckpt_dir=lk)),
-        ("compress4", "compress", dict(world=4))])
-    res.update(_spawn(2, d, [
+        ("compress4", "compress", dict(world=4))], DEADLINE_S[4],
+        COLLECTIVE_S[4])
+    res.update(spawn(2, d, [
         ("elastic", "elastic", dict(weights=None, ckpt_dir=ck)),
-        ("compress2", "compress", dict(world=2))]))
+        ("compress2", "compress", dict(world=2))], DEADLINE_S[2],
+        COLLECTIVE_S[2]))
     return {"dir": d, "weights": weights, "ckpt": ck, "jax": (jm, jstate),
             "family": family, "meshless": meshless, "ssm_ckpt": sk,
             "res": res}
-
-
-def _ok(runs, name):
-    """The per-rank results of job ``name``, failing on a rank's error."""
-    ranks = runs["res"][name]
-    for r, res in enumerate(ranks):
-        assert "error" not in res, f"{name} rank {r}:\n{res['error']}"
-    return ranks
 
 
 def _meshless_granite(weights, steps):
@@ -216,7 +149,7 @@ def test_placements_shard_in_mesh_order_and_reassemble(runs):
     """A dim over ("pod", "data") splits pod-major, as the reference's
     PartitionSpec entry does; every spec's ``full_tensor`` is the tensor."""
     x = torch.arange(8 * 6, dtype=torch.float32).reshape(8, 6)
-    for res in _ok(runs, "placements"):
+    for res in ok(runs, "placements"):
         p, d = res["coords"]
         assert all(v["whole"] for k, v in res.items()
                    if isinstance(k, tuple))
@@ -234,7 +167,7 @@ def test_placements_shard_in_mesh_order_and_reassemble(runs):
 def test_mesh_param_shards_follow_shardings_for_axes(runs):
     from repro_torch.dist.sharding import Shard
     sizes = (2, 2)
-    for res in _ok(runs, "granite"):
+    for res in ok(runs, "granite"):
         model = W._model(W.granite_cfg())
         full = dict(model.named_parameters())
         for name, (local, placements, want) in res["shapes"].items():
@@ -254,7 +187,7 @@ def test_mesh_granite_matches_meshless_and_reference(runs):
     from repro.train import data as jdata
     from repro.train import loop as jloop
 
-    losses = _ok(runs, "granite")[0]["losses"][:5]
+    losses = ok(runs, "granite")[0]["losses"][:5]
     np.testing.assert_allclose(losses, _meshless_granite(runs["weights"], 5),
                                rtol=1e-4)
     jm, state = runs["jax"]
@@ -268,7 +201,7 @@ def test_mesh_granite_matches_meshless_and_reference(runs):
 
 
 def test_mesh_granite_25_steps_lower_the_loss(runs):
-    ranks = _ok(runs, "granite")
+    ranks = ok(runs, "granite")
     losses = ranks[0]["losses"]
     assert len(losses) == W.STEPS and all(np.isfinite(losses))
     assert np.mean(losses[-3:]) < losses[0] - 0.05, losses
@@ -280,63 +213,22 @@ def _family_weights(runs, job):
     return runs["family"][job][0] if job in FAMILIES else None
 
 
-def _meshless_step(cfg, weights, seq):
-    """The meshless port's loss and {name: gradient} on batch 0."""
-    model = W._model(cfg, weights)
-    stream = TokenStream(cfg, W.BATCH, seq, seed=0)
-    batch = {k: torch.as_tensor(v) for k, v in stream.batch_at(0).items()}
-    params = dict(model.named_parameters())
-    for p in params.values():
-        p.requires_grad_(True)
-    loss, _ = model.loss(batch)
-    grads = torch.autograd.grad(loss, list(params.values()))
-    return float(loss.detach()), dict(zip(params, grads))
-
-
-def _grads_within(got, want, rel=1e-5):
-    """Every gradient of ``want`` matched within ``rel`` x its max|g|."""
-    for name, g in want.items():
-        scale = float(g.abs().max()) or 1.0
-        assert float((got[name] - g).abs().max()) <= rel * scale, name
-
-
 @pytest.mark.parametrize("job,arch", [("moe", "qwen2-moe-a2.7b"),
                                       ("llava", "llava-next-mistral-7b"),
                                       *FAMILIES.items()])
 def test_mesh_loss_and_grads_match_meshless(runs, job, arch):
-    res = _ok(runs, job)[0]
+    res = ok(runs, job)[0]
     cfg = W.smoke_cfg(arch)
     weights = _family_weights(runs, job)
     stream = TokenStream(cfg, W.BATCH, W.SEQ, seed=0)
-    loss, grads = _meshless_step(cfg, weights, W.SEQ)
+    loss, grads = meshless_step(cfg, weights, W.SEQ)
     np.testing.assert_allclose(res["loss"], loss, rtol=1e-4)
-    _grads_within(res["grads"], grads)
+    grads_within(res["grads"], grads)
     hist = []
     train(W._model(cfg, weights), TrainConfig(**W.TRAIN), stream, 3,
           history=hist, **W._quiet())
     np.testing.assert_allclose(res["losses"], [h["loss"] for h in hist],
                                rtol=1e-4)
-
-
-def _reference_leaf(tree, name, shape):
-    """The numpy leaf of the reference's value tree that the port's
-    parameter ``name`` holds: a per-layer module's index takes that layer
-    of the stacked leaf, and a block stacked ``(1, ...)`` (the hybrid's
-    shared block) gives its one entry."""
-    node, index = tree, None
-    for part in name.split("."):
-        if part.isdigit():
-            index = int(part)
-        else:
-            node = node[part] if isinstance(node, dict) else \
-                getattr(node, part)
-    leaf = np.asarray(node)
-    if index is not None:
-        leaf = leaf[index]
-    elif leaf.shape != tuple(shape) and leaf.shape[1:] == tuple(shape):
-        leaf = leaf[0]
-    assert leaf.shape == tuple(shape), name
-    return leaf
 
 
 @pytest.mark.parametrize("job", list(FAMILIES))
@@ -346,23 +238,10 @@ def test_mesh_families_match_reference_step(runs, job):
     loss on the same weights and batch; the per-channel parameters of the
     Mamba blocks are split over 'model' (the per-rank regions ran on
     halves)."""
-    jax = pytest.importorskip("jax")
-    import jax.numpy as jnp
-
-    res = _ok(runs, job)[0]
+    res = ok(runs, job)[0]
     _, jm, values = runs["family"][job]
-    batch = TokenStream(W.smoke_cfg(FAMILIES[job]), W.BATCH, W.SEQ,
-                        seed=0).batch_at(0)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    jloss, jgrads = jax.value_and_grad(lambda v: jm.loss(v, jb)[0])(
-        jax.tree.map(jnp.asarray, values))
-    np.testing.assert_allclose(res["loss"], float(jloss), rtol=1e-4)
-    want = {k: _reference_leaf(jgrads, k, g.shape)
-            for k, g in res["grads"].items()}
-    gmax = max(float(np.abs(g).max()) for g in want.values())
-    for name, g in res["grads"].items():
-        np.testing.assert_allclose(g.numpy(), want[name], rtol=0,
-                                   atol=1e-5 * gmax, err_msg=name)
+    within_reference(res["loss"], res["grads"], *reference_step(
+        jm, values, W.smoke_cfg(FAMILIES[job]), W.SEQ))
     if job != "seamless":
         from repro_torch.dist.sharding import Shard
         split = [k for k, pl in res["placements"].items()
@@ -373,7 +252,7 @@ def test_mesh_families_match_reference_step(runs, job):
 def test_mesh_ssm_checkpoint_moves_both_ways_bitwise(runs):
     """A meshless ``CKPT_ARCH`` checkpoint restored onto the (2, 2) mesh,
     and the mesh's checkpoint restored without one: bitwise."""
-    res = _ok(runs, "ssm_ckpt")[0]
+    res = ok(runs, "ssm_ckpt")[0]
     params, mu = runs["meshless"]
     for k, v in params.items():
         assert torch.equal(res["restored"][k], v), k
@@ -391,7 +270,7 @@ def test_mesh_moe_layer_matches_meshless(runs, group_tokens):
     """One MoE layer on (2, 2): the routing groups split as the batch is,
     or one group of every token; y and aux within rtol 1e-5, the
     gradients of x and of every weight within 1e-5 x max|g|."""
-    res = _ok(runs, "moe_layer")[0]
+    res = ok(runs, "moe_layer")[0]
     assert res["placements"]["w_gate"] != res["placements"]["w_router"]
     cfg = W.smoke_cfg("qwen2-moe-a2.7b")
     p = W._model(cfg).layers[0].moe
@@ -414,7 +293,7 @@ def test_compressed_grads_match_reference_quantization(runs, world):
     import jax.numpy as jnp
     from repro.dist.compression import dequantize_int8, quantize_int8
 
-    ranks = _ok(runs, f"compress{world}")
+    ranks = ok(runs, f"compress{world}")
     for i, step in enumerate(ranks[0]["steps"]):
         deqs, losses = {}, []
         for r, res in enumerate(ranks):
@@ -440,8 +319,8 @@ def test_compressed_grads_match_reference_quantization(runs, world):
 
 
 def test_elastic_restart_continues_as_the_uninterrupted_run(runs):
-    elastic = _ok(runs, "elastic")
-    full = _ok(runs, "granite")[0]
+    elastic = ok(runs, "elastic")
+    full = ok(runs, "granite")[0]
     for res in elastic:
         assert res["plan"] == ((1, 2), ("data", "model"), 2)
         assert res["start"] == W.ELASTIC_CKPT_STEP
@@ -457,140 +336,10 @@ def test_elastic_restart_continues_as_the_uninterrupted_run(runs):
         assert torch.equal(v.detach(), full["at_ckpt"][k]), k
 
 
-@pytest.mark.parametrize("arch", DECODE_ARCHS)
-def test_mesh_decode_matches_meshless(runs, arch):
-    """Two decode steps on (2, 2) from a prefilled cache placed by
-    ``cache_shardings`` (its ring split over 'model'): each rank writes
-    the new slot into its own shard.  Logits, and the cache after the
-    steps, within 1e-5 (absolute and relative) of the meshless steps:
-    the sharded products sum in another order."""
-    from torch.utils._pytree import tree_flatten
-
-    res = _ok(runs, f"decode_{arch}")[0]
-    cfg = W.smoke_cfg(arch)
-    model = W._model(cfg)
-    cache, nxt = W.decode_inputs(cfg, model)
-    with torch.no_grad():
-        for i, pos in enumerate((W.SEQ // 2, W.SEQ // 2 + 1)):
-            lg, cache = model.decode_step(cache, nxt, pos)
-            np.testing.assert_allclose(res["logits"][i].numpy(), lg.numpy(),
-                                       rtol=1e-5, atol=1e-5)
-    got, want = tree_flatten(res["cache"])[0], tree_flatten(cache)[0]
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
-                                   rtol=1e-5, atol=1e-5)
-
-
-def _reference_step(jm, values, cfg, seq):
-    """The reference's loss and gradients (``jax.grad``) on batch 0."""
-    jax = pytest.importorskip("jax")
-    import jax.numpy as jnp
-
-    batch = TokenStream(cfg, W.BATCH, seq, seed=0).batch_at(0)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    return jax.value_and_grad(lambda v: jm.loss(v, jb)[0])(
-        jax.tree.map(jnp.asarray, values))
-
-
-@pytest.mark.parametrize("job", list(SPLITS))
-def test_mesh_attention_split_matches_meshless_and_reference(runs, job):
-    """Attention split where the old layout gathered: q's heads over ranks
-    that do not divide the kv heads (granite, danube with its window,
-    dense and query-chunked; ``wk`` and ``wv`` gradients partial sums on
-    the ranks), or the head dim (phi3).  Meshless: loss rtol 1e-6, every
-    gradient 1e-5 x max|g|; the reference's ``jax.grad``: rtol 1e-4,
-    1e-5 x the largest |g|."""
-    arch, _, seq, over = SPLITS[job]
-    res = _ok(runs, job)[0]
-    cfg = W.smoke_cfg(arch, **over)
-    loss, grads = _meshless_step(cfg, runs["family"][job][0], seq)
-    np.testing.assert_allclose(res["loss"], loss, rtol=1e-6)
-    assert {"wk", "wv"} <= {k.rsplit(".", 1)[-1] for k in res["grads"]}
-    _grads_within(res["grads"], grads)
-    _, jm, values = runs["family"][job]
-    jloss, jgrads = _reference_step(jm, values, cfg, seq)
-    np.testing.assert_allclose(res["loss"], float(jloss), rtol=1e-4)
-    want = {k: _reference_leaf(jgrads, k, g.shape)
-            for k, g in res["grads"].items()}
-    gmax = max(float(np.abs(g).max()) for g in want.values())
-    for name, g in res["grads"].items():
-        np.testing.assert_allclose(g.numpy(), want[name], rtol=0,
-                                   atol=1e-5 * gmax, err_msg=name)
-
-
-@pytest.mark.parametrize("job", list(SPLITS) + [f"greedy_{a}" for a in
-                                                 DECODE_ARCHS])
-def test_mesh_attention_local_shapes_follow_reference_layout(runs, job):
-    """Each rank's q and k at attention's products: granite and danube on
-    (1, 4) hold H/4 = 1 q head and its one kv head, phi3 on (2, 2) its
-    hd/2 slice of every head; decode on (2, 2) holds B/2 rows of q and
-    C/2 ring slots of k."""
-    B, C = W.BATCH, W.SEQ
-    for res in _ok(runs, job):
-        seen = res["attend"]
-        assert seen["modes"] and seen["shapes"]
-        if job.startswith("greedy"):
-            arch = job.split("_", 1)[1]
-            cfg = W.smoke_cfg(arch)
-            assert set(seen["modes"]) == {("batch", "kv_seq")}
-            for (q, k) in seen["shapes"]:
-                assert q == (B // 2, 1, cfg.n_heads, cfg.hd)
-                assert k == (B // 2, C // 2, cfg.n_kv_heads, cfg.hd)
-            continue
-        arch, (_, m), seq, over = SPLITS[job]
-        cfg = W.smoke_cfg(arch, **over)
-        for (q, k) in seen["shapes"]:
-            if job == "split_phi3":
-                assert q[2:] == (cfg.n_heads, cfg.hd // m), q
-                assert k[2:] == (cfg.n_kv_heads, cfg.hd // m), k
-            else:
-                assert q[0] == B and q[2:] == (cfg.n_heads // m, cfg.hd), q
-                assert k[2:] == (1, cfg.hd), k
-        want = ("whole", "head_dim" if job == "split_phi3" else "heads")
-        assert set(seen["modes"]) == {want}
-    if job == "split_danube_chunked":
-        assert {q[1] for q, _ in seen["shapes"]} == {8}
-
-
-@pytest.mark.parametrize("arch", DECODE_ARCHS)
-def test_mesh_greedy_decode_matches_meshless_and_reference(runs, arch):
-    """8 greedy decode steps on (2, 2), split-K over the ring's halves:
-    each step's logits within 1e-5 (absolute and relative) of the
-    meshless port's and of the reference's, the tokens equal."""
-    jax = pytest.importorskip("jax")
-    import jax.numpy as jnp
-
-    res = _ok(runs, f"greedy_{arch}")[0]
-    path, jm, values = runs["family"][f"greedy_{arch}"]
-    cfg = W.smoke_cfg(arch)
-    model = W._model(cfg, path)
-    cache, prompt, cur = W.greedy_inputs(cfg, model)
-    jl, jc = jm.prefill(values, {"tokens": jnp.asarray(prompt.numpy())},
-                        W.SEQ)
-    jcur = jnp.argmax(jl[:, -1], -1)[:, None].astype(jnp.int32)
-    np.testing.assert_array_equal(cur.numpy(), np.asarray(jcur))
-    assert len(res["logits"]) == W.SEQ // 2
-    with torch.no_grad():
-        for s, (lg_mesh, tok_mesh) in enumerate(zip(res["logits"],
-                                                    res["tokens"])):
-            pos = W.SEQ // 2 + s
-            lg, cache = model.decode_step(cache, cur, pos)
-            jl, jc = jm.decode_step(values, jc, jcur, jnp.int32(pos))
-            np.testing.assert_allclose(lg_mesh.numpy(), lg.numpy(),
-                                       rtol=1e-5, atol=1e-5)
-            np.testing.assert_allclose(lg_mesh.numpy(), np.asarray(jl),
-                                       rtol=1e-5, atol=1e-5)
-            cur = torch.argmax(lg[:, -1], -1)[:, None]
-            jcur = jnp.argmax(jl[:, -1], -1)[:, None].astype(jnp.int32)
-            assert torch.equal(tok_mesh, cur), s
-            np.testing.assert_array_equal(cur.numpy(), np.asarray(jcur))
-
-
 def test_launcher_main_trains_on_a_4_rank_mesh(runs):
     from repro_torch.launch import train as launch_train
 
-    ranks = _ok(runs, "launcher")
+    ranks = ok(runs, "launcher")
     for arch in W.LAUNCHED:
         _, state, hist = launch_train.main(
             ["--arch", arch, "--smoke", "--steps", "3", "--batch", "4",
