@@ -7,6 +7,10 @@ Phases, in order; any failure raises and exits non-zero:
 
   1. device   the torch version, the card, and its name and power limit as
               nvidia-smi reports them; fails without a CUDA device
+  19. lint    the port's static analyzer over its own sources in a
+              process of its own (the card's host has no JAX): python -m
+              repro_torch.lint src/repro_torch --strict; its findings and
+              wall printed; any finding or another exit code than 0 fails
   2. build    nvcc builds every kernel from csrc/, one nvcc per source, all
               started together (the seconds and the -Xptxas -v reports
               are printed, and each kernel instantiation's registers and
@@ -260,7 +264,10 @@ Phases, in order; any failure raises and exits non-zero:
               largest buffer and top products with their output widths
               are printed; no product may take a whole FSDP x TP weight
               (its 'model' dim whole) and no large buffer the whole
-              vocabulary
+              vocabulary.  On the mesh every parameter is made from the
+              rank's shard alone, so a peak holds the rank's shards and
+              the step's temporaries (its held parameters, caches and
+              inputs printed beside it)
 
 The counts of every kernel are set to 0 before each main path (the M3E
 searches, the served batch, phases 9-10 together, "train_eval", the
@@ -434,6 +441,31 @@ def mark(phase):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def lint_phase():
+    """Phase 19: ``python -m repro_torch.lint src/repro_torch --strict`` in
+    a process of its own.  Fails on a finding or another exit code than
+    0; returns {"findings", "wall_s"}."""
+    import re
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in (os.environ.get("PYTHONPATH"),) if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.lint",
+                           "src/repro_torch", "--strict"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    m = re.fullmatch(r"repro_torch\.lint: (\d+) findings? \(strict\)",
+                     tail[0])
+    print(f"[lint] python -m repro_torch.lint src/repro_torch --strict: "
+          f"exit {proc.returncode}, {m.group(1) if m else '?'} findings, "
+          f"{wall:.3f} s wall")
+    check(proc.returncode == 0 and m is not None and m.group(1) == "0",
+          f"the port's linter failed (exit {proc.returncode}):\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return {"findings": int(m.group(1)), "wall_s": wall}
 
 
 def smi_line():
@@ -3360,8 +3392,11 @@ def dryrun_report(out, phase9_steps):
               f"mesh ({cell['chips']} ranks): wall {cell['wall_s']:.3f} s; "
               f"per rank: FLOPs {cell['per_device_flops']:.6e} against a "
               f"share of {share:.6e} ({cell['per_device_flops'] / share:.3f}"
-              f"x), peak {cell['mem_peak_gib']:.2f} GiB (held "
-              f"{cell['mem_args_gib']:.3f}, state {state:.3f} GiB), "
+              f"x), peak {cell['mem_peak_gib']:.2f} GiB of the rank's "
+              f"shards (held {cell['mem_args_gib']:.3f}: parameters, "
+              f"optimizer moments, caches and inputs; parameters, "
+              f"gradients and moments {state:.3f}; temporaries "
+              f"{cell['mem_temp_gib']:.3f} GiB), "
               f"collective bytes {cell['collective_bytes_per_chip']:.6e} ("
               + ", ".join(f"{k} {v:.3e}" for k, v in
                           cell["collective_bytes_by_kind_axis"].items())
@@ -3398,6 +3433,10 @@ def main():
     print(f"[device] {name} x{torch.cuda.device_count()}; nvidia-smi: {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    # -- 19. lint: the port's static analyzer over its own sources -------
+    mark("19. lint")
+    lint_phase()
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core.bw_allocator import (queue_tables, simulate_numpy,

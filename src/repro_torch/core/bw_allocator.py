@@ -31,6 +31,7 @@ _BW_FLOOR = 1e-3    # bytes/s; keeps rem/alloc well-defined
 _TINY = 1e-30
 
 
+# lint: dispatch
 def queue_tables(sched: DecodedSchedule, lat: torch.Tensor,
                  bw: torch.Tensor):
     """Gather per-queue-slot (latency, bw) tables, (N, A, G) each:
@@ -53,6 +54,7 @@ def queue_tables(sched: DecodedSchedule, lat: torch.Tensor,
     return qlat, torch.clamp_min(qbw, _BW_FLOOR)
 
 
+# lint: dispatch
 def per_individual(bw_sys, n: int):
     """``bw_sys`` as the simulators take it: a float or a one-element
     tensor stays one value; an ``(R,)`` tensor with ``n % R == 0`` gives
@@ -69,6 +71,7 @@ def per_individual(bw_sys, n: int):
     return torch.repeat_interleave(bw_sys, n // R)
 
 
+# lint: dispatch
 def simulate_tables(qlat: torch.Tensor, qbw: torch.Tensor,
                     count: torch.Tensor, bw_sys) -> torch.Tensor:
     """(N,) makespans from dense queue tables: qlat/qbw (N, A, G) f32,

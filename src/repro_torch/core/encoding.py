@@ -48,6 +48,7 @@ def random_population(gen: torch.Generator, pop: int, group: int,
     )
 
 
+# lint: dispatch
 def rand_rows(gens: Sequence[torch.Generator], shape: Tuple[int, ...]
               ) -> torch.Tensor:
     """(R, *shape) float32 in [0, 1): row r drawn from ``gens[r]``."""
@@ -58,6 +59,7 @@ def rand_rows(gens: Sequence[torch.Generator], shape: Tuple[int, ...]
     return out
 
 
+# lint: dispatch
 def randn_rows(gens: Sequence[torch.Generator], shape: Tuple[int, ...]
                ) -> torch.Tensor:
     """(R, *shape) float32 standard normals: row r drawn from ``gens[r]``."""
@@ -68,6 +70,7 @@ def randn_rows(gens: Sequence[torch.Generator], shape: Tuple[int, ...]
     return out
 
 
+# lint: dispatch
 def randint_rows(gens: Sequence[torch.Generator], low: int, high: int,
                  shape: Tuple[int, ...]) -> torch.Tensor:
     """(R, *shape) int32 in [low, high): row r drawn from ``gens[r]``."""
@@ -90,6 +93,7 @@ def row_generators(seeds: Sequence[int], device) -> Tuple[torch.Generator,
     return tuple(gens)
 
 
+# lint: dispatch
 def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[r, idx[r, i]]`` for (R, N, ...) ``x`` and (R, K) ``idx``:
     a gather along axis 1, row by row."""
@@ -115,6 +119,7 @@ def to_host(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
     return tuple(out)
 
 
+# lint: dispatch
 def random_population_rows(gens: Sequence[torch.Generator], pop: int,
                            group: int, accels: int) -> Population:
     """(R, pop, group) uniform random genomes, row r drawn from
@@ -123,6 +128,7 @@ def random_population_rows(gens: Sequence[torch.Generator], pop: int,
                       prio=rand_rows(gens, (pop, group)))
 
 
+# lint: dispatch
 def decode(accel: torch.Tensor, prio: torch.Tensor,
            num_accels: int) -> DecodedSchedule:
     """Decode (P, G) genomes into per-accelerator ordered queues.

@@ -213,6 +213,7 @@ def _row_view(params: FitnessParams) -> FitnessParams:
                            objective_code=params.objective_code[:, None])
 
 
+# lint: dispatch
 def population_energies(energy: torch.Tensor,
                         accel: torch.Tensor) -> torch.Tensor:
     """Total group energy (J) of each assignment — order-free (Section
@@ -227,12 +228,14 @@ def population_energies(energy: torch.Tensor,
     return energy[rows, jobs, accel.long()].sum(dim=-1)
 
 
+# lint: dispatch
 def _population_makespans(params: FitnessParams, accel, prio, *,
                           num_accels: int) -> torch.Tensor:
     return kops.population_makespan(accel, prio, params.lat, params.bw,
                                     params.bw_sys, num_accels)
 
 
+# lint: dispatch
 def evaluate_params(params: FitnessParams, accel: torch.Tensor,
                     prio: torch.Tensor, *, num_accels: int,
                     objective: ObjectiveLike = None) -> torch.Tensor:
@@ -247,15 +250,18 @@ def evaluate_params(params: FitnessParams, accel: torch.Tensor,
     :func:`evaluate_objectives` instead.
     """
     spec = as_objective_spec(objective)
+    # lint: disable=L002(the objective spec is a host object)
     if spec is not None and not spec.is_scalar:
         raise ValueError(
             f"evaluate_params is scalar; objective {spec.token!r} has "
             f"{spec.num_objectives} columns — use evaluate_objectives")
     if spec is not None:
         info = objective_info(spec.names[0])
+        # lint: disable=L002(the objective spec is a host object)
         ms = (_population_makespans(params, accel, prio,
                                     num_accels=num_accels)
               if info.needs_makespan else None)
+        # lint: disable=L002(the objective spec is a host object)
         en = (population_energies(params.energy, accel)
               if info.needs_energy else None)
         return info.fn(_row_view(params), ms, en)
@@ -273,6 +279,7 @@ def evaluate_params(params: FitnessParams, accel: torch.Tensor,
     return out
 
 
+# lint: dispatch
 def evaluate_objectives(params: FitnessParams, accel: torch.Tensor,
                         prio: torch.Tensor, *, num_accels: int,
                         objective: ObjectiveLike = None) -> torch.Tensor:
@@ -289,8 +296,10 @@ def evaluate_objectives(params: FitnessParams, accel: torch.Tensor,
             "evaluate_objectives needs a static ObjectiveSpec (or name "
             "sequence); the dynamic objective=None form is scalar-only")
     infos = spec.infos()
+    # lint: disable=L002(the objective spec is a host object)
     ms = (_population_makespans(params, accel, prio, num_accels=num_accels)
           if any(i.needs_makespan for i in infos) else None)
+    # lint: disable=L002(the objective spec is a host object)
     en = (population_energies(params.energy, accel)
           if any(i.needs_energy for i in infos) else None)
     view = _row_view(params)

@@ -127,6 +127,7 @@ class GenerationDraws(NamedTuple):
     mut_prio: torch.Tensor    # (n, G) f32 in [0, 1)
 
 
+# lint: dispatch
 def draw_generation_rows(gens: Sequence[torch.Generator], n_child: int,
                          G: int, A: int, cfg: MagmaConfig) -> GenerationDraws:
     """One generation's random tensors for R rows, (R, ...) each: row r
@@ -172,6 +173,7 @@ def _operator_cdf(cfg: MagmaConfig, device: torch.device) -> torch.Tensor:
                            dtype=torch.float32).to(device, non_blocking=True)
 
 
+# lint: dispatch
 def next_generation_body(accel: torch.Tensor, prio: torch.Tensor,
                          fitness: torch.Tensor, draws: GenerationDraws,
                          cfg: MagmaConfig, num_accels: int, n_elite: int):

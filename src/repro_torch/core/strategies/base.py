@@ -66,6 +66,7 @@ class WarmStart(NamedTuple):
     jitter: Any   # ()     float32 priority noise scale
 
 
+# lint: dispatch
 def seed_population(accel, prio, jitter, noise, num_accels: int):
     """The Section V-C warm-seed discipline, in one place.
 
@@ -85,6 +86,7 @@ def seed_population(accel, prio, jitter, noise, num_accels: int):
     return accel, torch.clamp(prio + jitter * noise, 0.0, 0.999)
 
 
+# lint: dispatch
 def warm_noise_rows(gens: Sequence[torch.Generator],
                     shape: Tuple[int, ...]) -> torch.Tensor:
     """(R, *shape) standard normals, row r from ``gens[r]``, each
@@ -169,6 +171,7 @@ class HostSearchStrategy(SearchStrategy):
         return self.fn(fitness_fn, budget, seed)
 
 
+# lint: dispatch
 def decode_continuous(X: torch.Tensor, num_accels: int):
     """(..., 2G) continuous in [0, 1] -> (accel (..., G) int32, prio
     (..., G) f32).

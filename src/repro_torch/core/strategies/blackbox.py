@@ -37,6 +37,7 @@ from repro_torch.core.strategies.registry import register
 Gens = Tuple[torch.Generator, ...]
 
 
+# lint: dispatch
 def _uniform_start(gens, P: int, params) -> torch.Tensor:
     return rand_rows(gens, (P, 2 * params.lat.shape[-2]))
 
@@ -92,6 +93,7 @@ class StdGADraws(NamedTuple):
     mut: torch.Tensor        # (R, n, d) f32: mutated values
 
 
+# lint: dispatch
 def draw_stdga(gens, n_child: int, n_elite: int, d: int) -> StdGADraws:
     return StdGADraws(
         dads=randint_rows(gens, 0, n_elite, (n_child,)),
@@ -102,6 +104,7 @@ def draw_stdga(gens, n_child: int, n_elite: int, d: int) -> StdGADraws:
         mut=rand_rows(gens, (n_child, d)))
 
 
+# lint: dispatch
 def stdga_body(X, fitness, draws: StdGADraws, n_elite: int,
                crossover_rate: float, mutation_rate: float) -> torch.Tensor:
     """Next (R, P, d) population: the elites, then their children."""
@@ -169,6 +172,7 @@ class DEDraws(NamedTuple):
     jrand: torch.Tensor      # (R, P) int32 in [0, d): the forced gene
 
 
+# lint: dispatch
 def draw_de(gens, P: int, d: int) -> DEDraws:
     i0 = randint_rows(gens, 0, P, (P,))
     i1 = randint_rows(gens, 0, P - 1, (P,))
@@ -182,6 +186,7 @@ def draw_de(gens, P: int, d: int) -> DEDraws:
                    jrand=randint_rows(gens, 0, d, (P,)))
 
 
+# lint: dispatch
 def de_trial(X, draws: DEDraws, f_weight: float, cr: float) -> torch.Tensor:
     """DE/rand/1/bin trials of an (R, P, d) population."""
     d = X.shape[-1]
@@ -245,6 +250,7 @@ class PSOState(NamedTuple):
     gbest_f: torch.Tensor    # (R,)
 
 
+# lint: dispatch
 def pso_body(state: PSOState, fitness, r: torch.Tensor, w_global: float,
              w_parent: float, momentum: float) -> PSOState:
     """One swarm step given ``r`` (R, 2, P, d), the reference's draw."""

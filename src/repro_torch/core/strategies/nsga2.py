@@ -43,6 +43,7 @@ from repro_torch.core.strategies.registry import register
 _SENTINEL = -1e30      # finite "worse than anything real" archive init
 
 
+# lint: dispatch
 def encode_continuous(accel: torch.Tensor, prio: torch.Tensor,
                       num_accels: int) -> torch.Tensor:
     """Inverse of ``decode_continuous`` up to exact round-trip: accel k
@@ -68,6 +69,7 @@ class NSGA2Draws(NamedTuple):
     u_mut: torch.Tensor    # (R, P, d) f32: mutation mask draw
 
 
+# lint: dispatch
 def draw_nsga2(gens, P: int, d: int) -> NSGA2Draws:
     return NSGA2Draws(t1=randint_rows(gens, 0, P, (2, P)),
                       t2=randint_rows(gens, 0, P, (2, P)),
@@ -77,6 +79,7 @@ def draw_nsga2(gens, P: int, d: int) -> NSGA2Draws:
                       u_mut=rand_rows(gens, (P, d)))
 
 
+# lint: dispatch
 def nsga2_body(state: NSGA2State, fitness: torch.Tensor, draws: NSGA2Draws,
                eta_crossover: float, eta_mutation: float,
                p_crossover: float) -> NSGA2State:

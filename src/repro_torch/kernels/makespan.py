@@ -65,6 +65,7 @@ def _check(qlat: torch.Tensor, qbw: torch.Tensor, count: torch.Tensor):
         raise ValueError("qlat, qbw and count must be on one device")
 
 
+# lint: dispatch
 def makespan_cuda(qlat: torch.Tensor, qbw: torch.Tensor, count: torch.Tensor,
                   bw_sys) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream (no sync).
@@ -99,6 +100,7 @@ def makespan_cuda(qlat: torch.Tensor, qbw: torch.Tensor, count: torch.Tensor,
         bw_dev = bw_sys.reshape(R).to(torch.float32).contiguous()
     else:
         R = 1
+        # lint: disable=L002(a host number here)
         bw_dev = torch.full((1,), float(bw_sys), dtype=torch.float32,
                             device=qlat.device)
     lib = _library()
@@ -114,6 +116,7 @@ def makespan_cuda(qlat: torch.Tensor, qbw: torch.Tensor, count: torch.Tensor,
     return out
 
 
+# lint: dispatch
 def makespan(qlat: torch.Tensor, qbw: torch.Tensor, count: torch.Tensor,
              bw_sys) -> torch.Tensor:
     """(N,) makespans: the CUDA kernel for CUDA tensors, the plain PyTorch

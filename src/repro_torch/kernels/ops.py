@@ -19,6 +19,7 @@ from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels.makespan import makespan
 
 
+# lint: dispatch
 def population_makespan(accel: torch.Tensor, prio: torch.Tensor,
                         lat: torch.Tensor, bw: torch.Tensor, bw_sys,
                         num_accels: int) -> torch.Tensor:

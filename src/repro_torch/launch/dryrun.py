@@ -57,7 +57,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 from torch.utils._pytree import tree_flatten, tree_map
 
 from repro_torch.configs import ARCH_IDS, get_config
@@ -125,8 +126,14 @@ def _alltoall_as_on_cards():
         return
 
     def on_cards(input, gather_dim, shard_dim, mesh, mesh_dim):
-        return torch.ops._dtensor.shard_dim_alltoall(
+        out = torch.ops._dtensor.shard_dim_alltoall(
             input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+        # the fake kernel cuts the rank's share out of every rank's input
+        # gathered; where that is a view, it would hold the whole gather
+        # in the traced peak: the card's result holds only the share
+        if out.untyped_storage().nbytes() > _nbytes(out):
+            out = out.clone()
+        return out
 
     saved = pt.shard_dim_alltoall
     pt.shard_dim_alltoall = on_cards
@@ -142,7 +149,6 @@ def _global_shapes_unseen():
     fake tensors of global shapes; that is not the rank's work, so it runs
     outside every active mode (the counters and the memory tracker)."""
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
-    from torch.utils._python_dispatch import _disable_current_modes
     saved = getattr(ShardingPropagator, "_propagate_tensor_meta_non_cached",
                     None)
     if saved is None:
@@ -280,11 +286,31 @@ def _local_bytes(t) -> int:
 
 
 # ---------------------------------------------------------------------------
-# step builders: (fn, args) per shape kind, on the active mesh (None: none)
+# step builders: (fn, args, model) per shape kind, on the active mesh
+# (None: none)
 # ---------------------------------------------------------------------------
 def _placed_model(cfg: ModelConfig, mesh, rules):
-    model = get_model(cfg, device="cpu")
-    return model if mesh is None else shard_model(model, mesh, rules)
+    """``cfg``'s model with its parameters placed on ``mesh`` by
+    ``rules``.  On a mesh of more than one rank each parameter is made
+    from the rank's shard alone (``_fake_shard``), as the reference's
+    per-device memory holds only shards; on one rank (or none) the whole
+    model is the rank's share."""
+    if mesh is None or mesh.size() == 1:
+        model = get_model(cfg, device="cpu")
+        return model if mesh is None else shard_model(model, mesh, rules)
+    with _disable_current_modes():      # shapes only: not the rank's
+        model = get_model(cfg, device="meta")
+        values, shardings = param_shardings(model, mesh, rules)
+    for name, sh in shardings.items():
+        prefix, _, field = name.rpartition(".")
+        owner = model.get_submodule(prefix) if prefix else model
+        setattr(owner, field, torch.nn.Parameter(_fake_shard(values[name],
+                                                             sh)))
+    left = [n for n, p in model.named_parameters() if p.is_meta]
+    if left:
+        raise ValueError(f"parameters without a sharding: {left}")
+    model.device = torch.device("cpu")      # where the model makes caches
+    return model
 
 
 def build_train(cfg: ModelConfig, shape: ShapeConfig, mesh, rules,
@@ -294,7 +320,7 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, mesh, rules,
     batch = {k: _fake_like(v) for k, v in
              train_input_specs(cfg, shape).items()}
     step = make_train_step(model, train_config or TrainConfig())
-    return step, (state, batch)
+    return step, (state, batch), model
 
 
 def build_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh, rules):
@@ -310,7 +336,7 @@ def build_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh, rules):
     else:
         def step(batch):
             return model.prefill(batch, shape.seq_len)
-    return step, (batch,)
+    return step, (batch,), model
 
 
 def _fake_shard(spec: torch.Tensor, sh) -> DTensor:
@@ -331,8 +357,8 @@ def _fake_shard(spec: torch.Tensor, sh) -> DTensor:
 
 def build_decode(cfg: ModelConfig, shape: ShapeConfig, mesh, rules):
     model = _placed_model(cfg, mesh, rules)
-    cache, tok, _ = decode_input_specs(cfg, shape, get_model(cfg,
-                                                             device="meta"))
+    with _disable_current_modes():      # shapes only: not the rank's
+        cache, tok, _ = decode_input_specs(cfg, shape)
     tokens = _fake_like(tok)
     if mesh is None:
         cache = tree_map(_fake_like, cache)
@@ -342,7 +368,7 @@ def build_decode(cfg: ModelConfig, shape: ShapeConfig, mesh, rules):
 
     def step(cache, tokens):
         return model.decode_step(cache, tokens, shape.seq_len - 1)
-    return step, (cache, tokens)
+    return step, (cache, tokens), model
 
 
 BUILDERS = {"train": build_train, "decode": build_decode,
@@ -374,7 +400,7 @@ def global_flops(cfg: ModelConfig, shape: ShapeConfig,
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
     with FakeTensorMode():
-        fn, args = _build(cfg, shape, None, {}, train_config)
+        fn, args, _ = _build(cfg, shape, None, {}, train_config)
         with FlopCounterMode(display=False) as fc:
             fn(*args)
     return float(fc.get_total_flops())
@@ -419,13 +445,15 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             with FakeTensorMode(), use_mesh(mesh, rules):
                 mt = MemTracker()
                 with mt:
-                    fn, args = _build(cfg, shape, mesh, rules, train_config)
+                    fn, args, model = _build(cfg, shape, mesh, rules,
+                                             train_config)
                     counter = RankCounter(groups)
                     with CommDebugMode() as comm, counter:
                         fn(*args)
                 peak = next(iter(mt.get_tracker_snapshot(
                     "peak").values()), {}).get("Total", 0)
-                held = sum(_local_bytes(t) for t in _tensors(args))
+                held = sum(_local_bytes(t) for t in
+                           _tensors((args, list(model.parameters()))))
         rec.update(
             ok=True, trace_s=time.perf_counter() - t0,
             mem_args_gib=held / GIB, mem_peak_gib=peak / GIB,
@@ -449,7 +477,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                                comm.get_comm_counts().items()},
         )
         link_bw = effective_link_bw(dict(counter.axis_bytes), mshape)
-        del fn, args, mt
+        del fn, args, model, mt
     except Exception as e:                       # noqa: BLE001
         rec.update(error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-2000:])

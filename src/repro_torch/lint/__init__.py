@@ -1,15 +1,23 @@
-"""repro_torch.lint — runtime sanitizers and the race harness for the port.
+"""repro_torch.lint — the port's static analyzer and runtime sanitizers.
 
-The counterparts of the reference's runtime side:
-:class:`~repro_torch.lint.runtime.RecompileGuard` (fails a run that
-builds or compiles after ``warmup()``),
-:func:`~repro_torch.lint.runtime.transfer_sanitizer` (scoped
-``torch.cuda.set_sync_debug_mode("error")``) and ``repro_torch.lint.race``
-(the MemoStore / AnalysisPool concurrency harness).  The reference's static
-analyzer (``python -m repro.lint``) already covers the port's sources, so
-it has nothing to port.
+Static side (``python -m repro_torch.lint src/repro_torch [--strict]``):
+five plain-``ast`` checkers under the reference's rule IDs, for the
+port's torch hazards — draws from torch's global generator, host syncs
+in the dispatch region, impure strategy state, unlocked shared mutation,
+byte-unstable digest inputs (``repro_torch.lint.checkers`` holds the
+catalog).  It imports neither the checked code nor torch.
+
+Runtime side (``repro_torch.lint.runtime``): ``RecompileGuard`` (fails a
+run that builds or compiles after ``warmup()``), ``transfer_sanitizer``
+(scoped ``torch.cuda.set_sync_debug_mode("error")``), and
+``repro_torch.lint.race`` (the MemoStore / AnalysisPool concurrency
+harness).
 """
-from repro_torch.lint.runtime import (RecompileError, RecompileGuard,
-                                      transfer_sanitizer)
+from repro_torch.lint import checkers as _checkers  # registers L001..L005
+from repro_torch.lint.core import (CHECKERS, RULES, Finding, SourceFile,
+                                   lint_file, lint_text, run)
 
-__all__ = ["RecompileError", "RecompileGuard", "transfer_sanitizer"]
+del _checkers
+
+__all__ = ["CHECKERS", "RULES", "Finding", "SourceFile", "lint_file",
+           "lint_text", "run"]

@@ -34,8 +34,9 @@ Activation layouts are annotated with logical axis names through
 identity without an active mesh, so every single-device path is
 unchanged, and a DTensor redistribution inside ``use_mesh``.  On a mesh
 the MoE (top-k sort, one-hot, cumsum, scatter and gather, which have no
-DTensor sharding rule) and the embedding lookup run on each rank's
-shards through ``local_map``; attention runs on each rank's shards in
+DTensor sharding rule) runs on each rank's shards through ``local_map``,
+the embedding lookup on the table's own shards (``_embed_on_shards``:
+only the tokens move); attention runs on each rank's shards in
 the reference's layout (``attend``).  The weight products keep the
 reference's tensor-parallel split: a weight's FSDP split alone is made
 whole (``fsdp_whole``), a column-parallel product (``columns``) gives
@@ -993,28 +994,75 @@ def init_embedding(gen, vocab: int, d_model: int, dtype,
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """The rows of ``table`` for ``tokens``.  On a mesh the lookup runs on
-    each rank's tokens against the whole table (``local_map``): DTensor's
-    rule for the backward of ``table[tokens]`` (``index_put``) fails on
-    the card, and ``F.embedding`` would sum the rows' gradients in
-    another order.  The table's gradient is a partial sum over the mesh
-    dims that split the tokens."""
+    """The rows of ``table`` for ``tokens``.  On a mesh the table stays
+    as it is placed (``_embed_on_shards``)."""
     if isinstance(table, DTensor):
-        mesh = table.device_mesh
-        whole = (Replicate(),) * mesh.ndim
-        tok = (tuple(tokens.placements) if isinstance(tokens, DTensor)
-               else whole)
-        grad = tuple(Partial() if p.is_shard() else Replicate() for p in tok)
-        out = local_map(_lookup, out_placements=(tok,),
-                        in_placements=(whole, tok),
-                        in_grad_placements=(grad, tok), device_mesh=mesh)(
-            table.redistribute(mesh, whole), tokens)
-        return constrain(out, "batch", "seq", "embed")
-    return constrain(_lookup(table, tokens), "batch", "seq", "embed")
+        return constrain(_embed_on_shards(table, tokens), "batch", "seq",
+                         "embed")
+    return constrain(table[tokens], "batch", "seq", "embed")
 
 
-def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+class _ShardLookup(torch.autograd.Function):
+    """``table[tokens]`` on this rank's rows of a table, which start at
+    row ``start``: a token outside them reads a zero row.  The backward
+    pass accumulates the output gradient into the rank's rows
+    (``index_put_`` with ``accumulate``, the tokens in their order), as
+    ``table[tokens]``'s backward does on the whole table, so each row's
+    gradient is the same sum in the same order; a token outside the rows
+    adds an exact zero.  (DTensor's rule for that backward fails on the
+    card's torch, and ``F.embedding``'s backward sums in another
+    order.)"""
+
+    @staticmethod
+    def forward(ctx, table, tokens, start):
+        n = table.shape[0]
+        local = tokens.long() - start
+        mine = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        ctx.save_for_backward(local, mine)
+        ctx.rows = table.shape
+        return table[local].masked_fill(~mine[..., None], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        local, mine = ctx.saved_tensors
+        grad = g.new_zeros(ctx.rows)
+        grad.index_put_((local,), g.masked_fill(~mine[..., None], 0),
+                        accumulate=True)
+        return grad, None, None
+
+
+def _embed_on_shards(table: DTensor, tokens) -> DTensor:
+    """The lookup on the table's own shards, as the reference's compiled
+    lookup runs it: the int32 tokens are made whole over every mesh dim
+    that splits the table (they keep their split elsewhere), each rank
+    reads its rows (``_ShardLookup``) and its columns, and the result is
+    a partial sum over the mesh dims that split the vocabulary, split by
+    columns where the table's columns are: the caller's ``constrain``
+    reduces it.  Nothing of the table moves forward.  On a mesh dim that
+    splits the tokens but not the table (the batch's 'pod', or a table
+    left whole on 'data'), a rank's gradient holds only its tokens: it is
+    marked a partial sum there, and the redistribution to the table's own
+    placements (no move forward) all-reduces it backward, so the table's
+    gradient arrives whole in its placements."""
+    mesh, by = table.device_mesh, tuple(table.placements)
+    if not isinstance(tokens, DTensor):
+        tokens = on_mesh(tokens, mesh)
+    tok = tuple(p if t.is_replicate() else Replicate()
+                for t, p in zip(by, tokens.placements))
+    tokens = tokens.to(torch.int32).redistribute(mesh, tok)
+    nd = tokens.dim()
+    out = tuple(Partial() if t.is_shard(0) else Shard(nd) if t.is_shard(1)
+                else p for t, p in zip(by, tok))
+    grad = tuple(Partial() if t.is_replicate() and p.is_shard() else t
+                 for t, p in zip(by, tok))
+    rows = _ShardLookup.apply(
+        table.redistribute(mesh, by).to_local(grad_placements=grad),
+        tokens.to_local(), _shard_range(table, 0)[0])
+    shape = tuple(tokens.shape) + (table.shape[1],)
+    return DTensor.from_local(rows, mesh, out, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 def logits_head(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -479,11 +479,13 @@ class StreamingScheduler:
         return ((self.memo is not None and strategy.supports_init_population)
                 or getattr(strategy, "multi_objective", False))
 
+    # lint: dispatch
     def _dispatch(self, compat_key: CompatKey, members: List[ReadyScenario]
                   ) -> _Inflight:
         """Assemble one batch and issue its generation loop on the
         service's device.  @holds:_run_lock"""
         base, G, A, use_kernel, objective, budget, is_warm = compat_key
+        # lint: disable=L002(a host bool of the key)
         warm_seeded = bool(is_warm)     # compat-key flag, not key material
         t_dispatch = self.tracer.now() if self.tracer.enabled else 0.0
         strategy = base.bind(A)
@@ -504,6 +506,7 @@ class StreamingScheduler:
         params = FitnessParams(*_stack_fields(
             [tuple(m.fit.params) for m in members], dev))
         warm = None
+        # lint: disable=L002(a host bool of the compat key)
         if warm_seeded:
             warm = WarmStart(
                 accel=torch.stack([torch.as_tensor(
@@ -534,6 +537,7 @@ class StreamingScheduler:
                       for d, xs in zip(devices, split_rows(host, ndev))]
             n_params = len(params)
             out = fn(seeds, [FitnessParams(*xs[:n_params]) for xs in shards],
+                     # lint: disable=L002(a host bool of the compat key)
                      [WarmStart(*xs[n_params:]) for xs in shards]
                      if warm_seeded else None)
             if cuda:

@@ -501,12 +501,65 @@ def job_vocab_loss(rank, out, weights, overrides, mesh_shape=(1, 4)):
             "grads": grads if rank == 0 else None}
 
 
+def embed_inputs(halves=False):
+    """A float32 table of granite's smoke widths, tokens drawn with
+    repeats from 12 rows spread over the vocabulary (``halves``: the
+    first half of the batch from 6 of them, the second from the other 6),
+    and the weights of the lookup's output in ``sum(table[tokens] *
+    weights)``; seeded."""
+    rng = np.random.default_rng(13)
+    V, d = 256, GRANITE["d_model"]
+    table = torch.as_tensor(rng.standard_normal((V, d)), dtype=torch.float32)
+    rows = rng.choice(V, 12, replace=False)
+    if halves:
+        draw = np.concatenate([rng.choice(rows[:6], (BATCH // 2, SEQ)),
+                               rng.choice(rows[6:], (BATCH // 2, SEQ))])
+    else:
+        draw = rng.choice(rows, (BATCH, SEQ))
+    tokens = torch.as_tensor(draw, dtype=torch.int32)
+    weights = torch.as_tensor(rng.standard_normal((BATCH, SEQ, d)),
+                              dtype=torch.float32)
+    return table, tokens, weights
+
+
+def job_embed_grad(rank, out, mesh_shape, axes=("data", "model"),
+                   fsdp=True):
+    """``layers.embed`` on a mesh of ``mesh_shape`` over ``axes``, the
+    table placed as granite's ("vocab", "embed") under its rules (with
+    ``fsdp`` off the table is whole on 'data') and the tokens as a batch,
+    for both inputs of ``embed_inputs``: the gathered rows, the table's
+    placements and its gradient's, and the rank's shard of the table's
+    gradient of ``sum(rows * weights)`` with the (start, length) of its
+    rows and of its columns."""
+    from repro_torch.dist.sharding import (gathered, make_mesh, on_mesh,
+                                          shard_batch, use_mesh)
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import sharding_rules
+
+    mesh = make_mesh(mesh_shape, axes, "cpu")
+    rules = sharding_rules(granite_cfg().replace(fsdp=fsdp),
+                           mesh_shape[axes.index("model")])
+    res = {}
+    for halves in (False, True):
+        table, tokens, weights = embed_inputs(halves)
+        with use_mesh(mesh, rules):
+            t = on_mesh(table, mesh, "vocab", "embed").requires_grad_(True)
+            rows = gathered(L.embed(t, shard_batch({"t": tokens},
+                                                   mesh)["t"]))
+            (rows * weights).sum().backward()
+        res["halves" if halves else "shared"] = {
+            "rows": rows.detach(), "grad": t.grad.to_local().clone(),
+            "placements": (tuple(t.placements), tuple(t.grad.placements)),
+            "range": (L._shard_range(t, 0), L._shard_range(t, 1))}
+    return res
+
+
 JOBS = {"placements": job_placements, "granite": job_granite,
         "elastic": job_elastic, "grads": job_grads,
         "moe_layer": job_moe_layer, "launcher": job_launcher,
         "ckpt_roundtrip": job_ckpt_roundtrip, "decode": job_decode,
         "greedy": job_greedy, "compress": job_compress,
-        "vocab_loss": job_vocab_loss}
+        "vocab_loss": job_vocab_loss, "embed_grad": job_embed_grad}
 
 
 def progress_path(store, rank):

@@ -1,16 +1,22 @@
-"""The reference's decode step compiled by XLA on eight fake CPU devices
-in a (2, 4) ("data", "model") mesh, and what its collectives move.
+"""The reference's decode, train or prefill step compiled by XLA on eight
+fake CPU devices in a (2, 4) ("data", "model") mesh, and what its
+collectives move.
 
-    python tests/_torch_xla_layout.py ARCH [--full-width] [--layers N]
-        [--batch B] [--seq S]
+    python tests/_torch_xla_layout.py ARCH [--kind decode|train|prefill]
+        [--full-width] [--layers N] [--batch B] [--seq S] [--hlo PATH]
 
 prints one JSON object: ``gathers``, each all-gather of the compiled
 step as {"axis", "shape", "dtype"} (``axis`` is "data" or "model" when
 its groups run along that mesh axis alone, "model-part" for groups
 inside one 'model' row, else "mixed"; ``shape`` is the gathered
-result's), and ``collective_bytes`` by kind and axis.  ARCH's smoke
+result's), ``collective_bytes`` by kind and axis, and ``lookup``, each
+collective of the embedding lookup (``jnp.take``'s, by its op name) as
+{"kind", "axis", "backward", "arrays": [[dtype, shape], ...]} (a tuple
+collective lists each of its results: XLA may combine another op's
+into the lookup's).  ARCH's smoke
 config in float32 by default, its published widths with
-``--full-width``.  It sets ``XLA_FLAGS`` before JAX starts, so it runs in
+``--full-width``; ``--hlo`` also writes the compiled module's text to
+PATH.  It sets ``XLA_FLAGS`` before JAX starts, so it runs in
 a process of its own (``tests/test_torch_dryrun.py`` starts it).
 """
 import argparse
@@ -29,6 +35,7 @@ _ARRAY = re.compile(r"([a-z]+[0-9]*)\[([0-9,]*)\]")
 _IOTA = re.compile(r"replica_groups=\[(\d+),(\d+)\]<=\[([\d,]+)\]"
                    r"(?:T\(([\d,]+)\))?")
 _LISTED = re.compile(r"replica_groups=\{(\{[\d,{} ]*\})\}")
+_OP_NAME = re.compile(r'op_name="([^"]*)"')
 _BYTES = {"f32": 4, "s32": 4, "bf16": 2, "f16": 2, "u32": 4, "pred": 1,
           "s8": 1, "u8": 1, "f64": 8, "s64": 8}
 
@@ -63,9 +70,9 @@ def _axis(groups):
 
 
 def analyse(hlo_text):
-    """{"gathers": [...], "collective_bytes": {"kind@axis": bytes}} of a
-    compiled module's text."""
-    gathers, moved = [], {}
+    """{"gathers": [...], "collective_bytes": {"kind@axis": bytes},
+    "lookup": [...]} of a compiled module's text."""
+    gathers, moved, lookup = [], {}, []
     for line in hlo_text.splitlines():
         m = _COLLECTIVE.search(line)
         if not m:
@@ -77,11 +84,16 @@ def analyse(hlo_text):
             for dt, dims in arrays)
         key = f"{kind}@{axis}"
         moved[key] = moved.get(key, 0) + size
+        shapes = [[dt, [int(n) for n in dims.split(",") if n]]
+                  for dt, dims in arrays]
         if kind == "all-gather":
-            dt, dims = arrays[0]
-            gathers.append({"axis": axis, "dtype": dt, "shape": [
-                int(n) for n in dims.split(",") if n]})
-    return {"gathers": gathers, "collective_bytes": moved}
+            gathers.append({"axis": axis, "dtype": shapes[0][0],
+                            "shape": shapes[0][1]})
+        op = _OP_NAME.search(line)
+        if op and "jit(_take)" in op.group(1):
+            lookup.append({"kind": kind, "axis": axis, "arrays": shapes,
+                           "backward": "transpose(" in op.group(1)})
+    return {"gathers": gathers, "collective_bytes": moved, "lookup": lookup}
 
 
 def main(argv=None):
@@ -91,6 +103,9 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=32)
+    ap.add_argument("--kind", default="decode",
+                    choices=("decode", "train", "prefill"))
+    ap.add_argument("--hlo", default="")
     args = ap.parse_args(argv)
     os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
                                f"{int(np.prod(MESH))}")
@@ -100,7 +115,7 @@ def main(argv=None):
 
     from repro.configs import get_config, get_smoke_config
     from repro.dist.sharding import use_mesh
-    from repro.launch.dryrun import build_decode
+    from repro.launch.dryrun import BUILDERS
     from repro.launch.mesh import model_axis_size
     from repro.models.config import ShapeConfig
     from repro.models.registry import sharding_rules
@@ -109,13 +124,17 @@ def main(argv=None):
            else get_smoke_config(args.arch).replace(dtype="float32"))
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
-    shape = ShapeConfig("decode_small", args.seq, args.batch, "decode")
+    shape = ShapeConfig(f"{args.kind}_small", args.seq, args.batch,
+                        args.kind)
     # Auto axes: the sharding rules constrain with with_sharding_constraint
     mesh = jax.make_mesh(MESH, ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
     with mesh, use_mesh(mesh, sharding_rules(cfg, model_axis_size(mesh))):
-        fn, fn_args = build_decode(cfg, shape, mesh)
+        fn, fn_args = BUILDERS[args.kind](cfg, shape, mesh)
         text = fn.lower(*fn_args).compile().as_text()
+    if args.hlo:
+        with open(args.hlo, "w") as f:
+            f.write(text)
     print(json.dumps(analyse(text)))
     return 0
 

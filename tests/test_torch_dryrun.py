@@ -21,9 +21,14 @@ with H100 constants:
   granite and zamba2 prefill and decode cells;
 - granite's smoke decode step on (2, 4) gathers the weights to the
   shapes the reference's step compiled by XLA gathers them
-  (``tests/_torch_xla_layout.py``);
+  (``tests/_torch_xla_layout.py``), and its embedding lookup moves only
+  the int32 tokens and the rows, as the reference's does;
+- a decode cell's peak holds only the rank's shards: peak minus held is
+  the same at 1 and 4 layers and under one whole layer's weights;
 - importing the dry-run loads no JAX.
 """
+import collections
+import functools
 import json
 import math
 import os
@@ -240,43 +245,57 @@ def test_attention_flops_split_over_head_dim_on_a_fake_mesh():
     assert coll[("all-reduce", "model")] > 0
 
 
-def _granite_products_on_fake_mesh(mesh_shape, shape):
-    """granite's smoke train step at ``shape`` traced by ``run_cell`` on a
-    fake mesh of ``mesh_shape``: (the record, the (mesh axis name, input
-    shape) of every all-gather rank 0 issued outside the embedding lookup
-    ``layers.embed``, which reads the whole table)."""
+def _granite_products_on_fake_mesh(mesh_shape, shape, cfg=None):
+    """granite's smoke step at ``shape`` (``cfg``: the smoke config)
+    traced by ``run_cell`` on a fake mesh of ``mesh_shape``: (the record,
+    the (mesh axis name, input shape) of every all-gather rank 0 issued
+    outside the embedding lookup ``layers.embed``, the (kind, mesh axis
+    name, dtype, output elements) of every collective it issued inside
+    the lookup, and those of its backward pass: from the lookup's output
+    gradient to the table's)."""
     from repro_torch.models import layers as L
-    gathers, in_embed = [], []
+    gathers, lookup_moves, lookup_back, in_embed = [], [], [], []
 
-    def embed(*args):
+    def embed(table, tokens):
         in_embed.append(True)
         try:
-            return lookup(*args)
+            out = lookup(table, tokens)
         finally:
             in_embed.pop()
+        if out.requires_grad:
+            out.register_hook(lambda g: in_embed.append("backward"))
+            table.register_hook(lambda g: in_embed.clear())
+        return out
 
     class Counter(dryrun.RankCounter):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func.__name__.split(".")[0] == "all_gather_into_tensor" \
-                    and not in_embed \
-                    and not any(issubclass(t, DTensor) for t in types):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            name = func.__name__.split(".")[0]
+            if name in dryrun.COLLECTIVES and \
+                    not any(issubclass(t, DTensor) for t in types):
                 group = next(a for a in reversed(args) if isinstance(a, str))
-                gathers.append((dryrun.mesh_axes(mesh_shape)[
-                    self.axis_of_group[group]], tuple(args[0].shape)))
-            return super().__torch_dispatch__(func, types, args, kwargs)
+                axis = dryrun.mesh_axes(mesh_shape)[self.axis_of_group[group]]
+                if in_embed:
+                    (lookup_back if in_embed[-1] == "backward" else
+                     lookup_moves).append((dryrun.COLLECTIVES[name], axis,
+                                           out.dtype, out.numel()))
+                elif name == "all_gather_into_tensor":
+                    gathers.append((axis, tuple(args[0].shape)))
+            return out
 
     from torch.distributed.tensor import DTensor
     saved, dryrun.RankCounter = dryrun.RankCounter, Counter
     lookup, L.embed = L.embed, embed
     try:
         rec = dryrun.run_cell("granite-3-2b", "small",
-                              cfg_override=get_smoke_config("granite-3-2b"),
+                              cfg_override=cfg or get_smoke_config(
+                                  "granite-3-2b"),
                               shape=shape, mesh_shape=mesh_shape,
                               with_flops=False, verbose=False)
     finally:
         dryrun.RankCounter, L.embed = saved, lookup
     assert rec["ok"], rec.get("traceback")
-    return rec, gathers
+    return rec, gathers, lookup_moves, lookup_back
 
 
 def test_fsdp_tp_products_split_over_both_axes_on_a_fake_mesh():
@@ -293,12 +312,12 @@ def test_fsdp_tp_products_split_over_both_axes_on_a_fake_mesh():
     cfg = get_smoke_config("granite-3-2b")
     model = get_model(cfg, device="meta")
     with FakeTensorMode():
-        fn, args = dryrun._build(cfg, SMALL, None, {}, None)
+        fn, args, _ = dryrun._build(cfg, SMALL, None, {}, None)
         with FlopCounterMode(display=False) as fc:
             fn(*args)
     meshless = {str(op).split(".")[-1]: n for op, n in
                 fc.get_flop_counts()["Global"].items()}
-    rec, gathers = _granite_products_on_fake_mesh((2, 4), SMALL)
+    rec, gathers, _, _ = _granite_products_on_fake_mesh((2, 4), SMALL)
     flops = rec["per_device_flops_by_op"]
     products = [op for op in ("mm", "addmm") if op in meshless]
     assert products
@@ -369,27 +388,37 @@ def test_vocab_split_loss_moves_no_vocabulary():
             == {k: b for k, b in got[256, grad].items() if k[1] == "model"}
 
 
+@functools.lru_cache(maxsize=None)
+def _reference_layout(kind="decode"):
+    """What the reference's ``kind`` step for granite's smoke config (B=8,
+    a 32-token sequence or cache) moves, compiled by XLA on eight fake CPU
+    devices in (2, 4) (``tests/_torch_xla_layout.py``, a process of its
+    own)."""
+    helper = os.path.join(os.path.dirname(__file__), "_torch_xla_layout.py")
+    proc = subprocess.run([sys.executable, helper, "granite-3-2b",
+                           "--kind", kind, "--batch", "8", "--seq", "32"],
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def test_decode_gathers_the_weights_as_the_reference_compiles_it():
     """granite's smoke decode step on a (2, 4) mesh, the reference's
     compiled by XLA on eight fake CPU devices (``tests/_torch_xla_layout.py``)
     and the port's traced: XLA makes each weight's FSDP split whole on
     'data' and keeps its 'model' split (the rows stay on their rank), and
     the port gathers the same weights to the same shapes on 'data', none
-    on 'model', and moves no activations on 'data'."""
-    helper = os.path.join(os.path.dirname(__file__), "_torch_xla_layout.py")
-    proc = subprocess.run([sys.executable, helper, "granite-3-2b",
-                           "--batch", "8", "--seq", "32"],
-                          capture_output=True, text=True, timeout=300,
-                          env=dict(os.environ, JAX_PLATFORMS="cpu"))
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    ref = json.loads(proc.stdout.strip().splitlines()[-1])
+    on 'model', and moves no activations on 'data' outside the embedding
+    lookup (whose rows the reference moves there too)."""
+    ref = _reference_layout()
     # the reference's weights: every rank-2 gather (a norm scale reads
     # (1, d)), all of them on 'data'
     weights = [g for g in ref["gathers"] if len(g["shape"]) == 2]
     assert weights and {g["axis"] for g in weights} == {"data"}
     want = {tuple(n for n in g["shape"] if n != 1) for g in weights}
 
-    rec, gathers = _granite_products_on_fake_mesh(
+    rec, gathers, lookup, _ = _granite_products_on_fake_mesh(
         (2, 4), ShapeConfig("small", 32, 8, "decode"))
     on_data = {shape for axis, shape in gathers if axis == "data"}
 
@@ -402,9 +431,108 @@ def test_decode_gathers_the_weights_as_the_reference_compiles_it():
     assert want <= got, (want, on_data)
     assert all(whole(s) & want for s in on_data), (want, on_data)
     assert not [s for axis, s in gathers if axis == "model" and len(s) == 2]
-    moved = rec["collective_bytes_by_kind_axis"]
-    assert not {k for k in moved if k.endswith("@data")
-                and not k.startswith("all-gather")}, moved
+    moved = collections.Counter(rec["collective_bytes_by_kind_axis"])
+    for kind, axis, dtype, n in lookup:
+        moved[f"{kind}@{axis}"] -= n * dtype.itemsize
+    assert not {k for k, b in moved.items() if k.endswith("@data")
+                and not k.startswith("all-gather") and b}, moved
+
+
+def test_decode_lookup_moves_only_the_tokens_as_the_reference_compiles_it():
+    """The embedding lookup of granite's smoke decode step (float32, B=8)
+    on (2, 4): the reference's step compiled by XLA gathers its int32
+    tokens on 'data' (its one integer gather) and moves the rows it read
+    from its table's shards by an all-to-all on 'data'; the port's lookup
+    gathers the same int32 tokens on 'data', nothing of the table on any
+    axis, and moves as many bytes of rows by an all-to-all on 'data' and
+    by the all-reduce of the partial rows on 'model'."""
+    ref = _reference_layout()
+    tokens = [g for g in ref["gathers"] if g["dtype"] == "s32"]
+    assert [g["axis"] for g in tokens] == ["data"], ref["gathers"]
+    rows = ref["collective_bytes"]["all-to-all@data"]
+    cfg = get_smoke_config("granite-3-2b").replace(dtype="float32")
+    _, _, moves, _ = _granite_products_on_fake_mesh(
+        (2, 4), ShapeConfig("small", 32, 8, "decode"), cfg)
+    gathers = [m for m in moves if m[0] == "all-gather"]
+    assert gathers == [("all-gather", "data", torch.int32,
+                        math.prod(tokens[0]["shape"]))], moves
+    moved = collections.Counter()
+    for kind, axis, dtype, n in moves:
+        if kind != "all-gather":
+            moved[kind, axis] += n * dtype.itemsize
+    assert dict(moved) == {("all-to-all", "data"): rows,
+                           ("all-reduce", "model"): rows}, moves
+
+
+@pytest.mark.parametrize("kind", ("train", "prefill"))
+def test_lookup_moves_tokens_and_rows_as_the_reference_compiles_it(kind):
+    """The embedding lookup of granite's smoke train and prefill steps
+    (float32, B=8, S=32) on (2, 4), held to the reference's step compiled
+    by XLA: XLA makes the int32 tokens whole on every rank (its one
+    integer gather, after a permute), reads the table's shards, sums the
+    rows (the whole batch, the rank's columns) over 'model' by an
+    all-reduce, splits them by batch by an all-to-all on 'data', and in
+    the training step's backward pass moves their gradient back by an
+    all-to-all on 'data': nothing of the table, and nothing of its
+    gradient, moves.  The port gathers the same int32 tokens, nothing of
+    the table, and moves as many bytes by the same collectives on the
+    same axes, forward and backward."""
+    ref = _reference_layout(kind)["lookup"]
+    ints = [c for c in ref if c["kind"] == "all-gather"]
+    assert [a[0] for c in ints for a in c["arrays"]] == ["s32"], ref
+    assert all(a[0] == "s32" for c in ref if c["kind"] in
+               ("all-gather", "collective-permute") for a in c["arrays"])
+
+    def moved(colls):
+        """Bytes by (kind, axis) of the reference's collectives of rows:
+        XLA combines the loss's (B, S) row sums into the rows' all-reduce
+        in the training step, so its arrays of rank < 3 are left out."""
+        out = collections.Counter()
+        for c in colls:
+            if c["kind"] not in ("all-gather", "collective-permute"):
+                out[c["kind"], c["axis"]] += sum(
+                    4 * math.prod(shape) for dt, shape in c["arrays"]
+                    if len(shape) >= 3)
+        return dict(out)
+
+    cfg = get_smoke_config("granite-3-2b").replace(dtype="float32")
+    _, _, moves, back = _granite_products_on_fake_mesh(
+        (2, 4), ShapeConfig("small", 32, 8, kind), cfg)
+    assert [m for m in moves if m[0] == "all-gather"] == [
+        ("all-gather", "data", torch.int32,
+         math.prod(ints[0]["arrays"][0][1]))], moves
+    for port, want in ((moves, moved(c for c in ref if not c["backward"])),
+                       (back, moved(c for c in ref if c["backward"]))):
+        got = collections.Counter()
+        for k, axis, dtype, n in port:
+            if k != "all-gather":
+                got[k, axis] += n * dtype.itemsize
+        assert dict(got) == want, (port, ref)
+    assert bool(back) == (kind == "train")
+
+
+def test_decode_peak_holds_only_the_rank_shards_at_any_depth():
+    """granite's smoke decode step on a fake (2, 4) mesh at 1 and at 4
+    layers: every parameter is made from the rank's shard alone, so the
+    peak over what the rank holds (its parameter and cache shards, its
+    tokens) is the step's temporaries: the same at both depths within
+    10%, and less than one whole layer's weights."""
+    from repro_torch.models.registry import get_model
+
+    temp = {}
+    for n in (1, 4):
+        cfg = get_smoke_config("granite-3-2b").replace(num_layers=n)
+        rec = dryrun.run_cell("granite-3-2b", "small", cfg_override=cfg,
+                              shape=ShapeConfig("small", 32, 8, "decode"),
+                              mesh_shape=(2, 4), with_flops=False,
+                              verbose=False)
+        assert rec["ok"], rec.get("traceback")
+        temp[n] = (rec["mem_peak_gib"] - rec["mem_args_gib"]) * dryrun.GIB
+        assert rec["mem_temp_gib"] * dryrun.GIB == pytest.approx(temp[n])
+    layer = sum(p.numel() * p.element_size() for p in
+                get_model(cfg, device="meta").layers[0].parameters())
+    assert 0 < temp[1] < layer and 0 < temp[4] < layer, (temp, layer)
+    assert abs(temp[4] - temp[1]) <= 0.1 * temp[1], temp
 
 
 def _decode_cell(seq, **overrides):

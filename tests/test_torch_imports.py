@@ -47,7 +47,8 @@ def test_port_package_is_walked():
                  ("launch", "serve.py"), ("launch", "train.py"),
                  ("launch", "mesh.py"), ("launch", "shardings.py"),
                  ("dist", "sharding.py"), ("dist", "compression.py"),
-                 ("train", "fault.py")):
+                 ("train", "fault.py"), ("lint", "core.py"),
+                 ("lint", "checkers.py"), ("lint", "__main__.py")):
         assert os.path.join(PORT, *part) in files
     assert len(files) > 20
 

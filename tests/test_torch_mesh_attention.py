@@ -30,7 +30,16 @@ on the weights it drew (carried over with ``repro_torch.convert``):
   rtol 1e-6 and every gradient within 1e-5 x max|g| of the meshless
   port, and against ``jax.grad`` of the reference's loss rtol 1e-4 and
   1e-5 x max|g|.
+- the embedding lookup on the table's shards on (2, 2) and (1, 4): the
+  rows equal, and each rank's shard of the table's gradient bitwise the
+  meshless backward's (the same sum in the same order); where the table
+  is whole on a mesh dim that splits the batch ('pod' of a (2, 1, 2)
+  ("pod", "data", "model") mesh, or 'data' of (2, 2) without FSDP), the
+  gradient is reduced over that dim: in the table's placements, bitwise
+  the meshless one where each row's tokens lie in one half of the batch,
+  and within 1e-5 x max|g| where they lie in both (two partial sums).
 """
+import collections
 import os
 
 import numpy as np
@@ -67,6 +76,13 @@ SPLITS = {"split_granite": ("granite-3-2b", (1, 4), W.SEQ, {}),
           "split_phi3": ("phi3-medium-14b", (2, 2), W.SEQ, {})}
 # the vocabulary-split loss: a padded vocabulary, the sequence in chunks
 LOSS = {"vocab": 250, "ce_seq_chunk": 8}
+# the lookup on the table's shards: vocabulary over 'model', columns over
+# 'data' ((2, 2)), or the vocabulary over 4 ranks ((1, 4))
+EMBED_MESHES = ((2, 2), (1, 4))
+# ... and tables whole on a mesh dim that splits the batch: name ->
+# (mesh shape, mesh axes, FSDP)
+EMBED_WHOLE = {"pod": ((2, 1, 2), ("pod", "data", "model"), True),
+               "no_fsdp": ((2, 2), ("data", "model"), False)}
 
 
 @pytest.fixture(scope="module")
@@ -93,7 +109,12 @@ def runs(tmp_path_factory):
            dict(arch=arch, weights=family[f"greedy_{arch}"][0]))
           for arch in DECODE_ARCHS),
         ("vocab_loss", "vocab_loss",
-         dict(weights=family["vocab_loss"][0], overrides=LOSS))],
+         dict(weights=family["vocab_loss"][0], overrides=LOSS)),
+        *((f"embed_grad_{a}x{b}", "embed_grad", dict(mesh_shape=(a, b)))
+          for a, b in EMBED_MESHES),
+        *((f"embed_grad_{name}", "embed_grad",
+           dict(mesh_shape=ms, axes=axes, fsdp=fsdp))
+          for name, (ms, axes, fsdp) in EMBED_WHOLE.items())],
         DEADLINE_S, COLLECTIVE_S)
     return {"dir": d, "family": family, "res": res}
 
@@ -234,3 +255,77 @@ def test_mesh_loss_reduces_over_vocab_shards(runs):
     grads_within(res["grads"], grads)
     within_reference(res["loss"], res["grads"],
                      *reference_step(jm, values, cfg, W.SEQ, batch))
+
+
+def _meshless_lookup(halves):
+    """``table[tokens]`` and its table's gradient of ``sum(rows *
+    weights)`` on ``W.embed_inputs(halves)``."""
+    table, tokens, weights = W.embed_inputs(halves)
+    table.requires_grad_(True)
+    rows = table[tokens]
+    (rows * weights).sum().backward()
+    return rows.detach(), table.grad
+
+
+def _rank_shards(ranks, inputs, grad, same):
+    """Each rank's rows equal to ``table[tokens]``'s and its gradient
+    shard held to ``grad``'s rows and columns by ``same``; every entry of
+    the table lies on one rank of each set of ranks that splits it."""
+    covered = collections.Counter()
+    for res in ranks:
+        res = res[inputs]
+        (r0, nr), (c0, nc) = res["range"]
+        assert nr < grad.shape[0]           # the vocabulary is split
+        same(res["grad"], grad[r0:r0 + nr, c0:c0 + nc])
+        covered[r0, nr, c0, nc] += 1
+    assert len({n for n in covered.values()}) == 1, covered
+    cells = torch.zeros(grad.shape, dtype=torch.int32)
+    for r0, nr, c0, nc in covered:
+        cells[r0:r0 + nr, c0:c0 + nc] += 1
+    assert bool((cells == 1).all())
+
+
+@pytest.mark.parametrize("mesh_shape", EMBED_MESHES)
+def test_mesh_lookup_table_gradient_is_bitwise_meshless(runs, mesh_shape):
+    """The embedding lookup on the table's own shards (``layers.embed``:
+    vocabulary over 'model', columns over 'data'): the rows equal
+    ``table[tokens]``'s, and each rank's shard of the table's gradient is
+    bitwise the rows and columns it owns of the meshless backward's, on
+    tokens that repeat rows (each row's sum in the same order)."""
+    ranks = ok(runs, "embed_grad_%dx%d" % mesh_shape)
+    for inputs in ("shared", "halves"):
+        rows, grad = _meshless_lookup(inputs == "halves")
+        for res in ranks:
+            assert torch.equal(res[inputs]["rows"], rows)
+            table, g = res[inputs]["placements"]
+            assert g == table and not any(p.is_replicate() for p in table)
+        _rank_shards(ranks, inputs, grad,
+                     lambda got, want: torch.equal(got, want) or
+                     pytest.fail("not bitwise"))
+
+
+@pytest.mark.parametrize("name", EMBED_WHOLE)
+def test_mesh_lookup_gradient_is_reduced_where_the_table_is_whole(runs,
+                                                                   name):
+    """The lookup where the table is whole on a mesh dim that splits the
+    batch ('pod', or 'data' without FSDP): each rank's gradient covers
+    only its tokens there, and is reduced over that dim, so the table's
+    gradient is in the table's own placements and each rank's shard is
+    the meshless backward's: bitwise where each row's tokens lie in one
+    half of the batch (the other half adds an exact zero), and within
+    1e-5 x max|g| where a row's tokens lie in both halves (two partial
+    sums, added in another order than the meshless backward's)."""
+    ranks = ok(runs, f"embed_grad_{name}")
+    for inputs in ("shared", "halves"):
+        rows, grad = _meshless_lookup(inputs == "halves")
+        for res in ranks:
+            assert torch.equal(res[inputs]["rows"], rows)
+            table, g = res[inputs]["placements"]
+            assert g == table and any(p.is_replicate() for p in table)
+        if inputs == "halves":
+            _rank_shards(ranks, inputs, grad,
+                         lambda got, want: torch.equal(got, want) or
+                         pytest.fail("not bitwise"))
+        else:
+            _rank_shards(ranks, inputs, grad, lambda got, want:
+                         grads_within({"g": got}, {"g": want}))
