@@ -218,8 +218,12 @@ Phases, in order; any failure raises and exits non-zero:
               one-signature 24-scenario trace its steal-free rerun
               replays every row with at least one cross-worker exact hit,
               arrays bitwise run 1's; every worker at one makespan launch
-              per generation and batch and no build after its warmup;
-              MultiTenantEngine(fleet=) bitwise its in-process schedule
+              per generation and batch plus one per graph capture (its
+              warm generation), with no build and no capture after its
+              warmup over its whole life (the 2-worker fleet's warmup
+              also runs the engine gate's job group, through
+              MultiTenantEngine.warmup); MultiTenantEngine(fleet=)
+              bitwise its in-process schedule
  18. mesh     training on a ("data", "model") device mesh of one rank (an
               NCCL group on a file:// store under build/), after phase
               11: granite-3-2b at full published width and depth in
@@ -250,6 +254,28 @@ Phases, in order; any failure raises and exits non-zero:
               attention call of each model on the plain path (a one-rank
               mesh splits nothing; printed and checked); no kernel
               launched; the phase's wall
+ 20. graph    the generation engine (repro_torch.core.strategies.graphs)
+              right after phase 17, on the mapper problem (S4, Mix G=100,
+              256 GB/s, P=100, 10K samples): every device-resident
+              strategy (magma, random, stdga, de, pso, nsga2) at four
+              seeds, the first search of each capturing its generation
+              as a CUDA graph and the rest replaying it, each bitwise
+              its engine="loop" search and at one makespan launch per
+              generation (plus one in the warm generation before each
+              capture, as everywhere in the script); a 4-row run_sweep of each bitwise its rows run
+              alone; the mapper search's walls captured, uncaptured
+              (the same step run eagerly through the driver's internal
+              _search(capture=False)) and engine="loop", medians of
+              GRAPH_WALL_REPS; every capture's seconds and pool bytes
+              and the graphs held.  At the script's end (after every
+              other profiler session) one captured MAGMA and one captured
+              NSGA-II search under torch.profiler: the card's busy share,
+              host-issued launches and device ops a generation, the
+              makespan kernel's part; and, beside them, phase 12's
+              profiled MAGMA sweep's and phase 16's pipelined run's busy
+              shares and phases 16 and 17's rates.  Phases 16 and 17 run
+              under RecompileGuard: no graph is captured (and nothing
+              built) after a warmup
  dry-run      while phases 12 and 13 run, a process of its own on the
               host's CPU runs repro_torch.launch.dryrun.run_cell on fake
               tensors over a fake process group: granite-3-2b at phase
@@ -274,8 +300,9 @@ searches, the served batch, phases 9-10 together, "train_eval", the
 comparison, "compare", the memo phase, "memo", the launcher, "launch",
 phase 15's training and evaluation, "families", phase 16, "stream", and
 phase 17, "fleet", whose makespan count adds the launches every fleet
-worker reports to this process's, and phase 18, "mesh") and read after
-it.
+worker reports to this process's, phase 18, "mesh", and phase 20,
+"graph") and read after it.  A search whose generation is a replayed
+CUDA graph counts, at each replay, the launches captured into the graph.
 It prints a JSON line with one entry per kernel, the card's name and
 power limit, and last the line ``{"ok": true, "device": {...}}``.
 
@@ -412,6 +439,16 @@ STREAM_AB_REPS = 5           # --stream-ab: serial / pipelined pairs a root
 FLEET_SCENARIOS = 64
 FLEET_WORKERS = (1, 2, 4)
 FLEET_SKEW = dict(STREAM_TRACE, num_scenarios=24, settings=("S4",), seed=7)
+# phase 20: the generation engine's captured, uncaptured and loop walls
+# (medians of GRAPH_WALL_REPS) and every device-resident strategy at
+# GRAPH_SEEDS, the first seed's search capturing
+GRAPH_STRATEGIES = ("magma", "random", "stdga", "de", "pso", "nsga2")
+GRAPH_SEEDS = (0, 1, 2, 3)
+GRAPH_WALL_REPS = 5
+# the CUDA runtime's launch calls as torch.profiler names them (host side)
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
+               "cudaMemcpyAsync", "cudaMemsetAsync")
 FLEET_ENGINE_REQUESTS = (("granite-3-2b", 300, 40),
                          ("qwen2-moe-a2.7b", 200, 48),
                          ("falcon-mamba-7b", 354, 32))
@@ -441,6 +478,27 @@ def mark(phase):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def launch_mark(mk):
+    """Where the makespan kernel's launches stand: its count, beside the
+    graph engine's captures and the launches of the warm generation
+    before each (``graphs.totals()``)."""
+    from repro_torch.core.strategies import graphs
+    t = graphs.totals()
+    return mk.LAUNCHES["makespan"], t["captures"], t["warm_launches"]
+
+
+def launches_since(mk, mark, what):
+    """``(launched, made)``: the makespan launches since ``mark``, and of
+    them those the searches' generations made, the rest being one warm
+    generation's before each graph capture since (checked)."""
+    launched, captures, warm = (a - b for a, b in zip(launch_mark(mk), mark))
+    check(warm == captures,
+          f"{what}: the warm generations before {captures} graph "
+          f"captures launched the makespan kernel {warm} times, want one "
+          "each")
+    return launched, launched - warm
 
 
 def lint_phase():
@@ -1364,38 +1422,40 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
         method_launches[method] = 0
         for setting, bw in FIG9_SETTINGS:
             rows = [lab for lab in labels if lab.endswith(f"{setting}-bw{bw}")]
-            before = mk.LAUNCHES["makespan"]
+            before = launch_mark(mk)
             t0 = time.perf_counter()
             res = run_sweep([fits[lab] for lab in rows], budget=budget,
                             seeds=COMPARE_SEEDS, strategy=strategy,
                             sweep=SweepConfig(chunk_rows=COMPARE_CHUNK_ROWS),
                             device=dev)
             sweep_wall = time.perf_counter() - t0
-            launched = mk.LAUNCHES["makespan"] - before
+            total, launched = launches_since(
+                mk, before, f"compare {method} {setting}")
             check(launched == generations * res.num_chunks,
                   f"compare {method} {setting}: {launched} makespan launches "
                   f"for {res.rows} rows in {res.num_chunks} chunks, want one "
                   f"per generation and chunk ({generations * res.num_chunks})")
-            before = mk.LAUNCHES["makespan"]
+            before = launch_mark(mk)
             t0 = time.perf_counter()
             alone = {(s, k): run_strategy(strategy, fits[lab], budget=budget,
                                           seed=seed, device=dev)
                      for s, lab in enumerate(rows)
                      for k, seed in enumerate(COMPARE_SEEDS)}
             seq_wall = time.perf_counter() - t0
-            alone_launched = mk.LAUNCHES["makespan"] - before
+            alone_total, alone_launched = launches_since(
+                mk, before, f"compare {method} {setting} standalone")
             check(alone_launched == generations * len(alone),
                   f"compare {method} {setting}: {alone_launched} makespan "
                   f"launches for {len(alone)} standalone searches, want "
                   f"{generations * len(alone)}")
-            method_launches[method] += launched + alone_launched
+            method_launches[method] += total + alone_total
             for (s, k), one in alone.items():
                 check(same_row(res, s, k, one),
                       f"compare {method} {setting}: sweep row [{s}, {k}] "
                       "differs from the standalone run_strategy")
             if (method, setting) == SPLIT_SWEEP:
                 # the same sweep split into two shards on the one card
-                before = mk.LAUNCHES["makespan"]
+                before = launch_mark(mk)
                 t0 = time.perf_counter()
                 split = run_sweep(
                     [fits[lab] for lab in rows], budget=budget,
@@ -1403,7 +1463,8 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
                     sweep=SweepConfig(chunk_rows=COMPARE_CHUNK_ROWS,
                                       devices=(dev, dev)))
                 split_wall = time.perf_counter() - t0
-                split_launched = mk.LAUNCHES["makespan"] - before
+                split_total, split_launched = launches_since(
+                    mk, before, f"compare two-shard {method} {setting}")
                 shards = split.num_devices * split.num_chunks
                 check(split.num_devices == 2
                       and split_launched == generations * shards,
@@ -1417,7 +1478,7 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
                           f"compare two-shard {method} {setting}: row "
                           f"[{s}, {k}] differs from the standalone "
                           "run_strategy")
-                method_launches[method] += split_launched
+                method_launches[method] += split_total
                 two_shard = {"method": method, "setting": setting,
                              "devices": [str(dev)] * 2, "rows": split.rows,
                              "chunk_rows": split.chunk_rows,
@@ -1455,9 +1516,10 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
                   f"{sweep_wall:.4f} s, makespan launches {launched}; the "
                   f"same rows one by one {seq_wall:.4f} s; rows == "
                   f"standalone run_strategy, bitwise")
-    before = mk.LAUNCHES["makespan"]
+    before = launch_mark(mk)
     profile = profile_sweep(dev, fits, labels, budget)
-    profile_launches = mk.LAUNCHES["makespan"] - before
+    profile_total, profile_launches = launches_since(mk, before,
+                                                     "compare profile")
     want = next(sw["launches"] for sw in sweeps
                 if sw["method"] == "magma" and sw["setting"] == "S4")
     check(profile_launches == want,
@@ -1516,7 +1578,7 @@ def compare_phase(dev, mk, budget=10_000, group_size=100):
           f"{' > '.join(order)}")
     print("[compare] wall per method (s): " + ", ".join(
         f"{m} {w:.3f}" for m, w in method_wall.items()))
-    launches = sum(method_launches.values()) + profile_launches
+    launches = sum(method_launches.values()) + profile_total
     print("[compare] makespan launches per method (sweeps and standalone "
           "rows, or fitness batches): " + ", ".join(
               f"{m} {n}" for m, n in method_launches.items())
@@ -1669,9 +1731,9 @@ def memo_phase(dev, mk, budget=10_000, group_size=100):
             groups[0], budget=budget, seed=0)
         memo = ScheduleMemo(MemoStore(store_dir))
         m3e = M3E(s4, bw_sys=256 * GB, memo=memo, device=dev)
-        before = mk.LAUNCHES["makespan"]
+        before = launch_mark(mk)
         first = m3e.search(groups[0], budget=budget, seed=0)
-        first_launches = mk.LAUNCHES["makespan"] - before
+        first_launches = launches_since(mk, before, "memo: first solve")[1]
         check(same_result(first, plain),
               "memo: the first memoized solve differs from M3E.search")
         replays = []
@@ -1679,11 +1741,11 @@ def memo_phase(dev, mk, budget=10_000, group_size=100):
                          ("reopened store", M3E(
                              s4, bw_sys=256 * GB, device=dev,
                              memo=ScheduleMemo(MemoStore(store_dir))))):
-            before = mk.LAUNCHES["makespan"]
+            before = launch_mark(mk)
             t0 = time.perf_counter()
             again = mm.search(groups[0], budget=budget, seed=0)
             wall = time.perf_counter() - t0
-            launched = mk.LAUNCHES["makespan"] - before
+            launched = launches_since(mk, before, f"memo: {name}")[0]
             check(launched == 0 and again.wall_time_s == 0.0
                   and same_result(again, plain),
                   f"memo: replay from the {name} launched {launched} "
@@ -1719,12 +1781,12 @@ def memo_phase(dev, mk, budget=10_000, group_size=100):
                         t, group_size=group_size, seed=0)[0])
                 for t in FIG9_TASKS]
         sweep_memo = ScheduleMemo()
-        before = mk.LAUNCHES["makespan"]
+        before = launch_mark(mk)
         res = run_sweep(fits, budget=budget, seeds=COMPARE_SEEDS,
                         sweep=SweepConfig(chunk_rows=COMPARE_CHUNK_ROWS),
                         memo=sweep_memo, memo_family=list(FIG9_TASKS),
                         device=dev)
-        launched = mk.LAUNCHES["makespan"] - before
+        launched = launches_since(mk, before, "memo sweep")[1]
         generations = plan_generations(budget, strategy.ask_size)[0]
         check(sweep_memo.stats.records == res.rows == 4
               and launched == generations * res.num_chunks,
@@ -1767,11 +1829,11 @@ def memo_phase(dev, mk, budget=10_000, group_size=100):
                   and route_memo.warm_start(fit, strategy,
                                             family="Mix") is None,
                   "memo route: the CPU-solved row hit on the card")
-            before = mk.LAUNCHES["makespan"]
+            before = launch_mark(mk)
             card_res = M3E(s4, bw_sys=256 * GB, memo=route_memo,
                            device=dev).search(groups[0], budget=small,
                                               seed=0)
-            launched = mk.LAUNCHES["makespan"] - before
+            launched = launches_since(mk, before, "memo route")[1]
             check(launched == plan_generations(small, strategy.ask_size)[0]
                   and same_result(card_res, run_strategy(
                       strategy, fit, budget=small, seed=0, device=dev)),
@@ -2046,10 +2108,10 @@ def launch_phase(dev, mk, ssm, fa, full=True):
     plain_schedule = MultiTenantEngine.schedule
 
     def counted_schedule(self, jobs, method=None, **kw):
-        before = mk.LAUNCHES["makespan"]
+        before = launch_mark(mk)
         res = plain_schedule(self, jobs, method=method, **kw)
         parts.append((method or self.method,
-                      mk.LAUNCHES["makespan"] - before, res))
+                      launches_since(mk, before, "launch schedule")[1], res))
         return res
 
     def timed(fn, phase, name):
@@ -2070,6 +2132,7 @@ def launch_phase(dev, mk, ssm, fa, full=True):
         mk.reset_launches()
         ssm.reset_launches()
         fa.reset_launches()
+        start = launch_mark(mk)
         t0 = time.perf_counter()
         res = launcher.run(tenants, requests=LAUNCH_REQUESTS, execute=True,
                            seed=LAUNCH_SEED, device=dev,
@@ -2077,6 +2140,7 @@ def launch_phase(dev, mk, ssm, fa, full=True):
                                                             "[launch]")))
         sync()
         out["run_wall_s"] = time.perf_counter() - t0
+        total, made = launches_since(mk, start, "launch")
         counts = {"makespan": mk.LAUNCHES["makespan"],
                   "ssm_scan": ssm.LAUNCHES["ssm_scan"],
                   "flash_attention": fa.LAUNCHES["flash_attention"]}
@@ -2132,8 +2196,9 @@ def launch_phase(dev, mk, ssm, fa, full=True):
     layers = {t.name: t.cfg.num_layers for t in tenants}
     want_ssm = sum(layers[j.tenant] for j in prefills
                    if j.tenant == "falcon-mamba-7b") if full else 0
-    want = {"makespan": sum(n for _, n in want_parts), "ssm_scan": want_ssm,
-            "flash_attention": 0}
+    # and one in the warm generation before each graph capture
+    want = {"makespan": sum(n for _, n in want_parts) + total - made,
+            "ssm_scan": want_ssm, "flash_attention": 0}
     check(counts == want, f"launch path launches {counts}, want {want}")
     decodes = {j.uid: j for j in jobs if j.phase == "decode"}
     check(sorted(res["outputs"]) == sorted(decodes),
@@ -2615,6 +2680,15 @@ def families_profile(dev, families_out):
 
 def stream_phase(dev, mk, budget=STREAM_BUDGET, anytime=STREAM_ANYTIME,
                  trace_kw=None):
+    """Phase 16 (``_stream_phase``) under ``RecompileGuard``: each
+    service's warmup may capture generation steps (and build), nothing
+    after it may."""
+    from repro_torch.lint.runtime import RecompileGuard
+    with RecompileGuard(label="stream") as guard:
+        return _stream_phase(dev, mk, guard, budget, anytime, trace_kw)
+
+
+def _stream_phase(dev, mk, guard, budget, anytime, trace_kw):
     """Phase 16: the streaming scheduling service (``repro_torch.stream``)
     on ``dev``, at STREAM_TRACE's full width unless ``trace_kw`` cuts it.
 
@@ -2637,9 +2711,12 @@ def stream_phase(dev, mk, budget=STREAM_BUDGET, anytime=STREAM_ANYTIME,
         and each run's admission counters must balance.
 
     Every warmup and run is checked for its makespan launches (one per
-    generation and batch).  Returns the phase's summary; its "launches"
-    is the makespan launches the phase must have made: the warmups', the
-    runs' batches' and the standalone checks'."""
+    generation and batch, and one per graph capture), and ``guard`` (a
+    ``RecompileGuard``) for what was captured or built: each warmup
+    moves its boundary, after checking that nothing was since the last.
+    Returns the phase's summary; its "launches" is the makespan launches
+    the phase must have made: the warmups', the runs' batches' and the
+    standalone checks', and one per graph capture."""
     from repro_torch.core.fitness import FitnessFn
     from repro_torch.core.strategies import (get_strategy, plan_generations,
                                              run_strategy)
@@ -2660,14 +2737,16 @@ def stream_phase(dev, mk, budget=STREAM_BUDGET, anytime=STREAM_ANYTIME,
         return plan_generations(b, strat.ask_size)[0]
 
     def counted(what, fn, want):
-        """Run ``fn``; its makespan launches must be ``want(result)``."""
-        before = mk.LAUNCHES["makespan"]
+        """Run ``fn``; its generations' makespan launches must be
+        ``want(result)``, besides one a graph capture (its warm
+        generation's)."""
+        before = launch_mark(mk)
         res = fn()
-        launched = mk.LAUNCHES["makespan"] - before
+        total, launched = launches_since(mk, before, f"stream: {what}")
         n = want(res)
-        check(launched == n, f"stream: {what} launched the makespan kernel "
-                             f"{launched} times, want {n}")
-        expected[0] += launched
+        check(launched == n, f"stream: {what}'s generations launched the "
+                             f"makespan kernel {launched} times, want {n}")
+        expected[0] += total
         return res
 
     def batch_launches(svc):
@@ -2693,9 +2772,11 @@ def stream_phase(dev, mk, budget=STREAM_BUDGET, anytime=STREAM_ANYTIME,
                 * sum(gens(bud) for _, _, bud in sigs))
 
     def warm(svc, trace, what):
+        guard.check()            # nothing captured since the last warmup
         t0 = time.perf_counter()
         counted(f"{what} warmup", lambda: svc.warmup(trace),
                 lambda _: warmup_launches(svc, trace))
+        guard.warmup()
         return time.perf_counter() - t0
 
     def card_fit(fit):
@@ -2856,6 +2937,11 @@ def stream_phase(dev, mk, budget=STREAM_BUDGET, anytime=STREAM_ANYTIME,
                   "blind": sides["blind"], "aware": sides["aware"]}
     blind.close()
     aware.close()
+    guard.check()
+    out["captures"] = [c for c in guard.compiles
+                       if c.startswith("cuda graph ")]
+    print(f"[stream] {len(out['captures'])} generation steps captured, all "
+          "in warmups; none after")
     out["launches"] = expected[0]
     out["phase_wall_s"] = time.perf_counter() - t_phase
     print(f"[stream] phase wall {out['phase_wall_s']:.3f} s, makespan "
@@ -2873,9 +2959,13 @@ def fleet_phase(dev, mk, budget=STREAM_BUDGET, trace_kw=None,
     card time-slices between them), and through one in-process
     ``StreamingScheduler`` beside them.  Every side gets a fresh shared
     ``ShardedMemoStore`` (near hits off), the service's exhaustive
-    ``warmup`` over the trace and a run of a disjoint-seed twin of it
-    before the measured run; each fleet arms ``RecompileGuard`` in its
-    workers and marks the boundary after its warmups.  Reported per side:
+    ``warmup`` over the trace (the 2-worker fleet's also over the engine
+    gate's job group, through ``MultiTenantEngine.warmup``) and a run of
+    a disjoint-seed twin of it before the measured run; each fleet arms
+    ``RecompileGuard`` in its
+    workers and marks the boundary after its warmups (the in-process
+    stream's runs are guarded too): no library built and no generation
+    step captured after it.  Reported per side:
     scenarios/s, latency p50 / p99, steals, and each worker's makespan
     launches.  Gates:
 
@@ -2888,8 +2978,10 @@ def fleet_phase(dev, mk, budget=STREAM_BUDGET, trace_kw=None,
       store with at least one cross-worker exact hit (``foreign_hits``),
       every array bitwise run 1's, and run 1's rows bitwise standalone;
     * every worker's makespan launches equal one per generation and batch
-      it dispatched (warmups included), and no worker built anything after
-      its warmup boundary;
+      it dispatched (warmups included) plus one per graph capture (the
+      warm generation before it), and no worker built a library or
+      captured a generation step after its warmup boundary, over its
+      whole life (the 2-worker gates included);
     * ``MultiTenantEngine(fleet=)`` schedules a launcher-style job group
       (FLEET_ENGINE_REQUESTS over the published configs on ``meta``)
       bitwise as the in-process engine does.
@@ -2906,12 +2998,14 @@ def fleet_phase(dev, mk, budget=STREAM_BUDGET, trace_kw=None,
     from repro_torch.core.strategies import (get_strategy, plan_generations,
                                              run_strategy)
     from repro_torch.fleet import FleetConfig, ShardedMemoStore, launch_fleet
+    from repro_torch.lint.runtime import RecompileGuard
     from repro_torch.memo import ScheduleMemo
     from repro_torch.stream import (StreamConfig, StreamingScheduler,
                                     TraceConfig, analyze_serial,
                                     generate_trace)
 
     t_phase = time.perf_counter()
+    start = launch_mark(mk)
     trace_kw = (dict(STREAM_TRACE, num_scenarios=FLEET_SCENARIOS)
                 if trace_kw is None else dict(trace_kw))
     skew_kw = dict(FLEET_SKEW if skew_kw is None else skew_kw)
@@ -2953,9 +3047,11 @@ def fleet_phase(dev, mk, budget=STREAM_BUDGET, trace_kw=None,
             budget=budget, device=dev, stream=StreamConfig(**stream_kw),
             memo=ScheduleMemo(ShardedMemoStore(os.path.join(tmp, "inproc")),
                               near=False))
-        svc.warmup(trace)
-        svc.run(twin)
-        local = svc.run(trace)
+        with RecompileGuard(label="fleet in-process") as guard:
+            svc.warmup(trace)
+            guard.warmup()
+            svc.run(twin)
+            local = svc.run(trace)
         out["in_process"] = side_row(svc.last_metrics, "in-process stream")
         parent[0] += svc.dispatched_generations
         svc.close()
@@ -2972,6 +3068,11 @@ def fleet_phase(dev, mk, budget=STREAM_BUDGET, trace_kw=None,
             with launch_fleet(cfg) as fleet:
                 up_s = time.perf_counter() - t0
                 fleet.warmup(trace)
+                if n == 2:
+                    # the gates' shapes too: the skewed trace's are the
+                    # trace's, the engine gate's job group is its own
+                    warm_engine = fleet_engine(dev, fleet)
+                    warm_engine.warmup(fleet_engine_jobs(warm_engine))
                 fleet.run(twin)
                 fleet.mark_warm()
                 before = fleet.worker_stats()
@@ -2995,30 +3096,40 @@ def fleet_phase(dev, mk, budget=STREAM_BUDGET, trace_kw=None,
             row["workers"] = {}
             for wid in sorted(after):
                 a, b, c = after[wid], before[wid], measured[wid]
-                # on the CPU the plain version runs: no kernel launch
+                # one launch a generation and batch, and one in the warm
+                # generation before each graph capture; on the CPU the
+                # plain version runs: no kernel launch
                 check(a["makespan_launches"] == (
-                    a["dispatched_generations"] if dev.type == "cuda"
-                    else 0) and a["dispatched_generations"] > 0,
+                    a["dispatched_generations"] + a["warm_launches"]
+                    if dev.type == "cuda" else 0)
+                      and a["warm_launches"] == a["graph_captures"]
+                      and a["dispatched_generations"] > 0,
                       f"fleet: {n}-worker {wid} launched the makespan kernel "
                       f"{a['makespan_launches']} times over "
-                      f"{a['dispatched_generations']} generations x batches")
+                      f"{a['dispatched_generations']} generations x batches "
+                      f"and {a['graph_captures']} graph captures "
+                      f"({a['warm_launches']} warm launches)")
+                # nothing built or captured after the warmup, the gates
+                # after the measured run included
                 check(a["recompiles_post_warmup"] == 0,
-                      f"fleet: {n}-worker {wid} built "
-                      f"{a['recompiles_post_warmup']} libraries after its "
-                      "warmup")
+                      f"fleet: {n}-worker {wid} built or captured "
+                      f"{a['post_warmup']} after its warmup")
                 worker_launches += a["makespan_launches"]
                 row["workers"][wid] = {
                     "makespan_launches": a["makespan_launches"],
                     "measured_run_launches": (c["makespan_launches"]
                                               - b["makespan_launches"]),
                     "scenarios_measured": c["scenarios"] - b["scenarios"],
-                    "compiles": a["compiles"]}
+                    "compiles": a["compiles"],
+                    "graph_captures": a["graph_captures"]}
             print(f"[fleet] {n}-worker: steals {m.steals} "
                   f"({m.stolen_members} members), per worker "
                   f"{list(m.per_worker_scenarios)}, startup {up_s:.2f} s, "
-                  "makespan launches (lifetime / measured run) "
+                  "makespan launches (lifetime / measured run; graph "
+                  "captures, all in warmups) "
                   + ", ".join(f"{w}: {v['makespan_launches']} / "
-                              f"{v['measured_run_launches']}"
+                              f"{v['measured_run_launches']}; "
+                              f"{v['graph_captures']}"
                               for w, v in row["workers"].items()))
             out["fleets"][n] = row
         one = out["fleets"][workers[0]]["scenarios_per_sec"]
@@ -3034,11 +3145,12 @@ def fleet_phase(dev, mk, budget=STREAM_BUDGET, trace_kw=None,
                           out["fleet_over_in_process"].items()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    check(mk.LAUNCHES["makespan"] == parent[0],
-          f"fleet: this process launched the makespan kernel "
-          f"{mk.LAUNCHES['makespan']} times, want {parent[0]}")
+    total, made = launches_since(mk, start, "fleet: this process")
+    check(made == parent[0],
+          f"fleet: this process's generations launched the makespan kernel "
+          f"{made} times, want {parent[0]}")
     out["launches_workers"] = worker_launches
-    out["launches_parent"] = parent[0]
+    out["launches_parent"] = total
     out["phase_wall_s"] = time.perf_counter() - t_phase
     print(f"[fleet] phase wall {out['phase_wall_s']:.3f} s, makespan "
           f"launches: workers {worker_launches}, this process {parent[0]}")
@@ -3086,20 +3198,31 @@ def fleet_gates(dev, fleet, res, local, skew, standalone, budget):
             "replay_wall_s": m2.wall_s}
 
 
-def fleet_engine_gate(dev, fleet):
-    """Phase 17's engine gate: one launcher-style job group scheduled by
-    MAGMA through ``MultiTenantEngine(fleet=)`` and in process, on the
-    published configs (weights on ``meta``: nothing executes)."""
+def fleet_engine(dev, fleet=None):
+    """A ``MultiTenantEngine`` over FLEET_ENGINE_REQUESTS's published
+    configs (weights on ``meta``: nothing executes), served by ``fleet``
+    or, with None, in process."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import get_model
     from repro_torch.serve.engine import MultiTenantEngine, Tenant
     tenants = [Tenant(a, get_config(a), get_model(get_config(a),
                                                   device="meta"))
                for a in dict.fromkeys(r[0] for r in FLEET_ENGINE_REQUESTS)]
-    via, here = (MultiTenantEngine(tenants, device=dev, fleet=fleet),
-                 MultiTenantEngine(tenants, device=dev))
-    a = via.schedule(via.jobs_for_requests(FLEET_ENGINE_REQUESTS))
-    b = here.schedule(here.jobs_for_requests(FLEET_ENGINE_REQUESTS))
+    return MultiTenantEngine(tenants, device=dev, fleet=fleet)
+
+
+def fleet_engine_jobs(engine):
+    """The engine gate's job group, made by ``engine``."""
+    return engine.jobs_for_requests(FLEET_ENGINE_REQUESTS)
+
+
+def fleet_engine_gate(dev, fleet):
+    """Phase 17's engine gate: one launcher-style job group scheduled by
+    MAGMA through ``MultiTenantEngine(fleet=)`` and in process, on the
+    published configs (weights on ``meta``: nothing executes)."""
+    via, here = fleet_engine(dev, fleet), fleet_engine(dev)
+    a = via.schedule(fleet_engine_jobs(via))
+    b = here.schedule(fleet_engine_jobs(here))
     check(same_result(a["result"], b["result"])
           and a["queues"] == b["queues"] and via._stream is None,
           "fleet: the engine's fleet= schedule differs from its in-process "
@@ -3290,6 +3413,265 @@ def families_timing(ssm, fa, flash_ref, scan_inputs, flash_inputs_z):
     out["flash_zamba2"] = flash
     print(f"[timing] flash_attention zamba2: kernel {flash['ms']:.6f} ms on "
           f"the device, {flash['ms'] / flash['bound_ms']:.1f}x the bound")
+    return out
+
+
+def graph_profile(dev, fn, generations):
+    """``fn()`` (one captured search) under torch.profiler twice: with the
+    card's activity alone (its wall, the card's busy share, device ops a
+    generation, the makespan kernel's part), then with the host's too
+    (the CUDA runtime's launch calls a generation, graph launches among
+    them).  None where the profiler sees no device."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced(activities):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return prof.events(), wall_ms
+
+    if dev.type != "cuda":
+        return None
+    events, wall_ms = traced(profiler_activities(dev))
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not on_card:
+        return None
+    busy_ms = sum(e.device_time_total for e in on_card) / 1e3
+    mk_ms = sum(e.device_time_total for e in on_card
+                if "makespan_kernel" in e.name) / 1e3
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms,
+           "device_ops_per_generation": len(on_card) / generations,
+           "makespan_kernel_ms": mk_ms,
+           "makespan_share_of_busy": mk_ms / busy_ms}
+    events, _ = traced([ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    calls = [e for e in events if e.device_type != DeviceType.CUDA
+             and e.name in LAUNCH_APIS]
+    if calls:
+        graph = sum(e.name in ("cudaGraphLaunch", "cuGraphLaunch")
+                    for e in calls)
+        by_api = {}
+        for e in calls:
+            by_api[e.name] = by_api.get(e.name, 0) + 1
+        out.update(host_launches_per_generation=len(calls) / generations,
+                   graph_launches_per_generation=graph / generations,
+                   host_launches_by_api=by_api)
+    return out
+
+
+def graph_phase(dev, mk, budget=10_000, group_size=100):
+    """Phase 20: the generation engine (``repro_torch.core.strategies.
+    graphs``) on the mapper problem (``graph_fit``), right after phase 17
+    (before the process's first profiler session: its walls are host
+    walls).
+
+    (a) Each device-resident strategy at GRAPH_SEEDS through run_strategy
+        (the first seed's search captures the generation, the others
+        replay it under their own seeds), each bitwise its
+        engine="loop" search (and its final population, where the
+        strategy hands one off), then a run_sweep of the GRAPH_SEEDS rows
+        (one chunk of 4 rows, a key of its own) bitwise those searches;
+        every search and sweep at one makespan launch a generation, and
+        one more in the warm generation before each capture.
+    (b) The MAGMA search's walls: captured, uncaptured (the same step run
+        eagerly, ``driver._search(capture=False)``) and engine="loop",
+        GRAPH_WALL_REPS each in turns; their medians.
+    (c) Every capture's seconds and pool bytes, and the graphs held.
+    ``graph_end`` profiles at the script's end.  Returns the phase's
+    summary."""
+    import torch
+    from repro_torch.core.strategies import (driver, graphs,
+                                             plan_generations, run_strategy)
+    from repro_torch.core.sweep import run_sweep
+
+    t_phase = time.perf_counter()
+    card = smi_line() if dev.type == "cuda" else "the CPU"
+    fit = graph_fit(dev, group_size)
+    graphs.clear()
+    out = {"card": card, "budget": budget, "strategies": {}}
+
+    def counted(what, fn, gens):
+        before = launch_mark(mk)
+        res = fn()
+        n = launches_since(mk, before, f"graph: {what}")[1]
+        want = gens if dev.type == "cuda" else 0
+        check(n == want, f"graph: {what}'s generations launched the "
+                         f"makespan kernel {n} times, want {want}")
+        return res
+
+    # (a) captured == loop, four seeds, and a 4-row sweep, per strategy
+    for name in GRAPH_STRATEGIES:
+        s = graph_strategy(name)
+        gens = plan_generations(budget, s.ask_size)[0]
+        keep = s.supports_init_population
+        alone, loop_walls = [], []
+        for seed in GRAPH_SEEDS:
+            got = counted(f"{name} seed {seed}", lambda sd=seed: run_strategy(
+                s, fit, budget=budget, seed=sd, device=dev,
+                keep_population=keep), gens)
+            want = counted(f"{name} seed {seed} loop",
+                           lambda sd=seed: run_strategy(
+                               s, fit, budget=budget, seed=sd, device=dev,
+                               engine="loop", keep_population=keep), gens)
+            check(same_result(got, want) and (not keep or (
+                torch.equal(got.final_population.accel,
+                            want.final_population.accel)
+                and torch.equal(got.final_population.prio,
+                                want.final_population.prio))),
+                  f"graph: {name} seed {seed}: the captured search differs "
+                  "from engine='loop'")
+            alone.append(got)
+            loop_walls.append(want.wall_time_s)
+        res = counted(f"{name} sweep", lambda: run_sweep(
+            [fit], budget=budget, seeds=GRAPH_SEEDS, strategy=s,
+            device=dev), gens)
+        for k in range(len(GRAPH_SEEDS)):
+            check(same_row(res, 0, k, alone[k]),
+                  f"graph: {name} sweep row {k} differs from its search "
+                  "run alone")
+        out["strategies"][name] = {
+            "search_wall_s": [r.wall_time_s for r in alone],
+            "loop_wall_s": loop_walls, "sweep_wall_s": res.wall_time_s,
+            "best_fitness": [r.best_fitness for r in alone]}
+        print(f"[graph] {name}: seeds {list(GRAPH_SEEDS)} captured == "
+              "engine='loop' bitwise (seed "
+              f"{GRAPH_SEEDS[0]}'s search captured), 4-row sweep rows == "
+              "alone; walls s: searches "
+              + ", ".join(f"{r.wall_time_s:.4f}" for r in alone)
+              + f" (loop {np.median(loop_walls):.4f} median), sweep "
+              f"{res.wall_time_s:.4f} ({card})")
+
+    out["parts_s"] = {"strategies": time.perf_counter() - t_phase}
+    # (b) the mapper search's walls, in turns
+    t_part = time.perf_counter()
+    s = graph_strategy("magma")
+    walls = {"captured": [], "uncaptured": [], "loop": []}
+    first = None
+    for _ in range(GRAPH_WALL_REPS):
+        for mode in walls:
+            if mode == "uncaptured":
+                r = driver._search(s, fit, budget, 0, dev, "scan", None,
+                                   False, capture=False)
+            else:
+                r = run_strategy(s, fit, budget=budget, seed=0, device=dev,
+                                 engine="loop" if mode == "loop" else None)
+            first = first or r
+            check(same_result(r, first), f"graph: the {mode} search "
+                                         "differs from the captured one")
+            walls[mode].append(r.wall_time_s)
+    out["walls_s"] = walls
+    out["wall_median_s"] = {m: float(np.median(v)) for m, v in walls.items()}
+    med = out["wall_median_s"]
+    print(f"[graph] mapper search wall, median of {GRAPH_WALL_REPS}: "
+          f"captured {med['captured'] * 1e3:.3f} ms, uncaptured "
+          f"{med['uncaptured'] * 1e3:.3f} ms, engine='loop' "
+          f"{med['loop'] * 1e3:.3f} ms ({card})")
+
+    out["parts_s"]["walls"] = time.perf_counter() - t_part
+    # (c) the graphs held
+    caps = [c for info in graphs.steps_info() for c in info["captures"]]
+    out["captures"] = caps
+    out["graphs"] = len(caps)
+    out["pool_bytes"] = sum(c["pool_bytes"] for c in caps)
+    for c in caps:
+        print(f"[graph] captured {c['label']}: {c['seconds'] * 1e3:.3f} ms, "
+              f"pool {c['pool_bytes'] / 2 ** 20:.3f} MiB, kernel launches "
+              f"captured {c['launches']}, its warm generation's "
+              f"{c['warm_launches']} ({card})")
+    print(f"[graph] {len(caps)} graphs held, pools "
+          f"{out['pool_bytes'] / 2 ** 20:.3f} MiB in all ({card})")
+
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[graph] phase wall {out['phase_wall_s']:.3f} s (" + ", ".join(
+        f"{k} {v:.3f} s" for k, v in out["parts_s"].items()) + ")")
+    return out
+
+
+def graph_fit(dev, group_size=100):
+    """Phase 20's problem: S4, a Mix group of ``group_size``, 256 GB/s."""
+    from repro_torch.core.m3e import M3E
+    from repro_torch.costmodel import get_setting
+    from repro_torch.workloads import build_task_groups
+    group = build_task_groups("Mix", group_size=group_size, seed=0)[0]
+    return M3E(get_setting("S4"), bw_sys=256 * GB, device=dev).prepare(group)
+
+
+def graph_strategy(name):
+    """Phase 20's strategies: the registry's, at P=100."""
+    from repro_torch.core.strategies import get_strategy
+    return (get_strategy(name) if name == "magma"
+            else get_strategy(name, population=100))
+
+
+def graph_end(dev, out, compared=None, stream_out=None, fleet_out=None,
+              budget=10_000, group_size=100):
+    """Phase 20's end, after every other profiler session: one captured
+    MAGMA search (``budget`` samples) and one captured NSGA-II search
+    (``budget`` / 10: its graph is the same, its 1,800 ops a generation
+    make the profile slow to read) under ``graph_profile``; then phase
+    12's profiled MAGMA sweep's busy share and phases 16 and 17's rates
+    beside them.  Adds to ``out``, phase 20's summary."""
+    from repro_torch.core.strategies import plan_generations, run_strategy
+    t_part = time.perf_counter()
+    card = out["card"]
+    fit = graph_fit(dev, group_size)
+    out["profile"] = {}
+    for name, samples in (("magma", budget), ("nsga2", budget // 10)):
+        s = graph_strategy(name)
+        gens = plan_generations(samples, s.ask_size)[0]
+        prof = graph_profile(dev, lambda: run_strategy(
+            s, fit, budget=samples, seed=5, device=dev), gens)
+        out["profile"][name] = prof
+        if prof is None:
+            print(f"[graph] {name}: the profiler saw no device time: busy "
+                  "share not measured")
+            continue
+        host = (f"{prof['host_launches_per_generation']:.2f} host-issued "
+                f"launches a generation ({prof['graph_launches_per_generation']:.2f} "
+                f"graph launches; {prof['host_launches_by_api']})"
+                if "host_launches_per_generation" in prof else
+                "host-issued launches not recorded")
+        print(f"[graph] profiled captured {name} search: wall "
+              f"{prof['wall_ms']:.3f} ms, card busy "
+              f"{prof['device_busy_ms']:.3f} ms "
+              f"({prof['device_busy_share']:.1%}), "
+              f"{prof['device_ops_per_generation']:.1f} device ops a "
+              f"generation, {host}, makespan kernel "
+              f"{prof['makespan_kernel_ms']:.3f} ms "
+              f"({prof['makespan_share_of_busy']:.1%} of busy) ({card})")
+
+    if compared and compared.get("profile"):
+        share = compared["profile"]["device_busy_share"]
+        out["compare_sweep_busy_share"] = share
+        print(f"[graph] phase 12's profiled MAGMA sweep: card busy "
+              f"{share:.1%} ({card})")
+    if stream_out:
+        rates = {m: stream_out["pipelining"][m]["scenarios_per_sec"]
+                 for m in ("serial", "serial_shared", "pipelined")}
+        out["stream_rates"] = rates
+        print(f"[graph] phase 16: serial {rates['serial']:.3f}, serial "
+              f"with the shared cache {rates['serial_shared']:.3f}, "
+              f"pipelined {rates['pipelined']:.3f} scenarios/s ({card})")
+    if stream_out and (stream_out.get("card_busy") or {}).get(
+            "card_busy_share") is not None:
+        share = stream_out["card_busy"]["card_busy_share"]
+        out["stream_card_busy_share"] = share
+        print(f"[graph] phase 16's profiled pipelined run: card busy "
+              f"{share:.1%} ({card})")
+    if fleet_out:
+        rates = {n: row["scenarios_per_sec"]
+                 for n, row in fleet_out["fleets"].items()}
+        out["fleet_rates"] = rates
+        print("[graph] phase 17: " + ", ".join(
+            f"{n} worker(s) {v:.3f}" for n, v in rates.items())
+              + f" scenarios/s ({card})")
+    out["end_wall_s"] = time.perf_counter() - t_part
+    print(f"[graph] the phase's end: wall {out['end_wall_s']:.3f} s")
     return out
 
 
@@ -3718,6 +4100,21 @@ def main():
           f"{fleet_out['launches_workers']} makespan launches included)")
     free(dev)
 
+    # -- 20. graph: the generation engine, captured against loop ----------
+    mark("20. graph")
+    # also before the first profiler session: its walls are host walls
+    reset_counts()
+    graph_out = graph_phase(dev, mk)
+    graph_counts = {"makespan": mk.LAUNCHES["makespan"],
+                    "ssm_scan": ssm.LAUNCHES["ssm_scan"],
+                    "flash_attention": fa.LAUNCHES["flash_attention"]}
+    check(graph_counts["makespan"] > 0 and graph_counts["ssm_scan"] == 0
+          and graph_counts["flash_attention"] == 0,
+          f"graph launches {graph_counts}: want the makespan kernel and no "
+          "other")
+    print(f"[graph] graph path launches: {graph_counts}")
+    free(dev)
+
     # -- 4. main path -----------------------------------------------------
     mark("4. main path")
     setting, budget, bw_sys_main = "S4", 10_000, 256 * GB
@@ -3726,15 +4123,15 @@ def main():
     walls = []
     reset_counts()
     for seed in range(4):
-        before = mk.LAUNCHES["makespan"]
+        before = launch_mark(mk)
         res = m3e.search(group, method="magma", budget=budget, seed=seed)
-        launched = mk.LAUNCHES["makespan"] - before
+        launched = launches_since(mk, before, f"seed {seed}")[1]
         walls.append(res.wall_time_s)
         print(f"[main] S4/Mix G=100 P=100 budget={budget} seed={seed}: best "
               f"throughput {res.best_fitness:.6e} FLOP/s, wall "
               f"{res.wall_time_s:.4f} s, makespan launches {launched}")
-        check(launched == 100, f"seed {seed}: {launched} makespan launches, "
-                               "want one per generation (100)")
+        check(launched == 100, f"seed {seed}: {launched} makespan launches "
+                               "in the generations, want one each (100)")
         check(res.n_samples == budget and res.history_best.shape == (100,)
               and bool(np.all(np.isfinite(res.history_best)))
               and bool(np.all(np.diff(res.history_best) >= 0)),
@@ -3853,12 +4250,16 @@ def main():
                                         (1, j.seq))
                    for j in jobs if j.phase == "prefill"}
         reset_counts()
+        start = launch_mark(mk)
         t0 = time.perf_counter()
         out = engine.schedule(jobs, method="magma", execute=True,
                               prompts=prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = (ssm.LAUNCHES["ssm_scan"], mk.LAUNCHES["makespan"])
+        # the generations' makespan launches, less one in the warm
+        # generation before each graph capture
+        made = launches_since(mk, start, what)[1]
         check(fa.LAUNCHES["flash_attention"] == 0,
               f"{what}: serving launched the flash kernel")
         check(sorted(u for q in out["queues"] for u in q)
@@ -3873,9 +4274,9 @@ def main():
                   and bool(((toks >= 0) & (toks < vocab)).all()),
                   f"{what}: decode job {uid} gave {toks.shape} tokens")
         want = sum(layers[j.tenant] for j in jobs if j.phase == "prefill")
-        check(counts == (want, generations),
-              f"{what}: launches (ssm_scan, makespan) = {counts}, want "
-              f"({want}, {generations})")
+        check((counts[0], made) == (want, generations),
+              f"{what}: launches (ssm_scan, makespan in the generations) = "
+              f"{(counts[0], made)}, want ({want}, {generations})")
         print(f"[serve] {what}: {len(jobs)} jobs on {len(engine.submeshes)} "
               f"submeshes, schedule+execute wall {wall:.3f} s (search "
               f"{out['result'].wall_time_s:.3f} s), launches ssm_scan "
@@ -4136,6 +4537,10 @@ def main():
     mark("16, its end")
     stream_out["card_busy"] = stream_card_busy(dev)
 
+    # -- 20, its end: a captured MAGMA and NSGA-II search profiled -------
+    mark("20, its end")
+    graph_end(dev, graph_out, compared, stream_out, fleet_out)
+
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
     k_ms, p_ms, b_ms, b_by, shape, kh_ms = ssm_times["falcon"]
@@ -4147,7 +4552,8 @@ def main():
         "replaces": "src/repro/kernels/makespan.py:36",
         "launches": launches + serve_counts[1] + compare_counts["makespan"]
         + memo_counts["makespan"] + launch_counts["makespan"]
-        + stream_counts["makespan"] + fleet_counts["makespan"],
+        + stream_counts["makespan"] + fleet_counts["makespan"]
+        + graph_counts["makespan"],
         "launches_by_path": {"m3e_search": launches,
                              "serve": serve_counts[1],
                              "train_eval": train_eval_counts["makespan"],
@@ -4157,7 +4563,8 @@ def main():
                              "families": family_counts["makespan"],
                              "stream": stream_counts["makespan"],
                              "fleet": fleet_counts["makespan"],
-                             "mesh": mesh_counts["makespan"]},
+                             "mesh": mesh_counts["makespan"],
+                             "graph": graph_counts["makespan"]},
         "launches_per_search": launches // 4,
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -4169,7 +4576,8 @@ def main():
         "ptxas": ptxas_json(ptxas["makespan"]),
         "search_wall_s": walls, "profile": profile_out,
         "per_row_bw_sys": per_row, "compare": compared, "memo": memo_out,
-        "stream": stream_out, "fleet": fleet_out, "ok": True,
+        "stream": stream_out, "fleet": fleet_out, "graph": graph_out,
+        "ok": True,
     }, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -4183,7 +4591,8 @@ def main():
                              "families": family_counts["ssm_scan"],
                              "stream": stream_counts["ssm_scan"],
                              "fleet": fleet_counts["ssm_scan"],
-                             "mesh": mesh_counts["ssm_scan"]},
+                             "mesh": mesh_counts["ssm_scan"],
+                             "graph": graph_counts["ssm_scan"]},
         "launches_per_eval": {a: e["scan_launches"] for a, e in
                               families_out["eval"].items()},
         "eval_shapes": {k: v for k, v in families_out["timing"].items()
@@ -4214,7 +4623,8 @@ def main():
                              "families": family_counts["flash_attention"],
                              "stream": stream_counts["flash_attention"],
                              "fleet": fleet_counts["flash_attention"],
-                             "mesh": mesh_counts["flash_attention"]},
+                             "mesh": mesh_counts["flash_attention"],
+                             "graph": graph_counts["flash_attention"]},
         "launches_per_eval": dict(
             {k: v["flash_launches"] for k, v in evals.items()},
             zamba2=families_out["eval"]["zamba2-1.2b"]["flash_launches"]),

@@ -157,11 +157,14 @@ def draw_generation(gen: torch.Generator, n_child: int, G: int, A: int,
         (gen,), n_child, G, A, cfg)))
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _operator_cdf(cfg: MagmaConfig, device: torch.device) -> torch.Tensor:
     """The operator mix's CDF, computed in float64 and cast to float32
     exactly as the reference does.  Cached per (cfg, device) so that a
     generation copies nothing from the host; callers never mutate it.
+    The cache never evicts: a captured generation step
+    (``repro_torch.core.strategies.graphs``) reads the tensor by its
+    address at every replay, for as long as the process keeps the step.
     The one copy is issued without a sync, so even the first generation
     on a card runs clean under ``lint.runtime.transfer_sanitizer``."""
     probs = np.array(

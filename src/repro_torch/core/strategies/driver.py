@@ -10,6 +10,11 @@ it.  The final generation tells only when the sample budget is not yet
 exhausted, as in ``repro.core.strategies.driver`` (multi-objective
 strategies always tell: their archive is the result).
 
+A generation is the static-buffer step of
+``repro_torch.core.strategies.graphs``: on a card it is captured once per
+shape as a CUDA graph and replayed each generation (the reference's one
+compiled ``lax.scan`` a search); on the CPU the same step runs eagerly.
+
 :func:`run_strategy` is its one-row case, seeded from ``seed`` on the
 search's device; ``repro_torch.core.sweep`` runs it over (scenario x
 seed) rows.  So a sweep row is a standalone search by construction.
@@ -25,12 +30,12 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.encoding import Population, row_generators, take_rows
-from repro_torch.core.fitness import (FitnessFn, FitnessParams,
-                                      ObjectiveSpec, evaluate_objectives,
-                                      evaluate_params)
+from repro_torch.core.encoding import Population, row_generators, to_host
+from repro_torch.core.fitness import FitnessFn, FitnessParams, ObjectiveSpec
 from repro_torch.core.magma import SearchResult
+from repro_torch.core.strategies import graphs
 from repro_torch.core.strategies.base import SearchStrategy, WarmStart
+from repro_torch.core.strategies.graphs import row_eval_fn
 
 
 def plan_generations(budget: int, ask_size: int) -> Tuple[int, bool]:
@@ -41,52 +46,41 @@ def plan_generations(budget: int, ask_size: int) -> Tuple[int, bool]:
     return generations, generations * ask_size < budget
 
 
-def row_eval_fn(strategy: SearchStrategy, params: FitnessParams,
-                objective: Optional[ObjectiveSpec]):
-    """(R, P, G) genomes -> (R, P) fitness, or the (R, P, M) objective
-    matrix for a multi-objective strategy, over row-stacked ``params``.
-    ``objective`` None selects each row's column by its objective code."""
-    if getattr(strategy, "multi_objective", False):
-        def eval_fn(accel, prio):
-            return evaluate_objectives(params, accel, prio,
-                                       num_accels=strategy.num_accels,
-                                       objective=objective)
-    else:
-        def eval_fn(accel, prio):
-            return evaluate_params(params, accel, prio,
-                                   num_accels=strategy.num_accels,
-                                   objective=objective)
-    return eval_fn
-
-
-def scan_steps(strategy: SearchStrategy, state, eval_fn, group_size: int,
-               generations: int, evolve_last: bool):
+def scan_steps(strategy: SearchStrategy, state, params: FitnessParams,
+               objective: Optional[ObjectiveSpec], group_size: int,
+               generations: int, evolve_last: bool, *,
+               capture: Optional[bool] = None):
     """:func:`scan_strategy` as a generator: it yields once each
     generation has been issued and returns (``StopIteration.value``) what
     ``scan_strategy`` returns, so one thread can interleave the loops of
-    several row shards generation by generation (:func:`run_interleaved`)."""
+    several row shards generation by generation (:func:`run_interleaved`).
+
+    Each generation is one run of a cached ``graphs.GenerationStep``: a
+    replay of its CUDA graph (``capture`` True, the default on a card)
+    or its eager body (``capture`` False, the default on the CPU)."""
+    dev = params.lat.device
+    if capture is None:
+        capture = dev.type == "cuda"
+    elif capture and dev.type != "cuda":
+        raise ValueError(f"a CUDA graph needs a card; the rows are on {dev}")
     mo = getattr(strategy, "multi_objective", False)
-    state, accel, prio = strategy.ask(state)
-    R, dev = accel.shape[0], accel.device
-    bf = torch.full((R,), float("-inf"), dtype=torch.float32, device=dev)
-    ba = torch.zeros((R, group_size), dtype=torch.int32, device=dev)
-    bp = torch.zeros((R, group_size), dtype=torch.float32, device=dev)
-    hist = torch.empty((R, generations), dtype=torch.float32, device=dev)
-    for g in range(generations):
-        if g:
-            state, accel, prio = strategy.ask(state)
-        fit = eval_fn(accel, prio)
-        col = fit[..., 0] if mo else fit
-        i = torch.argmax(col, dim=-1, keepdim=True)          # (R, 1)
-        top = torch.gather(col, 1, i)[:, 0]
-        better = top > bf
-        bf = torch.where(better, top, bf)
-        ba = torch.where(better[:, None], take_rows(accel, i)[:, 0], ba)
-        bp = torch.where(better[:, None], take_rows(prio, i)[:, 0], bp)
-        hist[:, g] = bf
-        if g + 1 < generations or evolve_last or mo:
-            state = strategy.tell(state, fit)
-        yield
+    tells = [g + 1 < generations or evolve_last or mo
+             for g in range(generations)]
+    step = graphs.checkout(strategy, params, state, objective, group_size)
+    try:
+        step.load(state, params)
+        if capture:
+            step.prepare(tells, state, params)
+        hist = torch.empty((step.key.rows, generations), dtype=torch.float32,
+                           device=dev)
+        bf = step.bf
+        for g in range(generations):
+            step.run(tells[g], capture)
+            hist[:, g] = bf
+            yield
+        bf, ba, bp, state = step.unload(graphs.state_gens(state))
+    finally:
+        graphs.checkin(step)
     return bf, ba, bp, hist, state
 
 
@@ -105,18 +99,22 @@ def run_interleaved(loops) -> list:
     return results
 
 
-def scan_strategy(strategy: SearchStrategy, state, eval_fn, group_size: int,
-                  generations: int, evolve_last: bool):
+def scan_strategy(strategy: SearchStrategy, state, params: FitnessParams,
+                  objective: Optional[ObjectiveSpec], group_size: int,
+                  generations: int, evolve_last: bool, *,
+                  capture: Optional[bool] = None):
     """Run ``generations`` ask -> eval -> tell steps over the state's R
-    rows on their device.
+    rows on their device, against the row-stacked tables ``params``
+    (``objective`` None: each row's own objective code).
 
     Returns ``(best_fit (R,), best_accel (R, G), best_prio (R, G),
     history (R, generations), state)``, all on the device.  For a
-    multi-objective strategy ``eval_fn`` returns an (R, P, M) matrix:
-    ``tell`` takes all of it and the anytime best tracks column 0.
+    multi-objective strategy the fitness is an (R, P, M) matrix: ``tell``
+    takes all of it and the anytime best tracks column 0.
     """
-    return run_interleaved([scan_steps(strategy, state, eval_fn, group_size,
-                                       generations, evolve_last)])[0]
+    return run_interleaved([scan_steps(strategy, state, params, objective,
+                                       group_size, generations, evolve_last,
+                                       capture=capture)])[0]
 
 
 def _run_loop(strategy: SearchStrategy, state, eval_fn, generations: int,
@@ -174,7 +172,8 @@ def run_strategy(strategy: SearchStrategy, fitness_fn: FitnessFn,
     """Run a registered strategy on one problem for ``budget`` samples.
 
     Device-resident strategies run the generation loop on ``device``
-    (``engine="scan"``, the default: nothing read back until the end) or
+    (``engine="scan"``, the default: nothing read back until the end; on
+    a card each generation one replay of its captured CUDA graph) or
     step it from the host (``engine="loop"``); both give the same result.
     Host-only strategies run their own loop (``engine`` None or
     ``"host"``), their fitness batches on the fitness' device.
@@ -210,11 +209,23 @@ def run_strategy(strategy: SearchStrategy, fitness_fn: FitnessFn,
     if engine not in ("scan", "loop"):
         raise ValueError(f"unknown engine {engine!r}; expected 'scan' or "
                          "'loop'")
+    return _search(strategy, fitness_fn, budget, seed, device, engine,
+                   init_population, keep_population)
+
+
+def _search(strategy: SearchStrategy, fitness_fn: FitnessFn, budget: int,
+            seed: int, device: torch.device, engine: str, init_population,
+            keep_population: bool,
+            capture: Optional[bool] = None) -> SearchResult:
+    """:func:`run_strategy`'s device-resident search, its arguments
+    checked.  ``capture`` is ``scan_steps``'s: False runs the generation
+    step eagerly on a card too (the uncaptured baseline of the captured
+    engine, which ``chip_smoke.py`` times)."""
     strategy = strategy.bind(fitness_fn.num_accels)
     generations, evolve_last = plan_generations(budget, strategy.ask_size)
     P, G = strategy.ask_size, fitness_fn.group_size
     params = FitnessParams(*(t[None] for t in fitness_fn.params))
-    eval_fn = row_eval_fn(strategy, params, fitness_fn.objective_spec)
+    objective = fitness_fn.objective_spec
     if init_population is not None:
         init_population = rows_hand_off(init_population, device)
 
@@ -223,13 +234,15 @@ def run_strategy(strategy: SearchStrategy, fitness_fn: FitnessFn,
                           init_population=init_population)
     if engine == "scan":
         bf, ba, bp, hist, state = scan_strategy(
-            strategy, state, eval_fn, G, generations, evolve_last)
-        best_fitness = float(bf[0].cpu())
-        best_accel, best_prio = ba[0].cpu().numpy(), bp[0].cpu().numpy()
-        history = hist[0].cpu().numpy().astype(np.float64)
+            strategy, state, params, objective, G, generations, evolve_last,
+            capture=capture)
+        bf, ba, bp, hist = to_host(bf, ba, bp, hist)
+        best_fitness, best_accel, best_prio = float(bf[0]), ba[0], bp[0]
+        history = hist[0].astype(np.float64)
     else:
         best_fitness, best_accel, best_prio, history, state = _run_loop(
-            strategy, state, eval_fn, generations, evolve_last)
+            strategy, state, row_eval_fn(strategy, params, objective),
+            generations, evolve_last)
     wall = time.perf_counter() - t0
 
     final = None

@@ -1,0 +1,391 @@
+"""One generation of the shared ask/tell loop as a CUDA graph: the card's
+counterpart of the reference's ``lax.scan`` under ``jit``.
+
+The reference runs every device-resident search as one compiled program
+(``repro.core.strategies.driver``: the whole loop one ``lax.scan`` under
+``jax.jit``, one compiled call per search).  The port captures ONE
+generation -- ask -> evaluate -> fold best -> tell -- once per shape as a
+CUDA graph and replays it each generation, so the host issues one graph
+launch a generation instead of every operation of it:
+
+* :class:`GenerationStep` is the static-buffer step.  It reads the carry
+  (the strategy state's tensors, which hold the current population, and
+  the best-so-far ``bf`` / ``ba`` / ``bp``) and the fitness tables from
+  fixed tensors and writes the next carry back into them with ``copy_``.
+  The strategies stay functional: what ``tell`` returns is copied into
+  the static state.  The fold and the tell are those of
+  ``driver.scan_steps``.  A search loads its tables, initial state and
+  generator states into the step, runs it once a generation, and takes
+  copies of the carry out after the last.
+* On a card the step is captured before its first replay: a warm
+  generation runs eagerly on the loaded state (the makespan library is
+  built and loaded, the operator CDF copied to the card once, the
+  allocator's first blocks made), its kernel launches counted in
+  ``makespan.LAUNCHES`` like any other; the state is loaded again and
+  the generation captured on a side stream
+  (``capture_error_mode="thread_local"``: the stream's and the fleet's
+  other threads may use the card meanwhile).  A generation that does not
+  tell (the last, when the budget is spent) has a graph of its own in
+  the same memory pool: both graphs write only into the static carry, so
+  either may run after the other.  On the CPU, and on a card through
+  ``driver._search(capture=False)``, the same step runs eagerly: the
+  plain version.  Nothing falls back: a capture that fails raises.
+* A graph reads every tensor it was captured with by its address, so
+  each must live as long as the step: the step owns its carry, tables
+  and generators, and a constant the body takes from a cache (MAGMA's
+  operator CDF, ``magma._operator_cdf``) comes from one that never
+  evicts.
+* Each row draws from its own ``torch.Generator``.  A step owns R
+  generators, registered to its graphs; a search copies its rows'
+  generator states into them before its first generation and back after
+  its last, so a graph captured under one search's seeds serves any
+  other's.  Under capture a random kernel reads its seed and base offset
+  from device memory that each replay first fills from the generator's
+  state (two small fills a row), and the replay advances the generator
+  by the sum of the increments the captured calls made: the same
+  increments the eager calls make, so a replay draws bitwise what the
+  eager generation draws.
+* Steps are cached by :class:`StepKey`: the strategy (by value: equal
+  configurations share a step), R, P, G, A, the objective, whether it
+  is multi-objective, the device and the tables' and state's shapes.
+  ``generations`` is not in the key: one graph replays any number of
+  times, and ``scan_steps`` still yields after each generation, so
+  ``run_interleaved`` interleaves several cards' shards and the stream
+  and fleet issue per generation as before.  A loop checks a step out
+  and returns it once its last generation is issued, so two loops of one
+  key live at once (two shards on one card) get a step each.  The cache
+  holds what a process's shapes need and no more: a stream warms one
+  step a (compatibility key, bucket), four buckets for ``batch_rows=8``,
+  each with at most two graphs.  :func:`clear` drops it.
+* A capture is the port's compile event: it is reported as
+  ``"cuda graph <key label>"`` through
+  ``repro_torch.kernels._build.notify_compile``, which
+  ``RecompileGuard`` counts.  The makespan kernel's launches inside a
+  capture go to the graph's own count (``makespan.counted_into``), which
+  each replay adds to ``makespan.LAUNCHES``: one launch a generation, as
+  eagerly.  :func:`totals` counts the captures and the warm generations'
+  launches, so a check can hold ``makespan.LAUNCHES`` to its
+  generations plus one warm generation a capture.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.encoding import take_rows
+from repro_torch.core.fitness import (FitnessParams, ObjectiveSpec,
+                                      evaluate_objectives, evaluate_params)
+from repro_torch.kernels import _build
+from repro_torch.kernels import makespan as _makespan
+
+__all__ = ["StepKey", "GenerationStep", "row_eval_fn", "step_key",
+           "checkout", "checkin", "steps_info", "totals", "clear"]
+
+
+def row_eval_fn(strategy, params: FitnessParams,
+                objective: Optional[ObjectiveSpec]):
+    """(R, P, G) genomes -> (R, P) fitness, or the (R, P, M) objective
+    matrix for a multi-objective strategy, over row-stacked ``params``.
+    ``objective`` None selects each row's column by its objective code."""
+    if getattr(strategy, "multi_objective", False):
+        def eval_fn(accel, prio):
+            return evaluate_objectives(params, accel, prio,
+                                       num_accels=strategy.num_accels,
+                                       objective=objective)
+    else:
+        def eval_fn(accel, prio):
+            return evaluate_params(params, accel, prio,
+                                   num_accels=strategy.num_accels,
+                                   objective=objective)
+    return eval_fn
+
+
+def _is_gens(value) -> bool:
+    return (isinstance(value, tuple) and len(value) > 0
+            and all(isinstance(g, torch.Generator) for g in value))
+
+
+def state_tensors(state) -> List[torch.Tensor]:
+    """The tensors of a strategy state (a NamedTuple of tensors and one
+    tuple of row generators), in field order."""
+    if not (isinstance(state, tuple) and hasattr(state, "_fields")):
+        raise TypeError(f"a strategy state must be a NamedTuple; got "
+                        f"{type(state).__name__}")
+    out = []
+    for name, value in zip(state._fields, state):
+        if isinstance(value, torch.Tensor):
+            out.append(value)
+        elif not _is_gens(value):
+            raise TypeError(
+                f"{type(state).__name__}.{name} is a "
+                f"{type(value).__name__}: the generation step carries "
+                "tensors and the row generators only")
+    return out
+
+
+def state_gens(state) -> Tuple[torch.Generator, ...]:
+    """The row generators a strategy state carries."""
+    found = [value for value in state if _is_gens(value)]
+    if len(found) != 1:
+        raise TypeError(f"{type(state).__name__} must carry one tuple of "
+                        f"row generators; found {len(found)}")
+    return found[0]
+
+
+def with_tensors(state, tensors, gens):
+    """``state`` with its tensors replaced, in order, by ``tensors`` and
+    its generators by ``gens``."""
+    it = iter(tensors)
+    return type(state)(*(tuple(gens) if _is_gens(v) else next(it)
+                         for v in state))
+
+
+class StepKey(NamedTuple):
+    """What a captured generation is specialised on."""
+    strategy: object                   # bound; a frozen dataclass
+    rows: int                          # R
+    ask_size: int                      # P
+    group_size: int                    # G
+    num_accels: int                    # A
+    objective: Optional[ObjectiveSpec]  # None: each row's own code
+    multi_objective: bool
+    device: str
+    tensors: Tuple                     # (shape, dtype) of tables + state
+
+    def label(self) -> str:
+        obj = "per-row" if self.objective is None else self.objective.token
+        return (f"{self.strategy.name} R={self.rows} P={self.ask_size} "
+                f"G={self.group_size} A={self.num_accels} {obj} "
+                f"{self.device}")
+
+
+def step_key(strategy, params: FitnessParams, state,
+             objective: Optional[ObjectiveSpec], group_size: int
+             ) -> StepKey:
+    tensors = list(params) + state_tensors(state)
+    return StepKey(
+        strategy=strategy, rows=int(params.lat.shape[0]),
+        ask_size=strategy.ask_size, group_size=group_size,
+        num_accels=strategy.num_accels, objective=objective,
+        multi_objective=bool(getattr(strategy, "multi_objective", False)),
+        device=str(params.lat.device),
+        tensors=tuple((tuple(t.shape), t.dtype) for t in tensors))
+
+
+class GenerationStep:
+    """The static-buffer generation step of one :class:`StepKey` (see the
+    module docstring), with its CUDA graphs once captured."""
+
+    def __init__(self, key: StepKey, strategy, params: FitnessParams,
+                 state, objective: Optional[ObjectiveSpec]):
+        dev = params.lat.device
+        R, G = key.rows, key.group_size
+        self.key, self.strategy, self.device = key, strategy, dev
+        self.multi_objective = key.multi_objective
+        self.params = FitnessParams(*(torch.empty_like(x) for x in params))
+        self.gens = tuple(torch.Generator(device=dev) for _ in range(R))
+        self.state = with_tensors(
+            state, [torch.empty_like(t) for t in state_tensors(state)],
+            self.gens)
+        self.bf = torch.empty((R,), dtype=torch.float32, device=dev)
+        self.ba = torch.empty((R, G), dtype=torch.int32, device=dev)
+        self.bp = torch.empty((R, G), dtype=torch.float32, device=dev)
+        self.carry = state_tensors(self.state) + [self.bf, self.ba, self.bp]
+        self._storages = {t.untyped_storage().data_ptr() for t in self.carry}
+        self.eval_fn = row_eval_fn(strategy, self.params, objective)
+        # tell -> (graph, the kernel launches captured into it)
+        self.graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph,
+                                      Dict[str, int]]] = {}
+        self.pool = None
+        self.captures: List[dict] = []
+        self.busy = False                  # @locked:_LOCK
+
+    # lint: dispatch
+    def load(self, state, params: FitnessParams) -> None:
+        """A search's tables, initial state and generator states in; the
+        best-so-far reset."""
+        for dst, src in zip(self.params, params):
+            dst.copy_(src)
+        for dst, src in zip(state_tensors(self.state), state_tensors(state)):
+            dst.copy_(src)
+        self.bf.fill_(float("-inf"))
+        self.ba.zero_()
+        self.bp.zero_()
+        for mine, theirs in zip(self.gens, state_gens(state)):
+            mine.set_state(theirs.get_state())
+
+    # lint: dispatch
+    def body(self, tell: bool) -> None:
+        """One generation on the static carry, the next carry copied in."""
+        self._store(*self.generation(self.state, self.bf, self.ba, self.bp,
+                                     tell))
+
+    # lint: dispatch
+    def generation(self, state, bf, ba, bp, tell: bool):
+        """ask -> evaluate -> fold best -> tell (when ``tell``) over a
+        carry: the next ``(state, [bf, ba, bp])``."""
+        state, accel, prio = self.strategy.ask(state)
+        fit = self.eval_fn(accel, prio)
+        col = fit[..., 0] if self.multi_objective else fit
+        i = torch.argmax(col, dim=-1, keepdim=True)          # (R, 1)
+        top = torch.gather(col, 1, i)[:, 0]
+        better = top > bf
+        bf = torch.where(better, top, bf)
+        ba = torch.where(better[:, None], take_rows(accel, i)[:, 0], ba)
+        bp = torch.where(better[:, None], take_rows(prio, i)[:, 0], bp)
+        if tell:
+            state = self.strategy.tell(state, fit)
+        return state, [bf, ba, bp]
+
+    # lint: dispatch
+    def _store(self, state, best: List[torch.Tensor]) -> None:
+        if state_gens(state) is not self.gens:
+            raise RuntimeError(f"{type(state).__name__} came back with "
+                               "other generators than the step's")
+        values = state_tensors(state) + best
+        srcs = []
+        for dst, src in zip(self.carry, values):
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise TypeError(
+                    f"{self.key.strategy.name}: a state tensor came back "
+                    f"{tuple(src.shape)} {src.dtype}, the carry holds "
+                    f"{tuple(dst.shape)} {dst.dtype}")
+            # a view of the carry (DE's tell hands its trial back) is
+            # copied first: a copy before it may overwrite what it reads
+            # lint: disable=L002(a storage address is host metadata)
+            if src is not dst and \
+                    src.untyped_storage().data_ptr() in self._storages:
+                src = src.clone()
+            srcs.append(src)
+        for dst, src in zip(self.carry, srcs):
+            if src is not dst:
+                dst.copy_(src)
+
+    def prepare(self, tells, state, params: FitnessParams) -> None:
+        """Capture the graphs of ``tells`` the step lacks, the step
+        loaded with ``state`` / ``params`` (and so again after)."""
+        for tell in sorted(set(tells) - set(self.graphs)):
+            warm: Dict[str, int] = {}
+            with _makespan.counted_into(warm):      # the warm generation
+                self.body(tell)
+            _makespan.add_launches(warm)
+            self.load(state, params)
+            self._capture(tell, warm)
+
+    def _capture(self, tell: bool, warm: Dict[str, int]) -> None:
+        dev = self.device
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.gens:
+            graph.register_generator_state(gen)
+        launches: Dict[str, int] = {}
+        with _CAPTURE_LOCK, torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            reserved = torch.cuda.memory_reserved(dev)
+            t0 = time.perf_counter()
+            with torch.cuda.stream(side), _makespan.counted_into(launches):
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    self.body(tell)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass              # the body's error is the one to see
+                    raise
+                graph.capture_end()
+            seconds = time.perf_counter() - t0
+            pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            torch.cuda.current_stream(dev).wait_stream(side)
+        if self.pool is None:
+            self.pool = graph.pool()
+        self.graphs[tell] = (graph, launches)
+        label = self.key.label() + ("" if tell else " last")
+        self.captures.append({"label": label, "seconds": seconds,
+                              "pool_bytes": pool_bytes,
+                              "launches": dict(launches),
+                              "warm_launches": dict(warm)})
+        with _LOCK:
+            _TOTALS["captures"] += 1
+            _TOTALS["warm_launches"] += warm.get("makespan", 0)
+        _build.notify_compile("cuda graph " + label, seconds)
+
+    # lint: dispatch
+    def run(self, tell: bool, capture: bool) -> None:
+        """One generation: a replay of its graph, or the eager body."""
+        if capture:
+            graph, launches = self.graphs[tell]
+            graph.replay()
+            _makespan.add_launches(launches)
+        else:
+            self.body(tell)
+
+    # lint: dispatch
+    def unload(self, gens):
+        """Copies of the carry out: ``(bf, ba, bp, state)``, the state
+        carrying ``gens``, which are set to where the step's stand."""
+        for theirs, mine in zip(gens, self.gens):
+            theirs.set_state(mine.get_state())
+        *st, bf, ba, bp = [t.clone() for t in self.carry]
+        return bf, ba, bp, with_tensors(self.state, st, gens)
+
+
+_LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.Lock()
+_STEPS: Dict[StepKey, List[GenerationStep]] = {}        # @locked:_LOCK
+_TOTALS = {"captures": 0, "warm_launches": 0}           # @locked:_LOCK
+
+
+def checkout(strategy, params: FitnessParams, state,
+             objective: Optional[ObjectiveSpec],
+             group_size: int) -> GenerationStep:
+    """A step of this search's key that no live loop holds, made if
+    there is none; give it back with :func:`checkin`."""
+    key = step_key(strategy, params, state, objective, group_size)
+    with _LOCK:
+        for step in _STEPS.get(key, ()):
+            if not step.busy:
+                step.busy = True
+                return step
+    step = GenerationStep(key, strategy, params, state, objective)
+    with _LOCK:
+        step.busy = True
+        _STEPS.setdefault(key, []).append(step)
+    return step
+
+
+def checkin(step: GenerationStep) -> None:
+    with _LOCK:
+        step.busy = False
+
+
+def steps_info() -> List[dict]:
+    """One record a cached step: its key's label, its graphs and their
+    captures (seconds, pool bytes, launches captured)."""
+    with _LOCK:
+        steps = [s for group in _STEPS.values() for s in group]
+    return [{"label": s.key.label(), "graphs": len(s.graphs),
+             "captures": list(s.captures)} for s in steps]
+
+
+def totals() -> Dict[str, int]:
+    """Over the process's life: the graphs captured (``"captures"``)
+    and the makespan launches of the warm generation before each
+    (``"warm_launches"``), which ``makespan.LAUNCHES`` counts too."""
+    with _LOCK:
+        return dict(_TOTALS)
+
+
+def clear() -> None:
+    """Drop every cached step no loop holds (their graphs and pools)."""
+    with _LOCK:
+        for key in list(_STEPS):
+            kept = [s for s in _STEPS[key] if s.busy]
+            if kept:
+                _STEPS[key] = kept
+            else:
+                del _STEPS[key]

@@ -13,7 +13,8 @@ axis for the comparison figures.  Any **device-resident**
      the shared generation loop (``strategies.scan_strategy``) once for
      all its rows: one body, and one makespan-kernel launch, per
      generation and chunk, where R sequential searches would issue them R
-     times.  Each row keeps its own generator, seeded with its seed, and
+     times; on a card the body is one replay of a CUDA graph captured
+     for the chunk's shape (``strategies.graphs``).  Each row keeps its own generator, seeded with its seed, and
      draws its slice of every random tensor from it;
   2. with several devices each chunk's rows are split into contiguous
      shards, one a device (the rows ``shard_map`` would give it in the
@@ -73,8 +74,7 @@ from repro_torch.core.magma import BatchSearchResult, MagmaConfig
 from repro_torch.core.strategies import (MagmaStrategy, SearchStrategy,
                                          WarmStart, available, get_strategy,
                                          plan_generations)
-from repro_torch.core.strategies.driver import (row_eval_fn,
-                                                run_interleaved, scan_steps)
+from repro_torch.core.strategies.driver import run_interleaved, scan_steps
 from repro_torch.lint.runtime import transfer_sanitizer
 from repro_torch.obs import NULL_TRACER, as_obs_config, get_tracer
 
@@ -183,11 +183,10 @@ def _row_steps(seeds: Sequence[int], params: FitnessParams,
     ``warm`` is a per-row ``WarmStart`` (leading R, on the device)
     seeding each row's initial population in ``init``; neither option
     changes the search a row runs."""
-    eval_fn = row_eval_fn(strategy, params, objective)
     state = strategy.init(row_generators(seeds, device), params,
                           init_population=warm)
-    out = yield from scan_steps(strategy, state, eval_fn, group_size,
-                                generations, evolve_last)
+    out = yield from scan_steps(strategy, state, params, objective,
+                                group_size, generations, evolve_last)
     if keep_population:
         pop = strategy.population(out[4])
         return out[:4] + (pop.accel, pop.prio)

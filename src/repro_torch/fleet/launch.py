@@ -78,7 +78,9 @@ class FleetConfig:
     recompile_guard     arm a process-lifetime RecompileGuard in every
                         worker; ``mark_warm()`` sets the boundary and
                         ``worker_stats()`` reports
-                        compiles / recompiles_post_warmup
+                        compiles / recompiles_post_warmup (kernel
+                        library builds and generation-step captures;
+                        compile_names / post_warmup name them)
     device              "cuda" (cards a worker, round-robin) or "cpu"
     """
     num_workers: int = 2
@@ -312,15 +314,17 @@ class Fleet:
         self.last_metrics = router.last_metrics
         return results
 
-    def warmup(self, requests: Sequence) -> None:
-        """Warm every worker over a trace: each worker runs its service's
-        ``warmup`` (every admission bucket of every signature), so a
-        following ``mark_warm()`` boundary is airtight — nothing is left
-        for the measured runs to load or allocate first."""
-        from repro_torch.fleet.worker import encode_request
+    def warmup(self, requests: Sequence, prepared: Sequence = ()) -> None:
+        """Warm every worker over a trace (and/or prepared scenarios):
+        each worker runs its service's ``warmup`` (every admission bucket
+        of every signature), so a following ``mark_warm()`` boundary is
+        airtight — nothing is left for the measured runs to load,
+        capture or allocate first."""
+        from repro_torch.fleet.worker import encode_prepared, encode_request
         for w in self.workers:
             w.send({"cmd": "warmup",
-                    "requests": [encode_request(r) for r in requests]})
+                    "requests": [encode_request(r) for r in requests],
+                    "prepared": [encode_prepared(p) for p in prepared]})
         self._await(self.workers, "warmed", self.cfg.ready_timeout_s,
                     "warmup")
 
@@ -336,9 +340,11 @@ class Fleet:
     def worker_stats(self) -> Dict[str, Dict]:
         """Raw lifetime worker rollups (a 'stats' round trip to every
         worker; unlike the router's per-run deltas these are the
-        process-lifetime counters, including ``makespan_launches`` /
-        ``dispatched_generations`` and, with the guard armed,
-        ``compiles`` / ``recompiles_post_warmup``)."""
+        process-lifetime counters, including ``makespan_launches``, which
+        equals ``dispatched_generations`` plus ``warm_launches`` (one a
+        ``graph_captures``), and, with the guard armed, ``compiles`` /
+        ``compile_names`` / ``recompiles_post_warmup`` /
+        ``post_warmup``)."""
         for w in self.workers:
             w.send({"cmd": "stats"})
         got = self._await(self.workers, "stats", 60.0, "stats")

@@ -282,12 +282,15 @@ class _Worker:
                "wall_s": wall})
 
     def handle_warmup(self, msg: Dict) -> None:
-        """The service's own ``warmup`` over a decoded trace: every
-        (compatibility key, bucket) shape greedy admission could hit runs
-        once, so the kernel library and the allocator's blocks are in
-        place before the measured runs."""
+        """The service's own ``warmup`` over a decoded trace and prepared
+        scenarios: every (compatibility key, bucket) shape greedy
+        admission could hit runs once, so the kernel library, the
+        generation steps' graphs and the allocator's blocks are in place
+        before the measured runs."""
         self.svc.warmup([decode_request(d)
-                         for d in msg.get("requests", ())])
+                         for d in msg.get("requests", ())],
+                        prepared=[decode_prepared(d)
+                                  for d in msg.get("prepared", ())])
         _emit({"ok": "warmed"})
 
     def warm_boundary(self) -> None:
@@ -297,10 +300,13 @@ class _Worker:
             self.guard.warmup()
 
     def stats(self) -> Dict:
+        from repro_torch.core.strategies import graphs
         from repro_torch.kernels.makespan import LAUNCHES
         memo = (self.memo.stats.summary() if self.memo is not None else {})
-        # this process's makespan kernel launches: the parent's counter
+        # this process's makespan kernel launches (the warm generation's
+        # before each graph capture among them): the parent's counter
         # cannot see a worker's launches
+        totals = graphs.totals()
         d = {"worker": self.worker_id, "chunks": self.chunks,
              "scenarios": self.scenarios, "run_wall_s": self.run_wall_s,
              "peak_depth": self.peak_depth,
@@ -308,11 +314,16 @@ class _Worker:
              "refinements": self.refinements, "memo": memo,
              "makespan_launches": LAUNCHES["makespan"],
              "dispatched_generations": self.svc.dispatched_generations,
+             "graph_captures": totals["captures"],
+             "warm_launches": totals["warm_launches"],
              "shards": [str(d) for d in self.svc.devices],
              "group": self.group}
         if self.guard is not None:
+            # library builds and generation-step captures, by name
             d["compiles"] = len(self.guard.compiles)
+            d["compile_names"] = list(self.guard.compiles)
             d["recompiles_post_warmup"] = len(self.guard.post_warmup)
+            d["post_warmup"] = self.guard.post_warmup
         return d
 
 

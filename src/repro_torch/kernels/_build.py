@@ -7,9 +7,12 @@ checkout, and is keyed on a hash of the source and the flags, so an edited
 source is rebuilt and never loaded stale.  ``nvcc -Xptxas -v`` output
 (registers, shared memory, spills) is kept beside the library.
 
-A load is the port's compile event: :func:`add_load_listener` registers
-``fn(name, build_seconds)``, called once for each library a process loads
-(``repro_torch.lint.runtime.RecompileGuard`` counts them).
+A load is the port's compile event, as is a generation step's capture as
+a CUDA graph (``repro_torch.core.strategies.graphs``, reported through
+:func:`notify_compile`): :func:`add_compile_listener` registers
+``fn(name, seconds)``, called once for each library a process loads and
+each graph it captures (``repro_torch.lint.runtime.RecompileGuard``
+counts them).
 """
 from __future__ import annotations
 
@@ -45,17 +48,26 @@ _name_locks: Dict[str, threading.Lock] = {}   # @locked:_lock
 _listeners: List[Callable[[str, float], None]] = []   # @locked:_lock
 
 
-def add_load_listener(fn: Callable[[str, float], None]) -> None:
-    """Call ``fn(name, build_seconds)`` after each library this process
-    loads from here on (once a library: later ``load`` calls reuse it)."""
+def add_compile_listener(fn: Callable[[str, float], None]) -> None:
+    """Call ``fn(name, seconds)`` after each compile event of this process
+    from here on: a library loaded (once a library: later ``load`` calls
+    reuse it; ``seconds`` its build) or a graph captured."""
     with _lock:
         _listeners.append(fn)
 
 
-def remove_load_listener(fn: Callable[[str, float], None]) -> None:
+def remove_compile_listener(fn: Callable[[str, float], None]) -> None:
     with _lock:
         if fn in _listeners:
             _listeners.remove(fn)
+
+
+def notify_compile(name: str, seconds: float) -> None:
+    """Tell the compile listeners that ``name`` was compiled."""
+    with _lock:
+        listeners = list(_listeners)
+    for fn in listeners:
+        fn(name, seconds)
 
 
 def _nvcc() -> str:
@@ -134,7 +146,5 @@ def load(name: str) -> BuiltLibrary:
         built = _compile(name)
         with _lock:
             _loaded[name] = built
-            listeners = list(_listeners)
-    for fn in listeners:
-        fn(name, built.build_seconds)
+    notify_compile(name, built.build_seconds)
     return built

@@ -6,10 +6,12 @@ Two invariants the static pass cannot see end to end:
   after ``warmup()`` every dispatch reuses what is already built; in the
   port the things built at run time are the CUDA kernels' libraries
   (``repro_torch.kernels._build.load``: ``nvcc`` at first use, then a
-  ``dlopen``) and, should a path use ``torch.compile``, dynamo's graphs.
-  Either mid-run turns a milliseconds-scale dispatch into a seconds-scale
-  stall.  :class:`RecompileGuard` counts both and raises, naming them,
-  when any happen after ``warmup()``.
+  ``dlopen``), the generation step's CUDA graphs
+  (``repro_torch.core.strategies.graphs``: a warm generation and a
+  capture for each new shape) and, should a path use ``torch.compile``,
+  dynamo's graphs.  Any of them mid-run stalls a dispatch.
+  :class:`RecompileGuard` counts them all and raises, naming them, when
+  any happen after ``warmup()``.
 
 * **No hidden synchronisation on the hot path.**
   :func:`transfer_sanitizer` is the reference's scoped
@@ -78,9 +80,12 @@ class RecompileGuard:
             svc.run(trace)          # any compile past here raises
         # __exit__ re-checks; guard.post_warmup lists offenders
 
-    A compile event is a kernel library loaded by
-    ``repro_torch.kernels._build.load`` (recorded by its name, e.g.
-    ``"makespan"``) or a dynamo compile (``"torch.compile <id>"``).
+    A compile event is what ``repro_torch.kernels._build`` reports: a
+    kernel library it loaded (recorded by its name, e.g. ``"makespan"``)
+    or a generation step captured as a CUDA graph
+    (``"cuda graph <key>"``, e.g. ``"cuda graph magma R=1 P=100 G=100
+    A=8 throughput cuda:0"``) or a dynamo compile
+    (``"torch.compile <id>"``).
     ``warmup()`` marks the boundary: everything compiled before it was the
     deliberate warmup, anything after is a violation.  Without a
     ``warmup()`` call the guard only observes and never raises.
@@ -114,7 +119,7 @@ class RecompileGuard:
             except Exception:       # never raise into the compiler
                 pass
 
-    def _on_load(self, name: str, build_seconds: float) -> None:
+    def _on_compile(self, name: str, seconds: float) -> None:
         self._record_compile(name)
 
     def _on_dynamo(self, args) -> None:
@@ -122,7 +127,7 @@ class RecompileGuard:
 
     def __enter__(self) -> "RecompileGuard":
         from repro_torch.kernels import _build
-        _build.add_load_listener(self._on_load)
+        _build.add_compile_listener(self._on_compile)
         _dynamo_callbacks().callback_handler.register_end_callback(
             self._on_dynamo)
         self._entered = True
@@ -131,7 +136,7 @@ class RecompileGuard:
     def __exit__(self, exc_type, exc, tb) -> bool:
         if self._entered:
             from repro_torch.kernels import _build
-            _build.remove_load_listener(self._on_load)
+            _build.remove_compile_listener(self._on_compile)
             _dynamo_callbacks().callback_handler.remove_end_callback(
                 self._on_dynamo)
             self._entered = False
@@ -173,7 +178,8 @@ class RecompileGuard:
                  if b.startswith(_DYNAMO) else b for b in bad}))
             raise RecompileError(
                 f"{len(bad)} compilation(s) after warmup{label}: {names} — "
-                "a kernel library loaded for the first time, or a "
+                "a kernel library loaded for the first time, a generation "
+                "step captured for a shape the warmup did not run, or a "
                 "torch.compile'd function retraced (a new shape or a "
                 "changed static argument)")
 

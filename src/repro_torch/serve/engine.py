@@ -287,11 +287,8 @@ class MultiTenantEngine:
         if strategy.device_resident:
             slo = self.slo_for(jobs)
             if self.fleet is not None:
-                from repro_torch.stream import PreparedScenario
-                stream_res = self.fleet.run(prepared=[PreparedScenario(
-                    fit=fit, seed=self.seed, budget=self.budget,
-                    strategy=strategy, priority=slo.priority,
-                    deadline_s=slo.deadline_s)])[0]
+                stream_res = self.fleet.run(prepared=[
+                    self._prepared(jobs, fit, strategy)])[0]
             else:
                 stream_res = self.stream_service().schedule_prepared(
                     fit, seed=self.seed, budget=self.budget,
@@ -318,6 +315,35 @@ class MultiTenantEngine:
         if execute:
             out["outputs"] = self.execute(jobs, queues, prompts)
         return out
+
+    def _prepared(self, jobs: Sequence[ServeJob], fit: FitnessFn,
+                  strategy):
+        """The prepared scenario :meth:`schedule` sends a fleet."""
+        from repro_torch.stream import PreparedScenario
+        slo = self.slo_for(jobs)
+        return PreparedScenario(fit=fit, seed=self.seed, budget=self.budget,
+                                strategy=strategy, priority=slo.priority,
+                                deadline_s=slo.deadline_s)
+
+    def warmup(self, jobs: Sequence[ServeJob],
+               method: Optional[str] = None) -> None:
+        """Warm the search path for job groups of ``jobs``' shape: the
+        stream service's ``warmup`` (with ``fleet=``, every worker's)
+        runs each batch shape such a group can hit once, so a later
+        :meth:`schedule` of that shape builds and captures nothing (on a
+        card a shape's first batch captures its generation step as a
+        CUDA graph).  Host-only methods have nothing to warm."""
+        from repro_torch.core.strategies import get_strategy
+        strategy = get_strategy(method or self.method)
+        if not strategy.device_resident:
+            return
+        fit = FitnessFn(self.analyze(jobs), bw_sys=self.system_bw,
+                        device=self.device)
+        prepared = [self._prepared(jobs, fit, strategy)]
+        if self.fleet is not None:
+            self.fleet.warmup((), prepared=prepared)
+        else:
+            self.stream_service().warmup(prepared=prepared)
 
     def schedule_front(self, jobs: Sequence[ServeJob],
                        objectives: Sequence[str] = ("latency", "energy",

@@ -20,11 +20,13 @@ A port of ``repro.stream.service``.  Stages:
                   row plus a silent memo-bound refinement
   device          up to ``max_inflight`` batches issued but not yet
                   routed.  The host issues a batch's whole generation
-                  loop before the dispatch call returns (the loop is
-                  Python), so a batch's ``dispatch_s`` is stamped before
-                  its first launch and a CUDA event recorded after its
-                  last one marks its end; the next batch's issue overlaps
-                  only what the card still has queued
+                  loop before the dispatch call returns (one CUDA graph
+                  replay a generation on a card, the step captured for
+                  the batch's shape at warmup), so a batch's
+                  ``dispatch_s`` is stamped before its first launch and a
+                  CUDA event recorded after its last one marks its end;
+                  the next batch's issue overlaps only what the card
+                  still has queued
   router          results come off the device in dispatch order (wait on
                   the batch's event, then one read-back) and are routed
                   back to their requests with full timing stamps;
@@ -861,12 +863,14 @@ class StreamingScheduler:
         workload can hit once and discard the results (and pre-fill the
         analyzer profile caches).
 
-        Nothing is compiled per shape here, but the first batch of a
-        process still pays one-time costs: the makespan kernel's library
-        (built by ``nvcc`` at first use and loaded), the allocator's
-        blocks for each shape, the cached constants on the device.
-        Greedy admission makes batch sizes timing-dependent, so warming
-        every bucket keeps those costs out of the timed run.
+        On a card each shape's first batch captures its generation step
+        as a CUDA graph (``repro_torch.core.strategies.graphs``: a warm
+        generation, then the capture), and the first batch of a process
+        also builds and loads the makespan kernel's library and copies
+        the cached constants to the device.  Greedy admission makes batch
+        sizes timing-dependent, so warming every bucket keeps all of it
+        out of the timed run: after ``warmup`` a run captures nothing
+        (``RecompileGuard`` holds a fleet worker to that).
         """
         from repro_torch.costmodel import get_setting
         with self._run_lock:

@@ -721,3 +721,50 @@ def test_engine_fleet_schedule_bitwise_in_process(fleet_runs):
     assert a["queues"] == b["queues"] and a["makespan_s"] == b["makespan_s"]
     assert via_fleet._stream is None           # no in-process stream built
     local.close()
+
+
+def test_engine_warmup_runs_each_bucket_of_its_job_group(fleet_runs):
+    """``MultiTenantEngine.warmup``: through a fleet every worker
+    dispatches each admission bucket of the job group's shape once, cold
+    and warm-input (the workers hold a memo), recording nothing; in
+    process the engine's own stream does the same, cold only.  On a card
+    each of those first batches captures its generation step, so a
+    schedule after the warmup captures nothing."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.strategies import plan_generations
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve import engine
+
+    def make(**kw):
+        tenants = [engine.Tenant(a, get_smoke_config(a),
+                                 get_model(get_smoke_config(a),
+                                           device="meta"))
+                   for a in ("falcon-mamba-7b", "zamba2-1.2b")]
+        return engine.MultiTenantEngine(tenants, budget=BUDGET, seed=3,
+                                        decode_window=4, device="cpu", **kw)
+
+    reqs = [("falcon-mamba-7b", 10, 3), ("zamba2-1.2b", 9, 4)]
+    def buckets(batch_rows):                     # rows 1, 2, 4, ...
+        return 1 + int(np.log2(batch_rows))
+
+    gens = plan_generations(BUDGET, get_strategy("magma").ask_size)[0]
+    fleet = fleet_runs["fleet"]
+    records = len(ShardedMemoStore(fleet_runs["memo"]))
+    before = fleet.worker_stats()
+    via_fleet = make(fleet=fleet)
+    via_fleet.warmup(via_fleet.jobs_for_requests(reqs))
+    after = fleet.worker_stats()
+    for w in ("w0", "w1"):
+        assert (after[w]["dispatched_generations"]
+                - before[w]["dispatched_generations"]) == 2 * buckets(4) * gens
+        assert after[w]["scenarios"] == before[w]["scenarios"]
+    assert len(ShardedMemoStore(fleet_runs["memo"])) == records
+    assert via_fleet._stream is None
+    local = make()
+    local.warmup(local.jobs_for_requests(reqs))
+    svc = local.stream_service()
+    want = buckets(svc.stream.batch_rows) * gens
+    assert svc.dispatched_generations == want
+    local.warmup(local.jobs_for_requests(reqs), method="herald_like")
+    assert svc.dispatched_generations == want      # host-only: nothing
+    local.close()

@@ -1,8 +1,10 @@
 """The scheduling fleet on the card: a 2-worker CUDA fleet (both workers on
 the host's cards, round-robin; on a one-card host both share card 0)
 returns every row bitwise the standalone card search for its (scenario,
-seed), and each worker's reported makespan launches equal one per
-generation and batch it dispatched (its warmup's included).
+seed), each worker's reported makespan launches equal one per
+generation and batch it dispatched (its warmup's included) plus one per
+graph capture (the warm generation before it), and each worker built
+the kernel library once and captured exactly its warmup's shapes.
 
 Every test here is marked ``gpu`` and skips where no CUDA card is present
 (the card is looked for inside the ``card_fleet`` fixture).  The module imports
@@ -10,6 +12,8 @@ no JAX, so on the card's host these run with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_fleet_gpu.py
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -17,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.fitness import FitnessFn  # noqa: E402
 from repro_torch.core.strategies import get_strategy, run_strategy  # noqa: E402
+from repro_torch.costmodel import get_setting  # noqa: E402
 from repro_torch.fleet import FleetConfig, launch_fleet  # noqa: E402
 from repro_torch.stream import (TraceConfig, analyze_serial,  # noqa: E402
                                 generate_trace)
@@ -66,10 +71,31 @@ def test_fleet_rows_are_bitwise_standalone_card_searches(card_fleet):
 @pytest.mark.gpu
 def test_fleet_workers_report_one_launch_per_generation_and_batch(
         card_fleet):
-    _, results, _, stats = card_fleet
+    trace, results, _, stats = card_fleet
+    signatures = {(r.group_size, get_setting(r.setting).num_sub_accels)
+                  for r in trace}
     assert sorted(stats) == ["w0", "w1"]
     for s in stats.values():
-        assert s["makespan_launches"] == s["dispatched_generations"] > 0
-        # the kernel library loaded during the warmup, nothing after it
-        assert s["compiles"] == 1 and s["recompiles_post_warmup"] == 0
+        # one launch a generation and batch, and one in the warm
+        # generation before each capture of a generation step
+        assert s["dispatched_generations"] > 0
+        assert s["warm_launches"] == s["graph_captures"] > 0
+        assert s["makespan_launches"] == (s["dispatched_generations"]
+                                          + s["warm_launches"])
+        # the kernel library loaded once and the generation steps
+        # captured during the warmup, one a capture; nothing after it
+        names = s["compile_names"]
+        graph_names = [n for n in names if n.startswith("cuda graph ")]
+        assert [n for n in names if n not in graph_names] == ["makespan"]
+        assert len(graph_names) == s["graph_captures"]
+        assert len(set(graph_names)) == len(graph_names)
+        # ... and those are the warmup's shapes: each trace signature's
+        # (G, A) at every admission bucket (rows 1, 2, 4)
+        shapes = {tuple(int(v) for v in re.search(
+            r" R=(\d+) P=\d+ G=(\d+) A=(\d+) ", n).groups())
+            for n in graph_names}
+        assert shapes == {(r, g, a) for g, a in signatures
+                          for r in (1, 2, 4)}
+        assert s["compiles"] == len(names)
+        assert s["recompiles_post_warmup"] == 0 and s["post_warmup"] == []
     assert sum(s["scenarios"] for s in stats.values()) == len(results)

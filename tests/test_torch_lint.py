@@ -10,8 +10,9 @@
   draws, L002 host syncs in the dispatch region, L003 impure strategy
   state; each bad snippet trips its rule, each good one is silent.
 - Mutations of the port's own code: ``.item()`` in the driver's
-  ``scan_steps`` and a ``torch.rand`` without a generator in MAGMA's
-  ``ask`` are found.
+  ``scan_steps`` and in the generation step a CUDA graph captures
+  (``strategies/graphs.py``), and a ``torch.rand`` without a generator in
+  MAGMA's ``ask`` are found.
 - Self-hosting: ``src/repro_torch`` and the linter itself are
   strict-clean, and ``python -m repro_torch.lint src/repro_torch
   --strict`` exits 0.
@@ -280,6 +281,18 @@ def test_item_in_scan_steps_is_found():
     got = [f for f in lint_text(path, text) if f.line == line]
     assert {f.rule for f in got} == {"L002"}
     assert all("scan_steps" in f.message for f in got)
+
+
+def test_item_in_the_captured_generation_step_is_found():
+    """The generation a CUDA graph captures is in the dispatch region: a
+    host sync there would fail the capture on the card."""
+    path, text, line = _mutate("core/strategies/graphs.py",
+                               "fit = self.eval_fn(accel, prio)",
+                               "best = fit.max().item()")
+    assert lint_text(path, open(path).read()) == []
+    got = [f for f in lint_text(path, text) if f.line == line]
+    assert [f.rule for f in got] == ["L002"]
+    assert "generation" in got[0].message
 
 
 def test_global_draw_in_a_strategy_ask_is_found():
