@@ -205,7 +205,11 @@ Phases, in order; any failure raises and exits non-zero:
               profiler session) one more pipelined run of the trace is
               profiled: the card's own busy share (the union of its CUDA
               kernel intervals over the run's wall) beside the stream's
-              device_idle_frac, whose windows count host issue as busy
+              device_idle_frac, whose windows count host issue as busy;
+              then one more pipelined run profiled with the host's
+              activity: each batch's host-issued launches (the CUDA
+              runtime's calls inside its dispatch), at most 100 each,
+              beside its issue ms
  17. fleet    the scheduling fleet (repro_torch.fleet) right after phase
               16: phase 16's trace generator at 64 scenarios through 1-,
               2- and 4-worker fleets on the one card (each worker its own
@@ -258,16 +262,17 @@ Phases, in order; any failure raises and exits non-zero:
               right after phase 17, on the mapper problem (S4, Mix G=100,
               256 GB/s, P=100, 10K samples): every device-resident
               strategy (magma, random, stdga, de, pso, nsga2) at four
-              seeds, the first search of each capturing its generation
-              as a CUDA graph and the rest replaying it, each bitwise
+              seeds, the first search of each capturing its whole
+              generation loop as one CUDA graph and the rest replaying
+              it, each bitwise
               its engine="loop" search and at one makespan launch per
               generation (plus one in the warm generation before each
               capture, as everywhere in the script); a 4-row run_sweep of each bitwise its rows run
               alone; the mapper search's walls captured, uncaptured
               (the same step run eagerly through the driver's internal
               _search(capture=False)) and engine="loop", medians of
-              GRAPH_WALL_REPS; every capture's seconds and pool bytes
-              and the graphs held.  At the script's end (after every
+              GRAPH_WALL_REPS; every capture's generations, seconds,
+              graph nodes and pool bytes and the graphs held.  At the script's end (after every
               other profiler session) one captured MAGMA and one captured
               NSGA-II search under torch.profiler: the card's busy share,
               host-issued launches and device ops a generation, the
@@ -301,8 +306,8 @@ comparison, "compare", the memo phase, "memo", the launcher, "launch",
 phase 15's training and evaluation, "families", phase 16, "stream", and
 phase 17, "fleet", whose makespan count adds the launches every fleet
 worker reports to this process's, phase 18, "mesh", and phase 20,
-"graph") and read after it.  A search whose generation is a replayed
-CUDA graph counts, at each replay, the launches captured into the graph.
+"graph") and read after it.  A search whose loop is a replayed CUDA
+graph counts, at each replay, the launches captured into the graph.
 It prints a JSON line with one entry per kernel, the card's name and
 power limit, and last the line ``{"ok": true, "device": {...}}``.
 
@@ -3291,6 +3296,80 @@ def stream_card_busy(dev, budget=STREAM_BUDGET, trace_kw=None):
     return out
 
 
+def stream_batch_launches(dev, budget=STREAM_BUDGET, trace_kw=None):
+    """Each phase 16 batch's host-issued launches: phase 16's service and
+    trace, warmed up, then one pipelined run under torch.profiler with
+    the host's activity, each dispatch inside a ``record_function``
+    range; the CUDA runtime's launch calls (LAUNCH_APIS) inside a
+    batch's range are its launches, printed beside its host issue ms in
+    that run (the profiler's own cost included).  On the card every
+    batch must issue at most 100, whatever its generations.  Taken at the
+    script's end: a profiler session."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.stream import (StreamConfig, StreamingScheduler,
+                                    TraceConfig, generate_trace)
+
+    trace = generate_trace(TraceConfig(**(STREAM_TRACE if trace_kw is None
+                                          else trace_kw)))
+    svc = StreamingScheduler(budget=budget, device=dev,
+                             stream=StreamConfig(batch_rows=8,
+                                                 analysis_workers=2,
+                                                 max_inflight=2))
+    svc.warmup(trace)
+    dispatch = svc._dispatch
+
+    def ranged(key, members):
+        with record_function("stream.dispatch"):
+            return dispatch(key, members)
+
+    svc._dispatch = ranged
+    cuda = dev.type == "cuda"
+    svc.pool.reset()
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+        svc.run(trace)
+        if cuda:
+            torch.cuda.synchronize()
+    svc.close()
+    events = prof.events()
+    ranges = sorted((e for e in events if e.name == "stream.dispatch"
+                     and e.device_type != DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    calls = [e.time_range.start for e in events
+             if e.device_type != DeviceType.CUDA and e.name in LAUNCH_APIS]
+    batches = sorted(svc.last_batches, key=lambda b: b.dispatch_s)
+    check(len(ranges) == len(batches),
+          f"stream: {len(ranges)} profiled dispatches for {len(batches)} "
+          "batches")
+    rows = [{"rows": b.rows, "padded_rows": b.padded_rows,
+             "generations": plan_gens(b.compat_key),
+             "issue_ms": 1e3 * (b.issued_s - b.dispatch_s),
+             "host_launches": sum(r.time_range.start <= t <= r.time_range.end
+                                  for t in calls)}
+            for b, r in zip(batches, ranges)]
+    print("[stream] a pipelined run profiled with the host's activity: "
+          "each batch's rows / generations: host-issued launches, host "
+          "issue ms: " + ", ".join(
+              f"{r['rows']} / {r['generations']}: {r['host_launches']}, "
+              f"{r['issue_ms']:.2f}" for r in rows)
+          + ("" if calls else " (no CUDA runtime calls seen here: launches "
+             "not measured)"))
+    if cuda:
+        worst = max(r["host_launches"] for r in rows)
+        check(worst <= 100, f"stream: a batch issued {worst} host launches, "
+                            "want at most 100")
+    return rows
+
+
+def plan_gens(key):
+    """A stream batch's generations, from its compatibility key."""
+    from repro_torch.core.strategies import plan_generations
+    return plan_generations(key.budget,
+                            key.strategy.bind(key.num_accels).ask_size)[0]
+
+
 def stream_reps(dev, reps=STREAM_AB_REPS, budget=STREAM_BUDGET,
                 trace_kw=None):
     """Phase 16's serial (a fresh analyzer per scenario) and pipelined
@@ -3471,7 +3550,7 @@ def graph_phase(dev, mk, budget=10_000, group_size=100):
     walls).
 
     (a) Each device-resident strategy at GRAPH_SEEDS through run_strategy
-        (the first seed's search captures the generation, the others
+        (the first seed's search captures the loop, the others
         replay it under their own seeds), each bitwise its
         engine="loop" search (and its final population, where the
         strategy hands one off), then a run_sweep of the GRAPH_SEEDS rows
@@ -3481,7 +3560,8 @@ def graph_phase(dev, mk, budget=10_000, group_size=100):
     (b) The MAGMA search's walls: captured, uncaptured (the same step run
         eagerly, ``driver._search(capture=False)``) and engine="loop",
         GRAPH_WALL_REPS each in turns; their medians.
-    (c) Every capture's seconds and pool bytes, and the graphs held.
+    (c) Every capture's generations, seconds, graph nodes and pool
+        bytes, and the graphs held.
     ``graph_end`` profiles at the script's end.  Returns the phase's
     summary."""
     import torch
@@ -3579,7 +3659,9 @@ def graph_phase(dev, mk, budget=10_000, group_size=100):
     out["graphs"] = len(caps)
     out["pool_bytes"] = sum(c["pool_bytes"] for c in caps)
     for c in caps:
-        print(f"[graph] captured {c['label']}: {c['seconds'] * 1e3:.3f} ms, "
+        nodes = "not measured" if c["nodes"] is None else c["nodes"]
+        print(f"[graph] captured {c['label']}: {c['generations']} "
+              f"generations, {c['seconds'] * 1e3:.3f} ms, {nodes} nodes, "
               f"pool {c['pool_bytes'] / 2 ** 20:.3f} MiB, kernel launches "
               f"captured {c['launches']}, its warm generation's "
               f"{c['warm_launches']} ({card})")
@@ -4536,6 +4618,7 @@ def main():
     # -- 16, its end: the card's own busy share in a pipelined stream run -
     mark("16, its end")
     stream_out["card_busy"] = stream_card_busy(dev)
+    stream_out["batch_launches"] = stream_batch_launches(dev)
 
     # -- 20, its end: a captured MAGMA and NSGA-II search profiled -------
     mark("20, its end")

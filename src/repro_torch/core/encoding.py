@@ -108,13 +108,40 @@ def to_host(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
     copied once, instead of one synchronising copy per tensor."""
     if tensors[0].device.type == "cpu":
         return tuple(t.numpy().copy() for t in tensors)
-    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
-                      for t in tensors]).cpu().numpy()
+    return _unpack(_packed(tensors).cpu().numpy(), _layout(tensors))
+
+
+def to_host_async(*tensors: torch.Tensor):
+    """:func:`to_host` issued without waiting: on a card the packed bytes
+    are copied into pinned host memory on the current stream, and the
+    returned function gives the numpy arrays once the caller has waited
+    for that stream to pass the copy (an event recorded after it); on the
+    CPU the copies are made now."""
+    if tensors[0].device.type == "cpu":
+        out = to_host(*tensors)
+        return lambda: out
+    flat, layout = _packed(tensors), _layout(tensors)
+    host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    return lambda: _unpack(host.numpy(), layout)
+
+
+def _packed(tensors) -> torch.Tensor:
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors])
+
+
+def _layout(tensors):
+    """(numpy dtype, shape, bytes) of each tensor, in order."""
+    return [(torch.empty((), dtype=t.dtype).numpy().dtype, tuple(t.shape),
+             t.numel() * t.element_size()) for t in tensors]
+
+
+def _unpack(flat: np.ndarray, layout) -> Tuple[np.ndarray, ...]:
+    """The arrays of ``layout`` from their packed bytes ``flat``."""
     out, at = [], 0
-    for t in tensors:
-        n = t.numel() * t.element_size()
-        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
-        out.append(flat[at:at + n].view(dtype).reshape(tuple(t.shape)))
+    for dtype, shape, n in layout:
+        out.append(flat[at:at + n].view(dtype).reshape(shape))
         at += n
     return tuple(out)
 

@@ -115,6 +115,9 @@ class SearchStrategy:
     # an (R, P) scalar column; the driver evaluates via
     # ``evaluate_objectives`` and ranks the anytime best on column 0
     multi_objective = False
+    # generations a captured CUDA graph of the loop covers (None: the
+    # whole loop, one replay a search; ``graphs.plan_spans``)
+    graph_span = None
 
     @property
     def ask_size(self) -> int:

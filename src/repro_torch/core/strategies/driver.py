@@ -10,10 +10,11 @@ it.  The final generation tells only when the sample budget is not yet
 exhausted, as in ``repro.core.strategies.driver`` (multi-objective
 strategies always tell: their archive is the result).
 
-A generation is the static-buffer step of
-``repro_torch.core.strategies.graphs``: on a card it is captured once per
-shape as a CUDA graph and replayed each generation (the reference's one
-compiled ``lax.scan`` a search); on the CPU the same step runs eagerly.
+The loop runs on the static-buffer step of
+``repro_torch.core.strategies.graphs``: on a card the whole loop is
+captured once per shape as a CUDA graph and replayed, one launch a
+search (the reference's one compiled ``lax.scan``, one asynchronous
+call); on the CPU the same loop runs eagerly.
 
 :func:`run_strategy` is its one-row case, seeded from ``seed`` on the
 search's device; ``repro_torch.core.sweep`` runs it over (scenario x
@@ -50,33 +51,36 @@ def scan_steps(strategy: SearchStrategy, state, params: FitnessParams,
                objective: Optional[ObjectiveSpec], group_size: int,
                generations: int, evolve_last: bool, *,
                capture: Optional[bool] = None):
-    """:func:`scan_strategy` as a generator: it yields once each
-    generation has been issued and returns (``StopIteration.value``) what
-    ``scan_strategy`` returns, so one thread can interleave the loops of
-    several row shards generation by generation (:func:`run_interleaved`).
+    """:func:`scan_strategy` as a generator: it yields once each span of
+    generations has been issued and returns (``StopIteration.value``)
+    what ``scan_strategy`` returns, so one thread can interleave the
+    loops of several row shards (:func:`run_interleaved`).
 
-    Each generation is one run of a cached ``graphs.GenerationStep``: a
-    replay of its CUDA graph (``capture`` True, the default on a card)
-    or its eager body (``capture`` False, the default on the CPU)."""
+    The loop is one load of a cached ``graphs.GenerationStep``, one run
+    of each of its spans (``graphs.plan_spans``: one span of every
+    generation, or the strategy's ``graph_span`` generations each) and
+    one unload: a span is a replay of its CUDA
+    graph (``capture`` True, the default on a card) or its eager body
+    (``capture`` False, the default on the CPU)."""
     dev = params.lat.device
     if capture is None:
         capture = dev.type == "cuda"
     elif capture and dev.type != "cuda":
         raise ValueError(f"a CUDA graph needs a card; the rows are on {dev}")
     mo = getattr(strategy, "multi_objective", False)
-    tells = [g + 1 < generations or evolve_last or mo
-             for g in range(generations)]
+    spans = graphs.plan_spans(generations, evolve_last or mo,
+                              strategy.graph_span)
     step = graphs.checkout(strategy, params, state, objective, group_size)
     try:
         step.load(state, params)
         if capture:
-            step.prepare(tells, state, params)
+            step.prepare(spans, state, params)
         hist = torch.empty((step.key.rows, generations), dtype=torch.float32,
                            device=dev)
-        bf = step.bf
-        for g in range(generations):
-            step.run(tells[g], capture)
-            hist[:, g] = bf
+        g = 0
+        for sp in spans:
+            hist[:, g:g + sp[0]] = step.run(sp, capture)
+            g += sp[0]
             yield
         bf, ba, bp, state = step.unload(graphs.state_gens(state))
     finally:
@@ -173,7 +177,7 @@ def run_strategy(strategy: SearchStrategy, fitness_fn: FitnessFn,
 
     Device-resident strategies run the generation loop on ``device``
     (``engine="scan"``, the default: nothing read back until the end; on
-    a card each generation one replay of its captured CUDA graph) or
+    a card the whole loop one replay of its captured CUDA graph) or
     step it from the host (``engine="loop"``); both give the same result.
     Host-only strategies run their own loop (``engine`` None or
     ``"host"``), their fitness batches on the fitness' device.

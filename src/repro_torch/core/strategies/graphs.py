@@ -1,12 +1,13 @@
-"""One generation of the shared ask/tell loop as a CUDA graph: the card's
-counterpart of the reference's ``lax.scan`` under ``jit``.
+"""The shared ask/tell loop as a CUDA graph: the card's counterpart of
+the reference's whole-search ``lax.scan`` under ``jit``.
 
 The reference runs every device-resident search as one compiled program
 (``repro.core.strategies.driver``: the whole loop one ``lax.scan`` under
-``jax.jit``, one compiled call per search).  The port captures ONE
-generation -- ask -> evaluate -> fold best -> tell -- once per shape as a
-CUDA graph and replays it each generation, so the host issues one graph
-launch a generation instead of every operation of it:
+``jax.jit``, one asynchronous call a search).  The port captures a
+search's whole generation loop -- each generation ask -> evaluate ->
+fold best -> history -> tell -- once per shape as a CUDA graph and
+replays it, so the host issues one graph launch a search instead of
+every operation of every generation:
 
 * :class:`GenerationStep` is the static-buffer step.  It reads the carry
   (the strategy state's tensors, which hold the current population, and
@@ -15,63 +16,68 @@ launch a generation instead of every operation of it:
   The strategies stay functional: what ``tell`` returns is copied into
   the static state.  The fold and the tell are those of
   ``driver.scan_steps``.  A search loads its tables, initial state and
-  generator states into the step, runs it once a generation, and takes
-  copies of the carry out after the last.
-* On a card the step is captured before its first replay: a warm
+  generator states into the step, runs its span(s), and takes copies of
+  the carry out after the last.
+* A *span* is ``(n, tell_last)``: n generations, each telling except
+  the last when ``tell_last`` is False (a spent budget), each writing
+  its best-so-far into column j of the step's static ``(R, n)``
+  history of that span.  A search is one span of all its generations
+  (:func:`plan_spans`), or spans of K generations and a remainder where
+  a strategy sets ``graph_span = K``; K = 1 is one graph a generation.
+* On a card a span is captured before its first replay: a warm
   generation runs eagerly on the loaded state (the makespan library is
   built and loaded, the operator CDF copied to the card once, the
   allocator's first blocks made), its kernel launches counted in
   ``makespan.LAUNCHES`` like any other; the state is loaded again and
-  the generation captured on a side stream
-  (``capture_error_mode="thread_local"``: the stream's and the fleet's
-  other threads may use the card meanwhile).  A generation that does not
-  tell (the last, when the budget is spent) has a graph of its own in
-  the same memory pool: both graphs write only into the static carry, so
-  either may run after the other.  On the CPU, and on a card through
-  ``driver._search(capture=False)``, the same step runs eagerly: the
-  plain version.  Nothing falls back: a capture that fails raises.
+  the span captured on a side stream (``capture_error_mode=
+  "thread_local"``: the stream's and the fleet's other threads may use
+  the card meanwhile).  The loop itself is not run eagerly first.  A
+  step's spans share one memory pool: each writes only into the static
+  carry and its own history, so any may run after any other.  On the
+  CPU, and on a card through ``driver._search(capture=False)``, the same
+  span runs eagerly: the plain version.  Nothing falls back: a capture
+  that fails raises.
 * A graph reads every tensor it was captured with by its address, so
-  each must live as long as the step: the step owns its carry, tables
-  and generators, and a constant the body takes from a cache (MAGMA's
-  operator CDF, ``magma._operator_cdf``) comes from one that never
-  evicts.
+  each must live as long as the step: the step owns its carry, tables,
+  histories and generators, and a constant the body takes from a cache
+  (MAGMA's operator CDF, ``magma._operator_cdf``) comes from one that
+  never evicts.
 * Each row draws from its own ``torch.Generator``.  A step owns R
   generators, registered to its graphs; a search copies its rows'
-  generator states into them before its first generation and back after
-  its last, so a graph captured under one search's seeds serves any
+  generator states into them before its first span and back after its
+  last, so a graph captured under one search's seeds serves any
   other's.  Under capture a random kernel reads its seed and base offset
   from device memory that each replay first fills from the generator's
   state (two small fills a row), and the replay advances the generator
   by the sum of the increments the captured calls made: the same
   increments the eager calls make, so a replay draws bitwise what the
-  eager generation draws.
+  eager generations draw.
 * Steps are cached by :class:`StepKey`: the strategy (by value: equal
   configurations share a step), R, P, G, A, the objective, whether it
-  is multi-objective, the device and the tables' and state's shapes.
-  ``generations`` is not in the key: one graph replays any number of
-  times, and ``scan_steps`` still yields after each generation, so
-  ``run_interleaved`` interleaves several cards' shards and the stream
-  and fleet issue per generation as before.  A loop checks a step out
-  and returns it once its last generation is issued, so two loops of one
-  key live at once (two shards on one card) get a step each.  The cache
-  holds what a process's shapes need and no more: a stream warms one
-  step a (compatibility key, bucket), four buckets for ``batch_rows=8``,
-  each with at most two graphs.  :func:`clear` drops it.
+  is multi-objective, the device and the tables' and state's shapes; a
+  step holds one graph a span, so a graph's key is the ``StepKey`` and
+  ``(n, tell_last)``.  A stream's compatibility key fixes the budget,
+  so it warms one graph a (compatibility key, bucket), as the reference
+  compiles one executable a (key, bucket).  ``scan_steps`` yields after
+  each span, so ``run_interleaved`` issues one replay a shard in turn.
+  A loop checks a step out and returns it once its last span is issued,
+  so two loops of one key live at once (two shards on one card) get a
+  step each.  :func:`clear` drops the cache.
 * A capture is the port's compile event: it is reported as
-  ``"cuda graph <key label>"`` through
+  ``"cuda graph <key label> gens=<n>"`` through
   ``repro_torch.kernels._build.notify_compile``, which
   ``RecompileGuard`` counts.  The makespan kernel's launches inside a
   capture go to the graph's own count (``makespan.counted_into``), which
   each replay adds to ``makespan.LAUNCHES``: one launch a generation, as
-  eagerly.  :func:`totals` counts the captures and the warm generations'
-  launches, so a check can hold ``makespan.LAUNCHES`` to its
-  generations plus one warm generation a capture.
+  eagerly.  :func:`totals` counts the captures, the warm generations'
+  launches and the spans run, so a check can hold ``makespan.LAUNCHES``
+  to its generations plus one warm generation a capture.
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,7 +88,23 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import makespan as _makespan
 
 __all__ = ["StepKey", "GenerationStep", "row_eval_fn", "step_key",
-           "checkout", "checkin", "steps_info", "totals", "clear"]
+           "plan_spans", "checkout", "checkin", "steps_info", "totals",
+           "clear"]
+
+#: (n, tell_last): n generations, the last telling only when tell_last
+Span = Tuple[int, bool]
+
+
+def plan_spans(generations: int, tell_last: bool,
+               span: Optional[int] = None) -> List[Span]:
+    """The spans a loop of ``generations`` runs, in order: one of all of
+    them (``span`` None), else ``span`` generations each and a remainder;
+    only the loop's last generation may skip its tell."""
+    k = generations if span is None else max(1, min(int(span), generations))
+    full, rest = divmod(generations, k)
+    spans = [(k, True)] * full + ([(rest, True)] if rest else [])
+    spans[-1] = (spans[-1][0], tell_last)
+    return spans
 
 
 def row_eval_fn(strategy, params: FitnessParams,
@@ -177,7 +199,7 @@ def step_key(strategy, params: FitnessParams, state,
 
 class GenerationStep:
     """The static-buffer generation step of one :class:`StepKey` (see the
-    module docstring), with its CUDA graphs once captured."""
+    module docstring), with a CUDA graph a span once captured."""
 
     def __init__(self, key: StepKey, strategy, params: FitnessParams,
                  state, objective: Optional[ObjectiveSpec]):
@@ -196,8 +218,10 @@ class GenerationStep:
         self.carry = state_tensors(self.state) + [self.bf, self.ba, self.bp]
         self._storages = {t.untyped_storage().data_ptr() for t in self.carry}
         self.eval_fn = row_eval_fn(strategy, self.params, objective)
-        # tell -> (graph, the kernel launches captured into it)
-        self.graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph,
+        # span -> its (R, n) history; span -> (graph, the kernel launches
+        # captured into it)
+        self.hists: Dict[Span, torch.Tensor] = {}
+        self.graphs: Dict[Span, Tuple[torch.cuda.CUDAGraph,
                                       Dict[str, int]]] = {}
         self.pool = None
         self.captures: List[dict] = []
@@ -222,6 +246,24 @@ class GenerationStep:
         """One generation on the static carry, the next carry copied in."""
         self._store(*self.generation(self.state, self.bf, self.ba, self.bp,
                                      tell))
+
+    # lint: dispatch
+    def span_body(self, span: Span) -> None:
+        """The span's generations on the static carry, each one's
+        best-so-far into its column of the span's history."""
+        n, tell_last = span
+        hist = self.hist(span)
+        for j in range(n):
+            self.body(j + 1 < n or tell_last)
+            hist[:, j] = self.bf
+
+    def hist(self, span: Span) -> torch.Tensor:
+        """The span's static (R, n) history, made on first use."""
+        if span not in self.hists:
+            self.hists[span] = torch.empty((self.key.rows, span[0]),
+                                           dtype=torch.float32,
+                                           device=self.device)
+        return self.hists[span]
 
     # lint: dispatch
     def generation(self, state, bf, ba, bp, tell: bool):
@@ -264,22 +306,26 @@ class GenerationStep:
             if src is not dst:
                 dst.copy_(src)
 
-    def prepare(self, tells, state, params: FitnessParams) -> None:
-        """Capture the graphs of ``tells`` the step lacks, the step
+    def prepare(self, spans: Sequence[Span], state,
+                params: FitnessParams) -> None:
+        """Capture the graphs of ``spans`` the step lacks, the step
         loaded with ``state`` / ``params`` (and so again after)."""
-        for tell in sorted(set(tells) - set(self.graphs)):
+        for span in dict.fromkeys(spans):
+            if span in self.graphs:
+                continue
             warm: Dict[str, int] = {}
             with _makespan.counted_into(warm):      # the warm generation
-                self.body(tell)
+                self.body(span[0] > 1 or span[1])
             _makespan.add_launches(warm)
             self.load(state, params)
-            self._capture(tell, warm)
+            self._capture(span, warm)
 
-    def _capture(self, tell: bool, warm: Dict[str, int]) -> None:
+    def _capture(self, span: Span, warm: Dict[str, int]) -> None:
         dev = self.device
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         for gen in self.gens:
             graph.register_generator_state(gen)
+        self.hist(span)                      # outside the graph's pool
         launches: Dict[str, int] = {}
         with _CAPTURE_LOCK, torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
@@ -290,7 +336,7 @@ class GenerationStep:
                 graph.capture_begin(pool=self.pool,
                                     capture_error_mode="thread_local")
                 try:
-                    self.body(tell)
+                    self.span_body(span)
                 except BaseException:
                     try:
                         graph.capture_end()
@@ -298,14 +344,18 @@ class GenerationStep:
                         pass              # the body's error is the one to see
                     raise
                 graph.capture_end()
+            nodes = _node_count(graph)
+            graph.instantiate()
             seconds = time.perf_counter() - t0
             pool_bytes = torch.cuda.memory_reserved(dev) - reserved
             torch.cuda.current_stream(dev).wait_stream(side)
         if self.pool is None:
             self.pool = graph.pool()
-        self.graphs[tell] = (graph, launches)
-        label = self.key.label() + ("" if tell else " last")
-        self.captures.append({"label": label, "seconds": seconds,
+        self.graphs[span] = (graph, launches)
+        label = f"{self.key.label()} gens={span[0]}" + (
+            "" if span[1] else " last")
+        self.captures.append({"label": label, "generations": span[0],
+                              "seconds": seconds, "nodes": nodes,
                               "pool_bytes": pool_bytes,
                               "launches": dict(launches),
                               "warm_launches": dict(warm)})
@@ -315,14 +365,18 @@ class GenerationStep:
         _build.notify_compile("cuda graph " + label, seconds)
 
     # lint: dispatch
-    def run(self, tell: bool, capture: bool) -> None:
-        """One generation: a replay of its graph, or the eager body."""
+    def run(self, span: Span, capture: bool) -> torch.Tensor:
+        """The span: a replay of its graph, or its eager body; returns
+        its static history (valid until the step's next run)."""
         if capture:
-            graph, launches = self.graphs[tell]
+            graph, launches = self.graphs[span]
             graph.replay()
             _makespan.add_launches(launches)
         else:
-            self.body(tell)
+            self.span_body(span)
+        with _LOCK:
+            _TOTALS["runs"] += 1
+        return self.hists[span]
 
     # lint: dispatch
     def unload(self, gens):
@@ -334,10 +388,30 @@ class GenerationStep:
         return bf, ba, bp, with_tensors(self.state, st, gens)
 
 
+_CUDA_DRIVER = []
+
+
+def _node_count(graph: "torch.cuda.CUDAGraph") -> Optional[int]:
+    """The nodes of a captured, kept graph (the CUDA driver API's
+    ``cuGraphGetNodes``); None where ``libcuda`` cannot be loaded."""
+    import ctypes
+    if not _CUDA_DRIVER:
+        try:
+            _CUDA_DRIVER.append(ctypes.CDLL("libcuda.so.1"))
+        except OSError:
+            _CUDA_DRIVER.append(None)
+    if _CUDA_DRIVER[0] is None:
+        return None
+    n = ctypes.c_size_t(0)
+    err = _CUDA_DRIVER[0].cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    return int(n.value) if err == 0 else None
+
+
 _LOCK = threading.Lock()
 _CAPTURE_LOCK = threading.Lock()
 _STEPS: Dict[StepKey, List[GenerationStep]] = {}        # @locked:_LOCK
-_TOTALS = {"captures": 0, "warm_launches": 0}           # @locked:_LOCK
+_TOTALS = {"captures": 0, "warm_launches": 0, "runs": 0}  # @locked:_LOCK
 
 
 def checkout(strategy, params: FitnessParams, state,
@@ -364,18 +438,22 @@ def checkin(step: GenerationStep) -> None:
 
 
 def steps_info() -> List[dict]:
-    """One record a cached step: its key's label, its graphs and their
-    captures (seconds, pool bytes, launches captured)."""
+    """One record a cached step: its key's label, the spans it has run,
+    its graphs (one a span) and their captures (generations, seconds,
+    nodes, pool bytes, launches captured)."""
     with _LOCK:
         steps = [s for group in _STEPS.values() for s in group]
-    return [{"label": s.key.label(), "graphs": len(s.graphs),
-             "captures": list(s.captures)} for s in steps]
+    return [{"label": s.key.label(), "spans": sorted(s.hists),
+             "graphs": len(s.graphs), "captures": list(s.captures)}
+            for s in steps]
 
 
 def totals() -> Dict[str, int]:
-    """Over the process's life: the graphs captured (``"captures"``)
-    and the makespan launches of the warm generation before each
-    (``"warm_launches"``), which ``makespan.LAUNCHES`` counts too."""
+    """Over the process's life: the graphs captured (``"captures"``),
+    the makespan launches of the warm generation before each
+    (``"warm_launches"``, which ``makespan.LAUNCHES`` counts too) and
+    the spans run (``"runs"``: a replay on a card, the eager span
+    elsewhere)."""
     with _LOCK:
         return dict(_TOTALS)
 

@@ -13,14 +13,15 @@ axis for the comparison figures.  Any **device-resident**
      the shared generation loop (``strategies.scan_strategy``) once for
      all its rows: one body, and one makespan-kernel launch, per
      generation and chunk, where R sequential searches would issue them R
-     times; on a card the body is one replay of a CUDA graph captured
-     for the chunk's shape (``strategies.graphs``).  Each row keeps its own generator, seeded with its seed, and
-     draws its slice of every random tensor from it;
+     times; on a card the chunk's whole loop is one replay of a CUDA
+     graph captured for its shape (``strategies.graphs``).  Each row
+     keeps its own generator, seeded with its seed, and draws its slice
+     of every random tensor from it;
   2. with several devices each chunk's rows are split into contiguous
      shards, one a device (the rows ``shard_map`` would give it in the
      reference), each with its tables, seeds, generators and warm starts
-     on its device.  One thread issues the shards' loops interleaved,
-     one generation of each in turn, with no sync between them, and the
+     on its device.  One thread issues the shards' loops in turn (on a
+     card one replay each), with no sync between them, and the
      results are gathered to the host in row order.  Rows carry no
      collective;
   3. grids larger than ``chunk_rows`` stream through in chunks; chunk
@@ -176,9 +177,10 @@ def _row_steps(seeds: Sequence[int], params: FitnessParams,
                warm: Optional[WarmStart] = None):
     """R (scenario, seed) rows on ``device`` (``params`` stacked there) --
     the trace of ``run_strategy``: seed each row's generator, init, run
-    the shared loop -- as a generator that yields once a generation is
-    issued.  Returns ``(best_fit (R,), best_accel (R, G), best_prio (R,
-    G), history (R, T))`` on the device, and with ``keep_population``
+    the shared loop -- as a generator that yields once each span of
+    generations (on a card, the whole loop's replay) is issued.
+    Returns ``(best_fit (R,), best_accel (R, G), best_prio (R, G),
+    history (R, T))`` on the device, and with ``keep_population``
     also the converged ``(pop_accel (R, P, G), pop_prio (R, P, G))``.
     ``warm`` is a per-row ``WarmStart`` (leading R, on the device)
     seeding each row's initial population in ``init``; neither option
@@ -202,10 +204,10 @@ def row_executable(strategy: SearchStrategy, generations: int,
     contiguously, ``N / len(devices)`` each, on that device) and ``warm``
     likewise one ``WarmStart`` a device or None, returns one tuple of
     per-row results a shard, on its device, without a sync.  The shards'
-    generation loops are issued from this thread, one generation of each
-    in turn.  The function ``run_sweep`` runs each chunk through.
-    ``keep_population`` appends the converged populations to the
-    outputs; ``warm`` seeds each row."""
+    loops are issued from this thread in turn: on a card one load, one
+    replay of the loop's graph and one unload a shard.  The function
+    ``run_sweep`` runs each chunk through.  ``keep_population`` appends
+    the converged populations to the outputs; ``warm`` seeds each row."""
     objective = as_objective_spec(objective)
     if getattr(strategy, "multi_objective", False) and objective is None:
         raise ValueError(

@@ -285,7 +285,7 @@ class _Worker:
         """The service's own ``warmup`` over a decoded trace and prepared
         scenarios: every (compatibility key, bucket) shape greedy
         admission could hit runs once, so the kernel library, the
-        generation steps' graphs and the allocator's blocks are in place
+        generation loops' graphs and the allocator's blocks are in place
         before the measured runs."""
         self.svc.warmup([decode_request(d)
                          for d in msg.get("requests", ())],

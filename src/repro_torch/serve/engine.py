@@ -331,7 +331,7 @@ class MultiTenantEngine:
         stream service's ``warmup`` (with ``fleet=``, every worker's)
         runs each batch shape such a group can hit once, so a later
         :meth:`schedule` of that shape builds and captures nothing (on a
-        card a shape's first batch captures its generation step as a
+        card a shape's first batch captures its generation loop as a
         CUDA graph).  Host-only methods have nothing to warm."""
         from repro_torch.core.strategies import get_strategy
         strategy = get_strategy(method or self.method)

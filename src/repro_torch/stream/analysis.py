@@ -23,6 +23,7 @@ worker benefits from every other worker's profiled (layer, sub) pairs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import threading
@@ -128,6 +129,10 @@ class AnalysisPool:
         self._lock = threading.Lock()
         self._clock = clock or time.perf_counter
         self._tracer = tracer if tracer is not None else NULL_TRACER
+        # cleared while the service's thread issues device work
+        # (:meth:`paused`); workers wait on it before each scenario
+        self._open = threading.Event()
+        self._open.set()
 
     def analyzer_for(self, setting: str, flexible: bool = False
                      ) -> JobAnalyzer:
@@ -180,7 +185,25 @@ class AnalysisPool:
                              ready_s=t1)
 
     def submit(self, req: ScenarioRequest) -> "Future[ReadyScenario]":
-        return self._pool.submit(self.analyze, req)
+        return self._pool.submit(self._analyze_when_open, req)
+
+    def _analyze_when_open(self, req: ScenarioRequest) -> ReadyScenario:
+        self._open.wait()
+        return self.analyze(req)
+
+    @contextlib.contextmanager
+    def paused(self):
+        """No worker starts a scenario inside the block.  The caller's
+        thread issues device work there: every torch call it makes lets
+        go of the interpreter lock, and a worker that takes it holds it
+        for up to ``sys.getswitchinterval()``, so a dispatch beside two
+        busy workers waited tens of milliseconds for its own launches.
+        Paused, the workers finish the scenario in hand and wait."""
+        self._open.clear()
+        try:
+            yield
+        finally:
+            self._open.set()
 
     def prestart(self) -> None:
         """Spawn all worker threads now (ThreadPoolExecutor starts them

@@ -19,18 +19,23 @@ A port of ``repro.stream.service``.  Stages:
                   splits deadline-carrying scenarios into a fast interim
                   row plus a silent memo-bound refinement
   device          up to ``max_inflight`` batches issued but not yet
-                  routed.  The host issues a batch's whole generation
-                  loop before the dispatch call returns (one CUDA graph
-                  replay a generation on a card, the step captured for
-                  the batch's shape at warmup), so a batch's
-                  ``dispatch_s`` is stamped before its first launch and a
-                  CUDA event recorded after its last one marks its end;
-                  the next batch's issue overlaps only what the card
-                  still has queued
-  router          results come off the device in dispatch order (wait on
-                  the batch's event, then one read-back) and are routed
-                  back to their requests with full timing stamps;
-                  ``compute_metrics`` turns them into service metrics
+                  routed.  A dispatch is one asynchronous call, as the
+                  reference's: on a card each shard's whole generation
+                  loop is one replay of the CUDA graph captured for the
+                  batch's (compatibility key, bucket) at warmup, so the
+                  call returns after the batch's copies, one load, one
+                  replay and one unload a shard, whatever its
+                  generations.  A batch's ``dispatch_s`` is stamped
+                  before its first launch and a CUDA event recorded
+                  after its last one marks its end; while the card runs
+                  it the host admits, analyses and issues the next
+  router          results come off the device in dispatch order (the
+                  dispatch queues each shard's read-back into pinned
+                  memory behind its loop; the router waits on the
+                  batch's event, which a later batch cannot delay) and
+                  are routed back to their requests with full timing
+                  stamps; ``compute_metrics`` turns them into service
+                  metrics
 
 Bit-identity guarantee
 ----------------------
@@ -63,15 +68,15 @@ from typing import (Dict, List, NamedTuple, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
-from repro_torch.core.encoding import Population
+from repro_torch.core.encoding import Population, to_host_async
 from repro_torch.core.fitness import FitnessFn, FitnessParams, ObjectiveSpec
 from repro_torch.core.magma import MagmaConfig, SearchResult
 from repro_torch.core.pareto import ParetoFront, pareto_front
 from repro_torch.core.strategies import (SearchStrategy, WarmStart,
                                          plan_generations)
 from repro_torch.core.sweep import (_pad_rows, _resolve_strategy,
-                                    host_rows, row_executable,
-                                    shard_devices, split_rows)
+                                    row_executable, shard_devices,
+                                    split_rows)
 from repro_torch.lint.runtime import transfer_sanitizer
 from repro_torch.memo.engine import row_view
 from repro_torch.obs import (FlightRecorder, NULL_SPAN, NULL_TRACER,
@@ -299,7 +304,9 @@ class _BatchRecord:
 
 @dataclasses.dataclass
 class _Inflight:
-    out: tuple                      # device tensors, possibly still computing
+    reads: list                     # one queued read-back a shard
+    #                                 (encoding.to_host_async): valid
+    #                                 once ``done``
     members: List[ReadyScenario]
     dispatch_s: float
     padded_rows: int
@@ -485,7 +492,8 @@ class StreamingScheduler:
     def _dispatch(self, compat_key: CompatKey, members: List[ReadyScenario]
                   ) -> _Inflight:
         """Assemble one batch and issue its generation loop on the
-        service's device.  @holds:_run_lock"""
+        service's device (on a card one replay a shard) without waiting
+        for it.  @holds:_run_lock"""
         base, G, A, use_kernel, objective, budget, is_warm = compat_key
         # lint: disable=L002(a host bool of the key)
         warm_seeded = bool(is_warm)     # compat-key flag, not key material
@@ -529,9 +537,9 @@ class StreamingScheduler:
             strategy, generations, evolve_last, G, objective, devices,
             keep_population=self._keep_population(base))
 
-        # dispatch_s is stamped before the first launch: the host issues
-        # the whole generation loop before fn returns, so a stamp after
-        # it would leave only the tail where the card lags the host
+        # dispatch_s is stamped before the first launch: fn issues each
+        # shard's load, loop replay and unload before it returns, so a
+        # stamp after it would miss the issue
         dispatch_s = self._clock()
         done = None
         with transfer_sanitizer(self.stream.transfer_guard and cuda):
@@ -542,11 +550,14 @@ class StreamingScheduler:
                      # lint: disable=L002(a host bool of the compat key)
                      [WarmStart(*xs[n_params:]) for xs in shards]
                      if warm_seeded else None)
+            # each shard's read-back is queued behind its loop, so the
+            # route of this batch waits for this batch alone
+            reads = [to_host_async(*o) for o in out]
             if cuda:
                 done = _CardsDone(tuple(
                     torch.cuda.current_stream(d).record_event()
                     for d in dict.fromkeys(devices)))
-        inf = _Inflight(out=out, members=members, dispatch_s=dispatch_s,
+        inf = _Inflight(reads=reads, members=members, dispatch_s=dispatch_s,
                         padded_rows=padded, num_devices=ndev,
                         compat_key=compat_key, issued_s=self._clock(),
                         done=done)
@@ -605,12 +616,13 @@ class StreamingScheduler:
                              strategy=self._resolve_override(p.strategy))
 
     def _route(self, inf: _Inflight, results: List[StreamResult]) -> None:
-        """Wait for a batch, read it back in one copy and route rows.
-        The wait and the read-back synchronise with the card, so they run
-        outside the transfer guard.  @holds:_run_lock"""
+        """Wait for a batch, take its rows from the read-back its
+        dispatch queued and route them.  The wait synchronises with the
+        card, so it runs outside the transfer guard.  @holds:_run_lock"""
         self._wait(inf)
         done = self._clock()
-        outs = host_rows(inf.out)
+        outs = tuple(np.concatenate(col)
+                     for col in zip(*(read() for read in inf.reads)))
         bf, ba, bp, hist = outs[:4]
         pops = outs[4:6] if len(outs) >= 6 else None
         base, _, A, _, _, budget, is_warm = inf.compat_key
@@ -803,8 +815,8 @@ class StreamingScheduler:
             # 3. admission: FULL batches whenever a queue has them; while
             # any analysis is in flight, partials are HELD — analyses
             # complete in milliseconds and fill the batch, whereas a
-            # small row-batch wastes a generation loop's host issue on
-            # few rows.  With nothing being analyzed (stream draining, or
+            # small row-batch spends a whole generation loop on few
+            # rows.  With nothing being analyzed (stream draining, or
             # sparse realtime arrivals), partials go out bucket-padded
             # rather than letting the device idle — and a partial that
             # _must_flush (oldest member waited max_hold_s, or an urgent
@@ -815,17 +827,19 @@ class StreamingScheduler:
             # schedule; blind (slo_aware=False): deepest queue first so
             # batches fill out.  (Policy + accounting live in
             # AdmissionQueues.)  Before each dispatch, the head batches
-            # the card has already finished are routed: a dispatch
-            # returns only once the host has issued the whole generation
-            # loop, so a finished head left in flight would wait one more
-            # batch's issue for its rows.
+            # the card has already finished are routed: a finished head
+            # left in flight would wait one more batch's issue for its
+            # rows.
             progressed = self._route_finished(inflight, results) or progressed
             while len(inflight) < self.stream.max_inflight:
                 key = queues.select(self._clock(), bool(futs))
                 if key is None:
                     break          # hold the partials: more is coming
                 self._route_finished(inflight, results)
-                inflight.append(self._dispatch(key, queues.take(key)))
+                # the analysis workers start nothing while this thread
+                # issues the batch (AnalysisPool.paused)
+                with self.pool.paused():
+                    inflight.append(self._dispatch(key, queues.take(key)))
                 progressed = True
 
             # 4. route: block on the head batch when the pipeline is full
@@ -863,7 +877,7 @@ class StreamingScheduler:
         workload can hit once and discard the results (and pre-fill the
         analyzer profile caches).
 
-        On a card each shape's first batch captures its generation step
+        On a card each shape's first batch captures its generation loop
         as a CUDA graph (``repro_torch.core.strategies.graphs``: a warm
         generation, then the capture), and the first batch of a process
         also builds and loads the makespan kernel's library and copies

@@ -1,17 +1,22 @@
 """The generation engine (``repro_torch.core.strategies.graphs``) on the CPU.
 
-On a card each generation of the shared ask/tell loop is one replay of a
-CUDA graph of the static-buffer step; here the same step runs eagerly,
-generation by generation through ``driver.scan_steps``.  Held here:
+On a card a search's whole ask/tell loop is one replay of a CUDA graph
+of the static-buffer step; here the same loop runs eagerly through
+``driver.scan_steps``.  Held here:
 
 - the step equals the host-stepped ``engine="loop"`` bitwise for every
   device-resident strategy, at R = 1 (``run_strategy``) and R = 3
   (``run_sweep`` rows), with ``evolve_last`` true and false, and with a
   ``Population`` / ``WarmStart`` hand-off where a strategy takes one;
 - a sweep row equals its standalone search;
+- the whole loop as one span equals it one generation a span and in
+  spans with a remainder, histories and final states too, and each row
+  its ``engine="loop"`` search: every strategy, R = 1 and 3, both last
+  generations, warm-started rows;
 - equal-but-distinct configurations give one cache key and share one
-  step; another (R, P, G, A) gives another key; two loops of one key
-  live at once get a step each;
+  step; another (R, P, G, A) gives another key, another generation
+  count another span of the step; two loops of one key live at once get
+  a step each;
 - the slice against the reference: MAGMA's generations run through the
   step with the reference's own draws injected give bitwise the
   populations of the reference's generation body
@@ -246,8 +251,9 @@ def test_interleaved_loops_of_one_key_get_a_step_each():
             assert torch.equal(a, b)
 
 
-def test_scan_steps_yields_once_a_generation():
+def test_scan_steps_yields_once_a_generation(monkeypatch):
     s = _strategy("pso").bind(FIT.num_accels)
+    monkeypatch.setattr(type(s), "graph_span", 1)   # a graph a generation
     params = FitnessParams(*(t[None] for t in FIT.params))
     state = s.init(row_generators([0], "cpu"), params)
     steps = scan_steps(s, state, params, FIT.objective_spec, FIT.group_size,
@@ -260,6 +266,140 @@ def test_scan_steps_yields_once_a_generation():
     assert n == 5
     bf, ba, bp, hist, _ = stop.value.value
     assert hist.shape == (1, 5) and bool(torch.all(hist[:, -1] == bf))
+
+
+def test_plan_spans():
+    assert graphs.plan_spans(5, False) == [(5, False)]
+    assert graphs.plan_spans(5, True) == [(5, True)]
+    assert graphs.plan_spans(3, False, 1) == [(1, True), (1, True),
+                                              (1, False)]
+    assert graphs.plan_spans(7, False, 3) == [(3, True), (3, True),
+                                              (1, False)]
+    assert graphs.plan_spans(6, True, 3) == [(3, True), (3, True)]
+    assert graphs.plan_spans(6, False, 3) == [(3, True), (3, False)]
+    assert graphs.plan_spans(2, True, 9) == [(2, True)]
+
+
+def test_scan_steps_yields_once_a_loop(monkeypatch):
+    """By default the whole loop is one span: one run, one yield."""
+    s = _strategy("pso").bind(FIT.num_accels)
+    params = FitnessParams(*(t[None] for t in FIT.params))
+
+    def loop():
+        state = s.init(row_generators([0], "cpu"), params)
+        return scan_steps(s, state, params, FIT.objective_spec,
+                          FIT.group_size, 5, False)
+
+    before = graphs.totals()["runs"]
+    steps, n = loop(), 0
+    with pytest.raises(StopIteration) as stop:
+        while True:
+            next(steps)
+            n += 1
+    assert n == 1 and graphs.totals()["runs"] == before + 1
+    monkeypatch.setattr(type(s), "graph_span", 1)
+    want = run_interleaved([loop()])[0]
+    for a, b in zip(stop.value.value[:4], want[:4]):
+        assert torch.equal(a, b)
+
+
+def _rows(rows):
+    return FitnessParams(*(torch.stack([t] * rows) for t in FIT.params))
+
+
+def _loop_spans(monkeypatch, s, params, seeds, budget, warm=None):
+    """The rows' loop with the whole loop as one span, one a generation,
+    and two a span with a remainder: each result, and the spans run."""
+    gens, evolve_last = plan_generations(budget, P)
+    out = {}
+    for span in (None, 1, 2):
+        monkeypatch.setattr(type(s), "graph_span", span)
+        state = s.init(row_generators(seeds, "cpu"), params,
+                       init_population=warm)
+        before = graphs.totals()["runs"]
+        out[span] = run_interleaved([scan_steps(
+            s, state, params, FIT.objective_spec, FIT.group_size, gens,
+            evolve_last)])[0]
+        tell_last = evolve_last or getattr(s, "multi_objective", False)
+        assert graphs.totals()["runs"] - before == len(
+            graphs.plan_spans(gens, tell_last, span))
+    for span in (1, 2):
+        for a, b in zip(out[None][:4], out[span][:4]):
+            assert torch.equal(a, b), span
+        for a, b in zip(graphs.state_tensors(out[None][4]),
+                        graphs.state_tensors(out[span][4])):
+            assert torch.equal(a, b), span
+    return out[None]
+
+
+@pytest.mark.parametrize("evolve_last", [True, False],
+                         ids=["evolve_last", "spent"])
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("name", STRATEGIES)
+def test_loop_span_equals_per_generation_and_loop(name, rows, evolve_last,
+                                                  monkeypatch):
+    """The whole loop as one span equals it a generation at a time (and
+    in spans of two with a remainder), histories and final states too,
+    and every row its host-stepped ``engine="loop"`` search."""
+    s = _strategy(name).bind(FIT.num_accels)
+    seeds = [2, 7, 11][:rows]
+    budget = _budget(evolve_last, gens=5)
+    bf, ba, bp, hist, _ = _loop_spans(monkeypatch, s, _rows(rows), seeds,
+                                      budget)
+    for r, seed in enumerate(seeds):
+        want = run_strategy(s, FIT, budget=budget, seed=seed, device="cpu",
+                            engine="loop")
+        assert float(bf[r]) == want.best_fitness
+        np.testing.assert_array_equal(ba[r].numpy(), want.best_accel)
+        np.testing.assert_array_equal(bp[r].numpy(), want.best_prio)
+        np.testing.assert_array_equal(hist[r].numpy().astype(np.float64),
+                                      want.history_best)
+
+
+@pytest.mark.parametrize("name", ["magma", "nsga2"])
+def test_loop_span_with_warm_rows_equals_per_generation_and_loop(
+        name, monkeypatch):
+    s = _strategy(name).bind(FIT.num_accels)
+    seeds = [4, 9, 13]
+    warms = [_hand_off("warm_start", seed=k) for k in range(3)]
+    warm = WarmStart(accel=torch.as_tensor(np.stack([w.accel for w in warms])),
+                     prio=torch.as_tensor(np.stack([w.prio for w in warms])),
+                     jitter=torch.full((3,), 0.05))
+    budget = _budget(True, gens=5)
+    bf, ba, bp, hist, _ = _loop_spans(monkeypatch, s, _rows(3), seeds,
+                                      budget, warm)
+    for r, seed in enumerate(seeds):
+        want = run_strategy(s, FIT, budget=budget, seed=seed, device="cpu",
+                            engine="loop", init_population=warms[r])
+        assert float(bf[r]) == want.best_fitness
+        np.testing.assert_array_equal(ba[r].numpy(), want.best_accel)
+        np.testing.assert_array_equal(bp[r].numpy(), want.best_prio)
+        np.testing.assert_array_equal(hist[r].numpy().astype(np.float64),
+                                      want.history_best)
+
+
+def test_equal_configs_share_a_loop_key_and_other_generations_another():
+    """A loop's graph key is its step's key and its span: equal
+    configurations run one span of one step; another generation count
+    or a last generation that tells adds a span to that step."""
+    a = MagmaStrategy(magma.MagmaConfig(population=P))
+    b = MagmaStrategy(magma.MagmaConfig(population=P))
+    key = _key(a, FIT)
+    graphs.clear()
+
+    def spans():
+        found = [info["spans"] for info in graphs.steps_info()
+                 if info["label"] == key.label()]
+        assert len(found) == 1
+        return found[0]
+
+    run_strategy(a, FIT, budget=_budget(False), seed=0, device="cpu")
+    run_strategy(b, FIT, budget=_budget(False), seed=1, device="cpu")
+    assert spans() == [(4, False)]
+    run_strategy(b, FIT, budget=_budget(False, gens=6), seed=0,
+                 device="cpu")
+    run_strategy(a, FIT, budget=_budget(True), seed=0, device="cpu")
+    assert spans() == [(4, False), (4, True), (6, False)]
 
 
 def test_capture_needs_a_card():

@@ -1,5 +1,5 @@
-"""The generation engine on the card: each generation one replay of a
-CUDA graph of the static-buffer step (``repro_torch.core.strategies.graphs``).
+"""The generation engine on the card: a search's whole loop one replay of
+a CUDA graph of the static-buffer step (``repro_torch.core.strategies.graphs``).
 
 - captured equals the host-stepped ``engine="loop"`` bitwise, for every
   device-resident strategy, and replays under seeds other than the one
@@ -10,6 +10,8 @@ CUDA graph of the static-buffer step (``repro_torch.core.strategies.graphs``).
   shape the warmup did not run is reported;
 - the makespan kernel counts one launch a generation, and the first
   search of a key one more for the warm generation before each capture;
+- a batch's host-issued launches (the CUDA runtime's calls, profiled)
+  are the same at 10 generations and at 100;
 - a step's replays stay right after many other configurations have
   been captured (the constants its graph reads stay alive);
 - a capture that fails raises.
@@ -97,9 +99,11 @@ def test_captured_equals_loop_at_seeds_other_than_the_capture(cuda, name):
                                    want.final_population.prio)
     captured = [c for info in graphs.steps_info()
                 for c in info["captures"]]
-    # one step of one key; the tell and (for a spent budget) the last
+    # one step of one key, a loop graph a budget (the two budgets plan
+    # the same loop for a strategy whose last generation always tells)
     assert len(captured) == (1 if getattr(s, "multi_objective", False)
                              else 2)
+    assert all(c["generations"] == 6 for c in captured)
 
 
 @pytest.mark.gpu
@@ -140,7 +144,7 @@ def test_makespan_launches_one_a_generation(cuda):
     s = _strategy("stdga")
     graphs.clear()
     gens, evolve_last = plan_generations(P * 7 + 1, P)
-    graphs_a_step = len({g + 1 < gens or evolve_last for g in range(gens)})
+    graphs_a_step = len(set(graphs.plan_spans(gens, evolve_last)))   # 1
     for seed in (0, 1):                   # the capture's search, a replay
         before, then = mk.LAUNCHES["makespan"], graphs.totals()
         run_strategy(s, fit, budget=P * 7 + 1, seed=seed, device=cuda)
@@ -205,6 +209,43 @@ def test_no_capture_after_a_stream_warmup(cuda):
         with pytest.raises(RecompileError, match="cuda graph"):
             guard.check()
         guard.warmup()
+
+
+# the CUDA runtime's launch calls as torch.profiler names them (host side)
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
+               "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+@pytest.mark.gpu
+def test_a_batch_issues_as_many_launches_at_10_and_100_generations(cuda):
+    """An 8-row batch's loop, its graph captured, issues a number of
+    host launches that does not depend on its generations."""
+    from torch.profiler import ProfilerActivity, profile
+    fit = _fit(cuda)
+    s = _strategy("magma").bind(fit.num_accels)
+    params = FitnessParams(*(torch.stack([t] * 8) for t in fit.params))
+    seeds = list(range(8))
+
+    def batch(gens):
+        state = s.init(row_generators(seeds, cuda), params)
+        return run_interleaved([scan_steps(s, state, params,
+                                           fit.objective_spec,
+                                           fit.group_size, gens, False)])[0]
+
+    counts = {}
+    for gens in (10, 100):
+        batch(gens)                          # captures its loop
+        torch.cuda.synchronize()
+        before = mk.LAUNCHES["makespan"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            batch(gens)
+            torch.cuda.synchronize()
+        assert mk.LAUNCHES["makespan"] - before == gens
+        counts[gens] = sum(e.name in LAUNCH_APIS for e in prof.events()
+                           if e.device_type != torch.autograd.DeviceType.CUDA)
+    assert counts[10] == counts[100] <= 100, counts
 
 
 @dataclasses.dataclass(frozen=True)

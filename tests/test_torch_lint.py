@@ -276,7 +276,8 @@ def _mutate(rel, anchor, line):
 
 def test_item_in_scan_steps_is_found():
     path, text, line = _mutate("core/strategies/driver.py",
-                               "hist[:, g] = bf", "top = bf.max().item()")
+                               "hist[:, g:g + sp[0]] = step.run(",
+                               "top = hist.max().item()")
     assert lint_text(path, open(path).read()) == []
     got = [f for f in lint_text(path, text) if f.line == line]
     assert {f.rule for f in got} == {"L002"}

@@ -13,9 +13,10 @@ Against the reference on the same inputs (exact):
 The port's own guarantees, on the CPU (the counterparts of
 ``tests/test_stream.py``): every streamed row is bitwise the port's
 ``run_strategy`` and its ``run_sweep`` row, with padding and several
-compatibility keys; prepared scenarios, strategy overrides, SLO ordering,
-the urgent flush, anytime rows, the memo's disjoint counters and the
-span trees with observability on.
+compatibility keys; each batch one loop run a shard (``graphs.totals()``);
+the analysis pool paused while a batch is issued; prepared scenarios,
+strategy overrides, SLO ordering, the urgent flush, anytime rows, the
+memo's disjoint counters and the span trees with observability on.
 
 The whole slice against the reference: one trace through both services'
 ``run_serial`` gives the same requests and the same batches; the
@@ -32,6 +33,7 @@ engine built, and the executed tokens are those of the direct schedule.
 """
 import collections
 import dataclasses
+import threading
 import types
 
 import numpy as np
@@ -47,6 +49,7 @@ from repro.stream import analysis as ref_analysis  # noqa: E402
 from repro_torch.core.m3e import geomean  # noqa: E402
 from repro_torch.core.pareto import pareto_front  # noqa: E402
 from repro_torch.core.strategies import get_strategy, run_strategy  # noqa: E402
+from repro_torch.core.strategies import graphs  # noqa: E402
 from repro_torch.core.sweep import run_sweep  # noqa: E402
 from repro_torch.memo import ScheduleMemo  # noqa: E402
 from repro_torch.stream import (AnalysisPool, PRIORITY_CLASSES,  # noqa: E402
@@ -508,6 +511,23 @@ def test_urgent_flush_preempts_held_partial():
     urgent = PreparedScenario(fit=fit, seed=29, uid=0, priority="urgent",
                               deadline_s=1e-6)
     svc = _svc(stream=StreamConfig(batch_rows=4, analysis_workers=1))
+    # the trace's analyses start once the first batch is issued: what is
+    # held is the urgent partial alone, however the threads are scheduled
+    # (a worker that finished both analyses before the run loop's first
+    # drain would join them to the urgent's batch)
+    issued = threading.Event()
+    analyze, dispatch = svc.pool.analyze, svc._dispatch
+
+    def after_first_dispatch(req, fresh_analyzer=False):
+        issued.wait(timeout=60.0)
+        return analyze(req, fresh_analyzer)
+
+    def dispatch_and_release(key, members):
+        issued.set()
+        return dispatch(key, members)
+
+    svc.pool.analyze = after_first_dispatch
+    svc._dispatch = dispatch_and_release
     res = {r.request.uid: r for r in svc.run(trace, prepared=[urgent])}
     first = min(svc.last_batches, key=lambda b: b.dispatch_s)
     assert first.rows == 1                      # the flushed urgent partial
@@ -720,6 +740,69 @@ def test_sharded_batches_match_reference_and_rows_stay_bitwise(
     for r in mine:
         fit = analyze_serial([r.request])[0].fit
         _assert_rows_equal(r, _standalone(fit, r.request.seed))
+
+
+@pytest.mark.parametrize("mode", ["serial", "pipelined"])
+@pytest.mark.parametrize("ndev", [1, 2])
+def test_a_batch_runs_one_loop_a_shard(ndev, mode):
+    """A dispatch issues each shard's whole generation loop as one span
+    (on a card, one replay of its graph): the spans run over a stream
+    run are the batches' shards, and every row stays bitwise its
+    standalone search."""
+    trace = generate_trace(TraceConfig(**dict(SLICE, num_scenarios=6)))
+    svc = _svc(stream=StreamConfig(batch_rows=4, analysis_workers=1,
+                                   devices=("cpu",) * ndev))
+    before = graphs.totals()["runs"]
+    results = (svc.run_serial(trace) if mode == "serial"
+               else svc.run(trace))
+    assert graphs.totals()["runs"] - before == sum(
+        b.num_devices for b in svc.last_batches)
+    assert max(b.num_devices for b in svc.last_batches) == ndev
+    for r in results:
+        fit = analyze_serial([r.request])[0].fit
+        _assert_rows_equal(r, _standalone(fit, r.request.seed))
+    svc.close()
+
+
+def test_a_paused_pool_starts_no_scenario():
+    """``AnalysisPool.paused``: a scenario submitted inside the block
+    starts only once it ends, and its table is the unpaused one."""
+    pool = AnalysisPool(2)
+    started = threading.Event()
+    analyze = pool.analyze
+
+    def spy(req, fresh_analyzer=False):
+        started.set()
+        return analyze(req, fresh_analyzer)
+
+    pool.analyze = spy
+    req = _slo_req(0, seed=61)
+    with pool.paused():
+        fut = pool.submit(req)
+        assert not started.wait(0.3) and not fut.done()
+    got = fut.result(timeout=60).fit
+    want = analyze_serial([req])[0].fit
+    assert all(torch.equal(a, b) for a, b in zip(got.params, want.params))
+    pool.shutdown()
+
+
+def test_the_run_loop_pauses_the_analysis_pool_while_it_dispatches():
+    trace = generate_trace(TraceConfig(**dict(SLICE, num_scenarios=6)))
+    svc = _svc(stream=StreamConfig(batch_rows=4, analysis_workers=2))
+    dispatch, seen = svc._dispatch, []
+
+    def spy(key, members):
+        seen.append(svc.pool._open.is_set())
+        return dispatch(key, members)
+
+    svc._dispatch = spy
+    results = svc.run(trace)
+    assert seen and not any(seen)            # paused at every dispatch
+    assert svc.pool._open.is_set()           # and open again after
+    for r in results:
+        fit = analyze_serial([r.request])[0].fit
+        _assert_rows_equal(r, _standalone(fit, r.request.seed))
+    svc.close()
 
 
 def measure_ratio_spread(seeds=range(10)):

@@ -1,7 +1,8 @@
 """The streaming service on the card: streamed rows are bitwise standalone
 card searches, a ``transfer_guard=True`` run completes (no hidden
-synchronisation in the dispatch region, warm-seeded rows included), and
-each batch launches the makespan kernel once per generation.
+synchronisation in the dispatch region, warm-seeded rows included),
+each batch launches the makespan kernel once per generation, and the
+read-back a dispatch queues gives the synchronous read-back's arrays.
 
 Every test here is marked ``gpu`` and skips where no CUDA card is present
 (the card is looked for inside the ``cuda`` fixture).  The module imports
@@ -130,3 +131,18 @@ def test_makespan_launches_per_batch_equal_generations(cuda):
                for b in svc.last_batches)
     assert mk.LAUNCHES["makespan"] - before == want
     svc.close()
+
+
+@pytest.mark.gpu
+def test_a_queued_read_back_equals_the_synchronous_one(cuda):
+    from repro_torch.core.encoding import to_host, to_host_async
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    xs = (torch.rand((3, 5), device=cuda, generator=gen),
+          torch.randint(0, 7, (3, 4), device=cuda, generator=gen,
+                        dtype=torch.int32),
+          torch.rand((2, 3, 2), device=cuda, generator=gen)[:, 1])
+    read = to_host_async(*xs)
+    torch.cuda.current_stream(cuda).synchronize()
+    for got, want in zip(read(), to_host(*xs)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
