@@ -205,7 +205,8 @@ Phases, in order; any failure raises and exits non-zero:
               profiler session) one more pipelined run of the trace is
               profiled: the card's own busy share (the union of its CUDA
               kernel intervals over the run's wall) beside the stream's
-              device_idle_frac, whose windows count host issue as busy;
+              device_idle_frac (the union of the batches' card
+              intervals, from timing events around each loop);
               then one more pipelined run profiled with the host's
               activity: each batch's host-issued launches (the CUDA
               runtime's calls inside its dispatch), at most 100 each,
@@ -3243,8 +3244,8 @@ def fleet_engine_gate(dev, fleet):
 
 def stream_card_busy(dev, budget=STREAM_BUDGET, trace_kw=None):
     """The card's own busy share over one pipelined phase 16 run, beside
-    the stream's ``device_idle_frac`` (which counts a batch's host issue
-    as busy: its window opens before the first launch).  Phase 16's
+    the stream's ``device_idle_frac`` (the union of the batches' card
+    intervals, from timing events around each loop).  Phase 16's
     service and trace, warmed up; one unprofiled pipelined run, then one
     under torch.profiler: the union of its CUDA kernel intervals over
     that run's wall.  Taken at the script's end: one

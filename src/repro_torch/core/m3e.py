@@ -11,10 +11,21 @@ The search runs on ``device`` ("cuda" unless the caller asks for
 another).  ``warm_start`` (Section V-C, populations kept per task type)
 and ``memo`` (``repro_torch.memo``: exact-hit replay, nearest-scenario
 warm seeds, every search recorded) are the reference's two reuse knobs.
+
+Every search feeds the process registry (``repro_torch.obs``), always
+on: ``repro_search_total``, ``repro_search_seconds_total`` (each call's
+host wall), ``repro_search_prepare_seconds_total`` (the analysis and
+tables) and ``repro_search_card_seconds_total`` (the generation loop on
+the card, from timing events).  ``obs`` (``repro_torch.obs.ObsConfig``,
+a dict of its fields, or None = off) enabled, a search emits its
+``search.prepare``, ``search.loop``, ``search.readback`` and
+``search.card`` spans on the process tracer; the host stages enter an
+active torch profiler as ``repro.search.*`` ranges whatever ``obs`` says.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -28,6 +39,9 @@ from repro_torch.core.pareto import ParetoFront, pareto_front
 from repro_torch.core.strategies import get_strategy, run_strategy
 from repro_torch.core.warmstart import WarmStartEngine
 from repro_torch.costmodel.accelerators import AcceleratorConfig
+from repro_torch.obs import (NULL_TRACER, as_obs_config, get_registry,
+                             get_tracer)
+from repro_torch.obs.profiler import stage
 from repro_torch.workloads.benchmark import JobGroup
 
 
@@ -48,16 +62,28 @@ class M3E:
     device: Union[str, torch.device] = "cuda"
     warm_start: Optional[WarmStartEngine] = None
     memo: Optional[object] = None       # repro_torch.memo.ScheduleMemo
+    obs: object = None                  # repro_torch.obs.ObsConfig
+
+    def _tracer(self):
+        return get_tracer() if as_obs_config(self.obs).enabled \
+            else NULL_TRACER
 
     def prepare(self, group: JobGroup,
                 objective: ObjectiveLike = None) -> FitnessFn:
         """The problem's ``FitnessFn``; ``objective`` overrides the
         instance default."""
-        table = JobAnalyzer(self.accel).analyze(group.jobs)
-        return FitnessFn(
-            table, bw_sys=self.bw_sys,
-            objective=self.objective if objective is None else objective,
-            device=self.device)
+        t0 = time.perf_counter()
+        with stage("search.prepare", self._tracer(), jobs=len(group.jobs)):
+            table = JobAnalyzer(self.accel).analyze(group.jobs)
+            fit = FitnessFn(
+                table, bw_sys=self.bw_sys,
+                objective=self.objective if objective is None else objective,
+                device=self.device)
+        get_registry().counter(
+            "repro_search_prepare_seconds_total",
+            "Host seconds analysing job groups into fitness tables").inc(
+                time.perf_counter() - t0)
+        return fit
 
     def search(self, group: JobGroup, method: str = "magma",
                budget: int = 10_000, seed: int = 0, *,
@@ -72,9 +98,19 @@ class M3E:
         magma, ``population=`` for the black-box strategies, ...) go in
         ``strategy_kwargs`` and are validated by the strategy registry.
         """
+        t0 = time.perf_counter()
+        res = self._search(group, method, budget, seed, engine,
+                           init_population, keep_population, strategy_kwargs)
+        _count_search(time.perf_counter() - t0, res)
+        return res
+
+    def _search(self, group: JobGroup, method: str, budget: int, seed: int,
+                engine: Optional[str], init_population,
+                keep_population: Optional[bool],
+                strategy_kwargs: Optional[Mapping]) -> SearchResult:
         fit = self.prepare(group)
         strategy = get_strategy(method, **dict(strategy_kwargs or {}))
-        run_kw = {}
+        run_kw = {"tracer": self._tracer()}
         if engine is not None:
             run_kw["engine"] = engine
         if init_population is not None:
@@ -122,13 +158,14 @@ class M3E:
         vector spec's fingerprint, so a re-seen frontier request replays
         its front without a search.
         """
+        t0 = time.perf_counter()
         fit = self.prepare(group, objective=tuple(objectives))
         strategy = get_strategy(method, **dict(strategy_kwargs or {}))
         if not getattr(strategy, "multi_objective", False):
             raise ValueError(
                 f"method {method!r} is single-objective; search_front "
                 "needs a multi_objective strategy such as 'nsga2'")
-        run_kw = {"keep_population": True}
+        run_kw = {"keep_population": True, "tracer": self._tracer()}
         if engine is not None:
             run_kw["engine"] = engine
         if self.memo is not None and strategy.device_resident:
@@ -142,9 +179,11 @@ class M3E:
                 "search_front needs the converged population to extract "
                 "the front, but none came back (a memo record without a "
                 "stored population?)")
-        return pareto_front(fit, res.final_population,
-                            n_samples=res.n_samples,
-                            wall_time_s=res.wall_time_s)
+        front = pareto_front(fit, res.final_population,
+                             n_samples=res.n_samples,
+                             wall_time_s=res.wall_time_s)
+        _count_search(time.perf_counter() - t0, res)
+        return front
 
     def _search_memoized(self, group: JobGroup, strategy, fit: FitnessFn,
                          budget: int, seed: int, run_kw) -> SearchResult:
@@ -168,6 +207,18 @@ class M3E:
     def describe_mapping(self, res: SearchResult) -> list:
         return decode_to_lists(res.best_accel, res.best_prio,
                                self.accel.num_sub_accels)
+
+
+def _count_search(wall_s: float, res: SearchResult) -> None:
+    """One finished search into the process registry."""
+    reg = get_registry()
+    reg.counter("repro_search_total", "Searches M3E ran").inc()
+    reg.counter("repro_search_seconds_total",
+                "Host wall seconds of M3E's searches").inc(wall_s)
+    if res.card_time_s is not None:
+        reg.counter("repro_search_card_seconds_total",
+                    "Card seconds of M3E's searches' generation loops").inc(
+                        res.card_time_s)
 
 
 def geomean(xs: Sequence[float]) -> float:

@@ -79,6 +79,9 @@ class SearchResult:
     n_samples: int
     wall_time_s: float
     final_population: Optional[Population] = None
+    # the generation loop's seconds on the card (timing events around
+    # it); None where none were taken (the CPU, a host loop, a replay)
+    card_time_s: Optional[float] = None
 
 
 @dataclasses.dataclass

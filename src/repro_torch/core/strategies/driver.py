@@ -14,7 +14,10 @@ The loop runs on the static-buffer step of
 ``repro_torch.core.strategies.graphs``: on a card the whole loop is
 captured once per shape as a CUDA graph and replayed, one launch a
 search (the reference's one compiled ``lax.scan``, one asynchronous
-call); on the CPU the same loop runs eagerly.
+call); on the CPU the same loop runs eagerly.  A caller that hands the
+loop a ``card`` list gets the loop's :class:`cardtime.CardInterval`
+(two timing events around it on the card) to settle once it has waited
+for the results.
 
 :func:`run_strategy` is its one-row case, seeded from ``seed`` on the
 search's device; ``repro_torch.core.sweep`` runs it over (scenario x
@@ -26,7 +29,7 @@ baseline of the device loop, bitwise equal to it.
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,9 +37,11 @@ import torch
 from repro_torch.core.encoding import Population, row_generators, to_host
 from repro_torch.core.fitness import FitnessFn, FitnessParams, ObjectiveSpec
 from repro_torch.core.magma import SearchResult
-from repro_torch.core.strategies import graphs
+from repro_torch.core.strategies import cardtime, graphs
 from repro_torch.core.strategies.base import SearchStrategy, WarmStart
 from repro_torch.core.strategies.graphs import row_eval_fn
+from repro_torch.obs import NULL_TRACER, Tracer
+from repro_torch.obs.profiler import stage
 
 
 def plan_generations(budget: int, ask_size: int) -> Tuple[int, bool]:
@@ -50,7 +55,8 @@ def plan_generations(budget: int, ask_size: int) -> Tuple[int, bool]:
 def scan_steps(strategy: SearchStrategy, state, params: FitnessParams,
                objective: Optional[ObjectiveSpec], group_size: int,
                generations: int, evolve_last: bool, *,
-               capture: Optional[bool] = None):
+               capture: Optional[bool] = None,
+               card: Optional[List[cardtime.CardInterval]] = None):
     """:func:`scan_strategy` as a generator: it yields once each span of
     generations has been issued and returns (``StopIteration.value``)
     what ``scan_strategy`` returns, so one thread can interleave the
@@ -61,7 +67,11 @@ def scan_steps(strategy: SearchStrategy, state, params: FitnessParams,
     generation, or the strategy's ``graph_span`` generations each) and
     one unload: a span is a replay of its CUDA
     graph (``capture`` True, the default on a card) or its eager body
-    (``capture`` False, the default on the CPU)."""
+    (``capture`` False, the default on the CPU).  With a ``card`` list,
+    a timing event is recorded before the load and one after the unload
+    (on a card, unless the loop captures a graph), and the interval
+    appended to ``card`` for the caller to ``cardtime.settle`` once it
+    has waited for the results."""
     dev = params.lat.device
     if capture is None:
         capture = dev.type == "cuda"
@@ -72,6 +82,11 @@ def scan_steps(strategy: SearchStrategy, state, params: FitnessParams,
                               strategy.graph_span)
     step = graphs.checkout(strategy, params, state, objective, group_size)
     try:
+        # a loop that captures a graph is set-up: its interval would hold
+        # the capture, so it is not timed
+        fresh = capture and any(sp not in step.graphs for sp in spans)
+        # lint: disable=L002(host metadata: the graphs the step holds)
+        timed = None if card is None or fresh else cardtime.begin(dev)
         step.load(state, params)
         if capture:
             step.prepare(spans, state, params)
@@ -83,6 +98,9 @@ def scan_steps(strategy: SearchStrategy, state, params: FitnessParams,
             g += sp[0]
             yield
         bf, ba, bp, state = step.unload(graphs.state_gens(state))
+        if timed is not None:
+            card.append(cardtime.end(timed, generations, sum(
+                step.nodes.get(sp, 0) for sp in spans) if capture else 0))
     finally:
         graphs.checkin(step)
     return bf, ba, bp, hist, state
@@ -106,10 +124,12 @@ def run_interleaved(loops) -> list:
 def scan_strategy(strategy: SearchStrategy, state, params: FitnessParams,
                   objective: Optional[ObjectiveSpec], group_size: int,
                   generations: int, evolve_last: bool, *,
-                  capture: Optional[bool] = None):
+                  capture: Optional[bool] = None,
+                  card: Optional[List[cardtime.CardInterval]] = None):
     """Run ``generations`` ask -> eval -> tell steps over the state's R
     rows on their device, against the row-stacked tables ``params``
-    (``objective`` None: each row's own objective code).
+    (``objective`` None: each row's own objective code).  ``card`` is
+    :func:`scan_steps`'s.
 
     Returns ``(best_fit (R,), best_accel (R, G), best_prio (R, G),
     history (R, generations), state)``, all on the device.  For a
@@ -118,7 +138,7 @@ def scan_strategy(strategy: SearchStrategy, state, params: FitnessParams,
     """
     return run_interleaved([scan_steps(strategy, state, params, objective,
                                        group_size, generations, evolve_last,
-                                       capture=capture)])[0]
+                                       capture=capture, card=card)])[0]
 
 
 def _run_loop(strategy: SearchStrategy, state, eval_fn, generations: int,
@@ -172,7 +192,8 @@ def run_strategy(strategy: SearchStrategy, fitness_fn: FitnessFn,
                  device: Union[str, torch.device] = "cuda",
                  engine: Optional[str] = None,
                  init_population=None,
-                 keep_population: bool = False) -> SearchResult:
+                 keep_population: bool = False,
+                 tracer: Optional[Tracer] = None) -> SearchResult:
     """Run a registered strategy on one problem for ``budget`` samples.
 
     Device-resident strategies run the generation loop on ``device``
@@ -185,7 +206,11 @@ def run_strategy(strategy: SearchStrategy, fitness_fn: FitnessFn,
     generator is seeded from ``seed`` on it, so no draw crosses the bus.
     ``init_population`` is a ``Population`` (used verbatim) or a
     ``WarmStart`` (seeded in ``init``), for strategies with
-    ``supports_init_population``.
+    ``supports_init_population``.  ``tracer`` (a ``repro_torch.obs``
+    ``Tracer``) takes a device-resident search's ``search.loop``,
+    ``search.readback`` and ``search.card`` spans; the result's
+    ``card_time_s`` is its loop's time on the card (timing events), None
+    where nothing ran there.
     """
     if not strategy.device_resident:
         if engine not in (None, "host"):
@@ -214,17 +239,21 @@ def run_strategy(strategy: SearchStrategy, fitness_fn: FitnessFn,
         raise ValueError(f"unknown engine {engine!r}; expected 'scan' or "
                          "'loop'")
     return _search(strategy, fitness_fn, budget, seed, device, engine,
-                   init_population, keep_population)
+                   init_population, keep_population, tracer=tracer)
 
 
 def _search(strategy: SearchStrategy, fitness_fn: FitnessFn, budget: int,
             seed: int, device: torch.device, engine: str, init_population,
             keep_population: bool,
-            capture: Optional[bool] = None) -> SearchResult:
+            capture: Optional[bool] = None,
+            tracer: Optional[Tracer] = None) -> SearchResult:
     """:func:`run_strategy`'s device-resident search, its arguments
     checked.  ``capture`` is ``scan_steps``'s: False runs the generation
     step eagerly on a card too (the uncaptured baseline of the captured
-    engine, which ``chip_smoke.py`` times)."""
+    engine, which ``chip_smoke.py`` times).  The loop's card interval is
+    settled after the read-back, which waits for it; ``search.card``
+    ends where the read-back returned."""
+    tracer = NULL_TRACER if tracer is None else tracer
     strategy = strategy.bind(fitness_fn.num_accels)
     generations, evolve_last = plan_generations(budget, strategy.ask_size)
     P, G = strategy.ask_size, fitness_fn.group_size
@@ -236,11 +265,19 @@ def _search(strategy: SearchStrategy, fitness_fn: FitnessFn, budget: int,
     t0 = time.perf_counter()
     state = strategy.init(row_generators([seed], device), params,
                           init_population=init_population)
+    card_time = None
     if engine == "scan":
-        bf, ba, bp, hist, state = scan_strategy(
-            strategy, state, params, objective, G, generations, evolve_last,
-            capture=capture)
-        bf, ba, bp, hist = to_host(bf, ba, bp, hist)
+        card: List[cardtime.CardInterval] = []
+        with stage("search.loop", tracer):
+            bf, ba, bp, hist, state = scan_strategy(
+                strategy, state, params, objective, G, generations,
+                evolve_last, capture=capture, card=card)
+        with stage("search.readback", tracer):
+            bf, ba, bp, hist = to_host(bf, ba, bp, hist)
+        card_time = cardtime.settle(card)
+        if card_time is not None and tracer.enabled:
+            t = tracer.now()
+            tracer.emit("search.card", t - card_time, t)
         best_fitness, best_accel, best_prio = float(bf[0]), ba[0], bp[0]
         history = hist[0].astype(np.float64)
     else:
@@ -259,5 +296,5 @@ def _search(strategy: SearchStrategy, fitness_fn: FitnessFn, budget: int,
         history_samples=P * np.arange(1, generations + 1),
         history_best=np.asarray(history, dtype=np.float64),
         n_samples=P * generations, wall_time_s=wall,
-        final_population=final,
+        final_population=final, card_time_s=card_time,
     )

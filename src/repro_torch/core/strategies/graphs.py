@@ -223,6 +223,7 @@ class GenerationStep:
         self.hists: Dict[Span, torch.Tensor] = {}
         self.graphs: Dict[Span, Tuple[torch.cuda.CUDAGraph,
                                       Dict[str, int]]] = {}
+        self.nodes: Dict[Span, int] = {}     # span -> its graph's nodes
         self.pool = None
         self.captures: List[dict] = []
         self.busy = False                  # @locked:_LOCK
@@ -352,6 +353,7 @@ class GenerationStep:
         if self.pool is None:
             self.pool = graph.pool()
         self.graphs[span] = (graph, launches)
+        self.nodes[span] = nodes or 0
         label = f"{self.key.label()} gens={span[0]}" + (
             "" if span[1] else " last")
         self.captures.append({"label": label, "generations": span[0],

@@ -51,6 +51,8 @@ host<->device synchronisation on the hot path raises; the chunk's
 read-back, a synchronisation by nature, runs after the guarded region.
 ``SweepConfig(obs=...)`` emits one ``sweep.chunk`` span per chunk on the
 process tracer (``repro_torch.obs.get_tracer``).  Neither changes a row.
+Each shard's loop is timed on the card (``strategies.cardtime``) and
+settled after the chunk's read-back.
 
 The devices are every visible card (``cuda:0`` .. ``cuda:n-1``) for
 ``device="cuda"``, the one device otherwise, or the explicit list
@@ -73,11 +75,12 @@ from repro_torch.core.fitness import (FitnessFn, FitnessParams,
                                       normalize_scenarios)
 from repro_torch.core.magma import BatchSearchResult, MagmaConfig
 from repro_torch.core.strategies import (MagmaStrategy, SearchStrategy,
-                                         WarmStart, available, get_strategy,
-                                         plan_generations)
+                                         WarmStart, available, cardtime,
+                                         get_strategy, plan_generations)
 from repro_torch.core.strategies.driver import run_interleaved, scan_steps
 from repro_torch.lint.runtime import transfer_sanitizer
 from repro_torch.obs import NULL_TRACER, as_obs_config, get_tracer
+from repro_torch.obs.profiler import stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,7 +177,8 @@ def _row_steps(seeds: Sequence[int], params: FitnessParams,
                evolve_last: bool, group_size: int,
                objective: Optional[ObjectiveSpec], device,
                keep_population: bool = False,
-               warm: Optional[WarmStart] = None):
+               warm: Optional[WarmStart] = None,
+               card: Optional[list] = None):
     """R (scenario, seed) rows on ``device`` (``params`` stacked there) --
     the trace of ``run_strategy``: seed each row's generator, init, run
     the shared loop -- as a generator that yields once each span of
@@ -184,11 +188,12 @@ def _row_steps(seeds: Sequence[int], params: FitnessParams,
     also the converged ``(pop_accel (R, P, G), pop_prio (R, P, G))``.
     ``warm`` is a per-row ``WarmStart`` (leading R, on the device)
     seeding each row's initial population in ``init``; neither option
-    changes the search a row runs."""
+    changes the search a row runs.  ``card`` is ``scan_steps``'s."""
     state = strategy.init(row_generators(seeds, device), params,
                           init_population=warm)
     out = yield from scan_steps(strategy, state, params, objective,
-                                group_size, generations, evolve_last)
+                                group_size, generations, evolve_last,
+                                card=card)
     if keep_population:
         pop = strategy.population(out[4])
         return out[:4] + (pop.accel, pop.prio)
@@ -199,11 +204,13 @@ def row_executable(strategy: SearchStrategy, generations: int,
                    evolve_last: bool, group_size: int, objective,
                    devices: Sequence[Union[str, torch.device]] = ("cuda",),
                    keep_population: bool = False):
-    """(row-batch fn, devices): ``fn(seeds (N,), shards, warm=None)``,
-    where ``shards`` holds one ``FitnessParams`` a device (the rows split
-    contiguously, ``N / len(devices)`` each, on that device) and ``warm``
-    likewise one ``WarmStart`` a device or None, returns one tuple of
-    per-row results a shard, on its device, without a sync.  The shards'
+    """(row-batch fn, devices): ``fn(seeds (N,), shards, warm=None,
+    card=None)``, where ``shards`` holds one ``FitnessParams`` a device
+    (the rows split contiguously, ``N / len(devices)`` each, on that
+    device), ``warm`` likewise one ``WarmStart`` a device or None and
+    ``card`` a list that takes each shard's card interval (``scan_steps``),
+    returns one tuple of per-row results a shard, on its device, without
+    a sync.  The shards'
     loops are issued from this thread in turn: on a card one load, one
     replay of the loop's graph and one unload a shard.  The function
     ``run_sweep`` runs each chunk through.  ``keep_population`` appends
@@ -216,7 +223,7 @@ def row_executable(strategy: SearchStrategy, generations: int,
             "per-row objective_code select is scalar-only")
     devices = tuple(torch.device(d) for d in devices)
 
-    def fn(seeds, shards, warm=None):
+    def fn(seeds, shards, warm=None, card=None):
         n = len(devices)
         seeds = np.asarray(seeds)
         per = seeds.shape[0] // n
@@ -224,7 +231,7 @@ def row_executable(strategy: SearchStrategy, generations: int,
             _row_steps(seeds[d * per:(d + 1) * per], shards[d], strategy,
                        generations, evolve_last, group_size, objective,
                        devices[d], keep_population,
-                       None if warm is None else warm[d])
+                       None if warm is None else warm[d], card)
             for d in range(n))
     return fn, devices
 
@@ -389,8 +396,9 @@ def run_rows(rows_params: FitnessParams, rows_seeds, *,
         buf = put_chunk(0)
     for i in range(n_chunks):
         tc = time.perf_counter()
-        with tracer.span("sweep.chunk", chunk=i, rows=chunk_rows,
-                         devices=ndev):
+        card: List[cardtime.CardInterval] = []
+        with stage("sweep.chunk", tracer, chunk=i, rows=chunk_rows,
+                   devices=ndev):
             with transfer_sanitizer(guard):
                 for d, (xs, done) in zip(devices, buf):
                     if done is not None:
@@ -401,12 +409,14 @@ def run_rows(rows_params: FitnessParams, rows_seeds, *,
                 out = fn(rows_seeds[i * chunk_rows:(i + 1) * chunk_rows],
                          [FitnessParams(*xs[:n_params]) for xs, _ in buf],
                          None if warm is None else
-                         [WarmStart(*xs[n_params:]) for xs, _ in buf])
+                         [WarmStart(*xs[n_params:]) for xs, _ in buf],
+                         card)
                 # the next chunk's copy overlaps this chunk's generations
                 buf = put_chunk(i + 1) if i + 1 < n_chunks else None
             # the chunk's results, one copy a shard: a synchronisation,
             # so outside the guard
             outs.append(host_rows(out))
+            cardtime.settle(card)
         walls.append(time.perf_counter() - tc)
     wall = time.perf_counter() - t0
 

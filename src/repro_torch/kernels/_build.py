@@ -28,6 +28,8 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, List
 
+from repro_torch.obs.registry import get_registry
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -63,7 +65,14 @@ def remove_compile_listener(fn: Callable[[str, float], None]) -> None:
 
 
 def notify_compile(name: str, seconds: float) -> None:
-    """Tell the compile listeners that ``name`` was compiled."""
+    """Tell the compile listeners that ``name`` was compiled, and add its
+    seconds to the process registry's ``repro_compile_seconds_total``
+    (``kind`` "graph" for a graph captured, "kernel" for a library)."""
+    get_registry().counter(
+        "repro_compile_seconds_total",
+        "Seconds of the process's compile events by kind").inc(
+            seconds, kind="graph" if name.startswith("cuda graph ")
+            else "kernel")
     with _lock:
         listeners = list(_listeners)
     for fn in listeners:

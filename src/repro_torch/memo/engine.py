@@ -47,6 +47,7 @@ from repro_torch.memo.fingerprint import (family_key, feature_vector,
                                           search_fingerprint,
                                           strategy_signature)
 from repro_torch.memo.store import MemoRecord, MemoStore
+from repro_torch.obs.profiler import stage
 from repro_torch.obs.trace import NULL_TRACER
 
 
@@ -221,7 +222,7 @@ class ScheduleMemo:
         the first time (idempotent replay).  ``scope`` is the request
         the ``memo.lookup`` span belongs to (the stream passes its uid).
         """
-        sp = self.tracer.span("memo.lookup", scope=scope)
+        sp = stage("memo.lookup", self.tracer, scope=scope)
         with sp:
             fp = self.fingerprint(fit, strategy, budget, seed)
             rec = self.store.get(fp)
@@ -289,7 +290,7 @@ class ScheduleMemo:
         init.  The population is resized on the host to the strategy's
         ask size (row tiling); the jitter is drawn in ``init``.
         """
-        sp = self.tracer.span("memo.warm_start", scope=scope)
+        sp = stage("memo.warm_start", self.tracer, scope=scope)
         with sp:
             strategy = strategy.bind(fit.num_accels)
             if not (self.near and strategy.supports_init_population):
@@ -331,8 +332,8 @@ class ScheduleMemo:
         ``scope`` is the request the ``memo.record`` span belongs to.
         Returns the fingerprint.
         """
-        with self.tracer.span("memo.record", scope=scope,
-                              warm_seeded=warm is not None):
+        with stage("memo.record", self.tracer, scope=scope,
+                   warm_seeded=warm is not None):
             strategy = strategy.bind(fit.num_accels)
             generations, evolve_last, P = self._protocol(strategy, budget)
             fp = self.fingerprint(fit, strategy, budget, seed)

@@ -8,14 +8,26 @@ Batch sweeps report one wall time; a streaming service is judged like a
 server: per-scenario schedule latency (arrival -> schedule returned)
 p50/p99, sustained scenarios/sec, and how busy the pipeline keeps the
 device (device-idle fraction — the quantity the async analysis stage
-exists to shrink).  Device busy time is measured as the union of
-[dispatch, done] intervals of all device batches: batches may overlap
-(up to ``max_inflight`` are issued at once and the card runs them
-back-to-back), so summing walls would double-count.  In the port a
-batch's ``dispatch_s`` is stamped before its first launch is issued
-(the host issues a whole search, generation by generation, before the
-call returns) and its ``done_s`` when the event recorded after its last
-launch has completed.
+exists to shrink).  Device busy time is the union of the batches'
+intervals (batches may overlap: up to ``max_inflight`` are issued at
+once, so summing them would double-count).  On a card each batch carries
+its loops' interval on the card itself (``card_start_s`` /
+``card_end_s``: timing events around each shard's loop, placed on the
+run's clock), and the busy time is the union of those.  Without them
+(the CPU, or batch records that lack them) it is the union of the host's
+``[dispatch_s, done_s]`` windows, as in the reference: ``dispatch_s``
+stamped before the batch's first launch is issued, ``done_s`` when the
+router saw the batch finished, which is after the card finished it by
+however long the router took to look (the route lag), so those windows
+count the route lag as busy.
+
+Besides the reference's rollup, :func:`compute_metrics` adds the card's
+counters to the process registry: ``repro_stream_batches_total``, and
+for the batches timed on the card ``repro_stream_batch_card_seconds_total``
+(card start to end), ``repro_stream_card_queue_seconds_total`` (issued
+to card start), ``repro_stream_route_lag_seconds_total`` (card end to
+seen done), ``repro_stream_card_busy_seconds_total`` (the run's union
+of them) and ``repro_stream_run_seconds_total`` (the run's wall).
 
 SLO accounting: requests may carry a priority class and a deadline
 (``ScenarioRequest.priority`` / ``deadline_s``); the metrics report the
@@ -53,7 +65,8 @@ class StreamMetrics:
     latency_p99_s: float
     latency_mean_s: float
     analysis_busy_s: float          # union of analysis intervals
-    device_busy_s: float            # union of [dispatch, routed] intervals
+    device_busy_s: float            # union of the batches' card intervals
+                                    # (host [dispatch, done] without them)
     device_idle_frac: float         # 1 - device_busy/wall
     num_batches: int
     mean_batch_fill: float          # real rows / padded rows, averaged
@@ -100,7 +113,11 @@ def compute_metrics(results, batches, wall_s: float,
     design) never routed — they are device work the results list cannot
     show."""
     lats = np.array([r.latency_s for r in results], dtype=np.float64)
-    dev = interval_union_s([(b.dispatch_s, b.done_s) for b in batches])
+    card = [(b.card_start_s, b.card_end_s) for b in batches
+            if getattr(b, "card_start_s", None) is not None]
+    carded = bool(batches) and len(card) == len(batches)
+    dev = interval_union_s(card if carded else
+                           [(b.dispatch_s, b.done_s) for b in batches])
     ana = interval_union_s(
         [(r.analysis_start_s, r.ready_s) for r in results
          if r.ready_s > r.analysis_start_s])
@@ -156,7 +173,35 @@ def compute_metrics(results, batches, wall_s: float,
         stolen_members=(admission.stolen if admission is not None else 0),
     )
     _publish(m, lats)
+    _publish_card(batches, wall_s, dev if carded else None)
     return m
+
+
+def _publish_card(batches, wall_s: float, card_busy_s) -> None:
+    """The run's batches on the card into the process registry:
+    counters, accumulating across runs (``card_busy_s`` None: the
+    batches were not all timed on the card)."""
+    reg = get_registry()
+    reg.counter("repro_stream_batches_total",
+                "Device batches the stream service routed").inc(len(batches))
+    if card_busy_s is None:
+        return
+    for b in batches:
+        reg.counter("repro_stream_batch_card_seconds_total",
+                    "Card seconds of the stream's batches").inc(
+                        b.card_end_s - b.card_start_s)
+        reg.counter("repro_stream_card_queue_seconds_total",
+                    "Seconds from a batch's issue to its card start").inc(
+                        max(0.0, b.card_start_s - b.issued_s))
+        reg.counter("repro_stream_route_lag_seconds_total",
+                    "Seconds from a batch's card end to the router seeing "
+                    "it done").inc(max(0.0, b.done_s - b.card_end_s))
+    reg.counter("repro_stream_card_busy_seconds_total",
+                "The card's busy seconds over stream runs (union of the "
+                "batches' card intervals)").inc(card_busy_s)
+    reg.counter("repro_stream_run_seconds_total",
+                "Wall seconds of stream runs with batches timed on the "
+                "card").inc(wall_s)
 
 
 def _publish(m: StreamMetrics, lats) -> None:

@@ -37,6 +37,17 @@ A port of ``repro.stream.service``.  Stages:
                   stamps; ``compute_metrics`` turns them into service
                   metrics
 
+The card's own timeline: each shard's loop is bracketed by two timing
+events (``repro_torch.core.strategies.cardtime``), read once the router
+has waited for the batch, and placed on the run's clock through an
+anchor event recorded as the run starts, while the card is idle.  A
+batch record so carries ``card_start_s`` / ``card_end_s`` besides the
+host's stamps; with observability on, a request's ``card_queue`` span
+runs from the batch's issue to the card's start, its ``device`` span is
+the card's interval and its ``route`` span runs from the card's end to
+the routed rows (on the CPU, where there are no events, ``device`` is the
+host's dispatch-to-done window as before).
+
 Bit-identity guarantee
 ----------------------
 A streamed scenario's schedule is **bitwise** a standalone
@@ -73,15 +84,16 @@ from repro_torch.core.fitness import FitnessFn, FitnessParams, ObjectiveSpec
 from repro_torch.core.magma import MagmaConfig, SearchResult
 from repro_torch.core.pareto import ParetoFront, pareto_front
 from repro_torch.core.strategies import (SearchStrategy, WarmStart,
-                                         plan_generations)
+                                         cardtime, plan_generations)
 from repro_torch.core.sweep import (_pad_rows, _resolve_strategy,
                                     row_executable, shard_devices,
                                     split_rows)
 from repro_torch.lint.runtime import transfer_sanitizer
 from repro_torch.memo.engine import row_view
-from repro_torch.obs import (FlightRecorder, NULL_SPAN, NULL_TRACER,
+from repro_torch.obs import (FlightRecorder, NULL_TRACER,
                              ObsConfig, RunClock, Tracer, as_obs_config)
 from repro_torch.obs import capture as _flight_capture
+from repro_torch.obs.profiler import mirror, stage
 from repro_torch.stream.admission import AdmissionQueues
 from repro_torch.stream.analysis import AnalysisPool, ReadyScenario
 from repro_torch.stream.metrics import StreamMetrics, compute_metrics
@@ -292,7 +304,10 @@ class _BatchRecord:
     """Router-side record of one device dispatch (feeds the metrics).
     ``issued_s`` is when the host finished issuing the batch's launches:
     ``issued_s - dispatch_s`` is the host's issue time, ``done_s -
-    dispatch_s`` the batch's dispatch-to-done window."""
+    dispatch_s`` the batch's dispatch-to-done window (``done_s``: when
+    the router saw the batch finished).  ``card_start_s`` /
+    ``card_end_s`` are the batch's loops on the card, first start to last
+    end, on the run's clock (None without timing events: the CPU)."""
     dispatch_s: float
     done_s: float
     rows: int
@@ -300,6 +315,8 @@ class _BatchRecord:
     num_devices: int
     compat_key: Tuple
     issued_s: float = 0.0
+    card_start_s: Optional[float] = None
+    card_end_s: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -315,6 +332,8 @@ class _Inflight:
     issued_s: float = 0.0
     done: Optional["_CardsDone"] = None      # recorded after the last
                                              # launch (None on the CPU)
+    card: List[cardtime.CardInterval] = dataclasses.field(
+        default_factory=list)                # each shard's loop (a card)
 
 
 class _CardsDone(NamedTuple):
@@ -392,6 +411,9 @@ class StreamingScheduler:
         # run-relative clock shared by result timestamps AND the span
         # tracer, so a trace file lines up with StreamResult fields
         self.clock = RunClock()
+        # device -> (anchor event, its time on self.clock), recorded as a
+        # run starts: the card's events go on the run's clock through it
+        self._anchors: Dict[torch.device, Tuple[object, float]] = {}
         self.obs = as_obs_config(self.stream.obs)
         if self.obs.enabled:
             self.tracer = Tracer(capacity=self.obs.trace_capacity,
@@ -427,9 +449,16 @@ class StreamingScheduler:
         return self.clock()
 
     def _begin_run(self) -> None:
-        """Reset per-run state: the clock zero, batch records, and (when
-        observability is on) the span buffer.  @holds:_run_lock"""
+        """Reset per-run state: the clock zero, batch records, the
+        card's anchors (the card is idle: every earlier batch has been
+        waited for) and (when observability is on) the span buffer.
+        @holds:_run_lock"""
         self.clock.reset()
+        self._anchors = {}
+        for d in dict.fromkeys(self.devices):
+            event = cardtime.anchor(d)
+            if event is not None:
+                self._anchors[d] = (event, self._clock())
         self.last_batches = []
         self._refined = 0
         if self.obs.enabled and self.obs.clear_per_run:
@@ -488,12 +517,19 @@ class StreamingScheduler:
         return ((self.memo is not None and strategy.supports_init_population)
                 or getattr(strategy, "multi_objective", False))
 
-    # lint: dispatch
     def _dispatch(self, compat_key: CompatKey, members: List[ReadyScenario]
                   ) -> _Inflight:
         """Assemble one batch and issue its generation loop on the
         service's device (on a card one replay a shard) without waiting
-        for it.  @holds:_run_lock"""
+        for it; the profiler range ``repro.dispatch`` while a profiler is
+        active.  @holds:_run_lock"""
+        with mirror("dispatch"):
+            return self._issue(compat_key, members)
+
+    # lint: dispatch
+    def _issue(self, compat_key: CompatKey, members: List[ReadyScenario]
+               ) -> _Inflight:
+        """:meth:`_dispatch`'s body.  @holds:_run_lock"""
         base, G, A, use_kernel, objective, budget, is_warm = compat_key
         # lint: disable=L002(a host bool of the key)
         warm_seeded = bool(is_warm)     # compat-key flag, not key material
@@ -542,6 +578,7 @@ class StreamingScheduler:
         # stamp after it would miss the issue
         dispatch_s = self._clock()
         done = None
+        card: List[cardtime.CardInterval] = []
         with transfer_sanitizer(self.stream.transfer_guard and cuda):
             shards = [tuple(x.to(d, non_blocking=True) for x in xs)
                       for d, xs in zip(devices, split_rows(host, ndev))]
@@ -549,7 +586,7 @@ class StreamingScheduler:
             out = fn(seeds, [FitnessParams(*xs[:n_params]) for xs in shards],
                      # lint: disable=L002(a host bool of the compat key)
                      [WarmStart(*xs[n_params:]) for xs in shards]
-                     if warm_seeded else None)
+                     if warm_seeded else None, card)
             # each shard's read-back is queued behind its loop, so the
             # route of this batch waits for this batch alone
             reads = [to_host_async(*o) for o in out]
@@ -560,7 +597,7 @@ class StreamingScheduler:
         inf = _Inflight(reads=reads, members=members, dispatch_s=dispatch_s,
                         padded_rows=padded, num_devices=ndev,
                         compat_key=compat_key, issued_s=self._clock(),
-                        done=done)
+                        done=done, card=card)
         if self.tracer.enabled:
             # host-side stamps only — the device span is emitted at route
             # time, when its end is known
@@ -615,12 +652,38 @@ class StreamingScheduler:
                              ready_s=now,
                              strategy=self._resolve_override(p.strategy))
 
+    def _card_window(self, inf: _Inflight
+                     ) -> Tuple[Optional[float], Optional[float]]:
+        """The batch's loops on the card, first start to last end, on the
+        run's clock through each device's anchor; ``(None, None)`` without
+        events or anchors (the CPU, a warm-up) or before the card is done.
+        """
+        spans = []
+        for iv in inf.card:
+            anchor = self._anchors.get(iv.device)
+            if anchor is None or not iv.done():
+                return None, None
+            event, t = anchor
+            spans.append((t + cardtime.between(event, iv.start),
+                          t + cardtime.between(event, iv.end)))
+        if not spans:
+            return None, None
+        return min(a for a, _ in spans), max(b for _, b in spans)
+
     def _route(self, inf: _Inflight, results: List[StreamResult]) -> None:
         """Wait for a batch, take its rows from the read-back its
         dispatch queued and route them.  The wait synchronises with the
         card, so it runs outside the transfer guard.  @holds:_run_lock"""
+        with mirror("route"):
+            self._route_batch(inf, results)
+
+    def _route_batch(self, inf: _Inflight,
+                     results: List[StreamResult]) -> None:
+        """:meth:`_route`'s body.  @holds:_run_lock"""
         self._wait(inf)
         done = self._clock()
+        card_start, card_end = self._card_window(inf)
+        cardtime.settle(inf.card)
         outs = tuple(np.concatenate(col)
                      for col in zip(*(read() for read in inf.reads)))
         bf, ba, bp, hist = outs[:4]
@@ -673,16 +736,27 @@ class StreamingScheduler:
         self.last_batches.append(_BatchRecord(
             dispatch_s=inf.dispatch_s, done_s=done, rows=len(inf.members),
             padded_rows=inf.padded_rows, num_devices=inf.num_devices,
-            compat_key=inf.compat_key, issued_s=inf.issued_s))
+            compat_key=inf.compat_key, issued_s=inf.issued_s,
+            card_start_s=card_start, card_end_s=card_end))
         if self.tracer.enabled:
             t_routed = self.tracer.now()
             for m in inf.members:
                 uid = m.request.uid
-                self.tracer.emit("device", inf.dispatch_s, done,
+                if card_start is None:
+                    self.tracer.emit("device", inf.dispatch_s, done,
+                                     scope=uid, rows=len(inf.members),
+                                     devices=inf.num_devices)
+                    self.tracer.emit("route", done, t_routed, scope=uid,
+                                     silent=m.silent)
+                    continue
+                # empty where the card started before the issue ended
+                self.tracer.emit("card_queue", inf.issued_s,
+                                 max(inf.issued_s, card_start), scope=uid)
+                self.tracer.emit("device", card_start, card_end,
                                  scope=uid, rows=len(inf.members),
                                  devices=inf.num_devices)
-                self.tracer.emit("route", done, t_routed, scope=uid,
-                                 silent=m.silent)
+                self.tracer.emit("route", card_end, t_routed, scope=uid,
+                                 silent=m.silent, noticed_s=done)
             if self.flight is not None:
                 self.flight.note("route", rows=len(inf.members),
                                  device_s=done - inf.dispatch_s)
@@ -773,8 +847,6 @@ class StreamingScheduler:
     def _run(self, requests, prepared) -> List[StreamResult]:
         """The pipeline body (entered by ``run()``).  @holds:_run_lock"""
         self._begin_run()
-        realtime = self.stream.realtime
-
         to_submit = deque(sorted(requests, key=lambda r: (r.arrival_s, r.uid)))
         queues = self._admission()
         self.last_admission = queues      # counters readable post-run
@@ -783,15 +855,30 @@ class StreamingScheduler:
         results: List[StreamResult] = []
 
         def admit(ready: ReadyScenario):
-            if self.tracer.enabled:
-                with self.tracer.span("admit", scope=ready.request.uid) as sp:
-                    self._admit(ready, queues, results, sp)
-            else:
-                self._admit(ready, queues, results, NULL_SPAN)
+            with stage("admit", self.tracer, scope=ready.request.uid) as sp:
+                self._admit(ready, queues, results, sp)
 
         for p in prepared:
             admit(self._prepared_ready(p))
 
+        with stage("stream.run", self.tracer):
+            self._loop(to_submit, futs, queues, inflight, results, admit)
+
+        wall = self._clock()
+        results.sort(key=lambda r: r.request.uid)
+        queues.check()               # enqueued == dispatched+stolen+depth
+        self.last_metrics = compute_metrics(results, self.last_batches, wall,
+                                            refinements=self._refined,
+                                            admission=queues)
+        return results
+
+    def _loop(self, to_submit: deque, futs: set, queues: AdmissionQueues,
+              inflight: deque, results: List[StreamResult], admit) -> None:
+        """The pipeline's loop (``_run``'s), until every request is
+        routed.  Its waits for an analysis or an arrival are the stages
+        ``stream.wait_analysis`` / ``stream.wait_arrival``.
+        @holds:_run_lock"""
+        realtime = self.stream.realtime
         while to_submit or futs or queues or inflight:
             progressed = False
 
@@ -853,18 +940,12 @@ class StreamingScheduler:
                     # (held partials dispatch right after it routes)
                     self._route(inflight.popleft(), results)
                 elif futs:         # analyses still running: wait for one
-                    wait(futs, timeout=0.01, return_when=FIRST_COMPLETED)
+                    with stage("stream.wait_analysis", self.tracer):
+                        wait(futs, timeout=0.01, return_when=FIRST_COMPLETED)
                 elif realtime and to_submit:
-                    time.sleep(min(0.01, max(
-                        0.0, to_submit[0].arrival_s - self._clock())))
-
-        wall = self._clock()
-        results.sort(key=lambda r: r.request.uid)
-        queues.check()               # enqueued == dispatched+stolen+depth
-        self.last_metrics = compute_metrics(results, self.last_batches, wall,
-                                            refinements=self._refined,
-                                            admission=queues)
-        return results
+                    with stage("stream.wait_arrival", self.tracer):
+                        time.sleep(min(0.01, max(
+                            0.0, to_submit[0].arrival_s - self._clock())))
 
     def run_trace(self, trace: TraceConfig) -> List[StreamResult]:
         """Generate ``trace`` and run it through the pipeline."""
@@ -933,7 +1014,9 @@ class StreamingScheduler:
                 bucket = 1
                 while True:
                     members = [ready] * min(bucket, self.stream.batch_rows)
-                    self._wait(self._dispatch(key, members))
+                    inf = self._dispatch(key, members)
+                    self._wait(inf)
+                    cardtime.settle(inf.card)
                     if bucket >= self.stream.batch_rows:
                         break
                     bucket *= 2

@@ -33,6 +33,8 @@ engine built, and the executed tokens are those of the direct schedule.
 """
 import collections
 import dataclasses
+import os
+import sys
 import threading
 import types
 
@@ -623,6 +625,28 @@ def test_all_deadlines_expired_and_empty_trace():
     assert m.latency_p99_urgent_s > 0.0 and m.latency_p99_normal_s == 0.0
     assert svc.run([]) == []
     assert svc.last_metrics.num_with_deadline == 0
+
+
+def test_the_benchmark_delivery_clock_stamps_every_routed_request():
+    """``m3ebench/entries/stream.py::stamped_scheduler`` overrides the
+    private ``_begin_run`` and ``_route`` to stamp the run's zero and each
+    schedule's delivery: every routed request is stamped, at or after the
+    time it was due."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from m3ebench.entries.stream import stamped_scheduler
+    trace = generate_trace(TraceConfig(num_scenarios=6, rate_hz=40.0,
+                                       seed=5, **QUICK))
+    svc = stamped_scheduler(StreamingScheduler)(
+        budget=BUDGET, device="cpu",
+        stream=StreamConfig(batch_rows=4, realtime=True))
+    results = svc.run(trace)
+    svc.close()
+    assert sorted(svc.bench_delivered) == sorted(r.uid for r in trace)
+    assert len(results) == len(trace)
+    for r in trace:
+        assert svc.bench_delivered[r.uid] >= svc.bench_zero + r.arrival_s
 
 
 # ---------------------------------------------------------------------------
