@@ -19,7 +19,9 @@ Phases, in order; any failure raises and exits non-zero:
               the makespan kernel at the main path's shapes and at edge
               cases, plus the float64 oracle, bitwise population-size
               invariance and a per-row bw_sys launch (4 rows of 100, four
-              bandwidths) bitwise equal to four one-row launches; the selective-scan kernel at the reference
+              bandwidths) bitwise equal to four one-row launches; MAGMA's
+              draw kernel bitwise its plain version at R = 48, 8 and 1
+              rows; the selective-scan kernel at the reference
               tests' shapes (float32 and bf16 inputs), at the two
               serving shapes, at falcon-mamba's width with phase 14's
               prompt lengths and at phase 15's two evaluation shapes
@@ -382,6 +384,9 @@ FIG9_TASKS = ("Vision", "Mix")
 DEVICE_METHODS = ("magma", "stdga", "de", "pso", "random")
 HOST_METHODS = ("cmaes", "tbpsa", "a2c", "ppo2", "herald_like", "ai_mt_like")
 COMPARE_SEEDS = (0, 1)
+# MAGMA's draw kernel at the sweep's, the stream's and a search's shapes
+# (R rows, n children, G jobs, A accelerators)
+DRAW_SHAPES = ((48, 90, 100, 4), (8, 90, 100, 8), (1, 90, 100, 8))
 COMPARE_CHUNK_ROWS = 3       # 4 rows a sweep: the last chunk is partial
 # the sweep also run split into two shards on the one card (device list
 # [cuda:0, cuda:0]; chunks of 3 rounded up to 4 rows, 2 a shard)
@@ -487,24 +492,61 @@ def check(cond, msg):
 
 
 def launch_mark(mk):
-    """Where the makespan kernel's launches stand: its count, beside the
-    graph engine's captures and the launches of the warm generation
-    before each (``graphs.totals()``)."""
+    """Where the generation loop's kernels' launches stand: the makespan
+    kernel's count, beside the graph engine's captures and the launches
+    of the warm generation before each (``graphs.totals()``), and the
+    draw kernel's count beside MAGMA's tells on the card
+    (``graphs.tells()``)."""
     from repro_torch.core.strategies import graphs
+    from repro_torch.kernels import draws
     t = graphs.totals()
-    return mk.LAUNCHES["makespan"], t["captures"], t["warm_launches"]
+    return (mk.LAUNCHES["makespan"], t["captures"], t["warm_launches"],
+            draws.LAUNCHES["draws"], graphs.tells().get("magma", 0))
+
+
+def check_draws(drawn, told, what):
+    """MAGMA's draw kernel launched once a tell on the card (the warm
+    generation's before a capture among them): the card path ran the
+    kernel, not the plain version."""
+    check(drawn == told,
+          f"{what}: the draw kernel launched {drawn} times over {told} "
+          "MAGMA tells on the card, want one each")
 
 
 def launches_since(mk, mark, what):
     """``(launched, made)``: the makespan launches since ``mark``, and of
     them those the searches' generations made, the rest being one warm
-    generation's before each graph capture since (checked)."""
-    launched, captures, warm = (a - b for a, b in zip(launch_mark(mk), mark))
+    generation's before each graph capture since (checked); the draw
+    kernel's launches since are checked against MAGMA's tells."""
+    launched, captures, warm, drawn, told = (
+        a - b for a, b in zip(launch_mark(mk), mark))
     check(warm == captures,
           f"{what}: the warm generations before {captures} graph "
           f"captures launched the makespan kernel {warm} times, want one "
           "each")
+    check_draws(drawn, told, what)
     return launched, launched - warm
+
+
+_DRAWS_FROM = [0]     # MAGMA's tells on the card when the count was reset
+
+
+def reset_draws():
+    """The draw kernel's count set to 0, and MAGMA's tells noted."""
+    from repro_torch.core.strategies import graphs
+    from repro_torch.kernels import draws
+    draws.reset_launches()
+    _DRAWS_FROM[0] = graphs.tells().get("magma", 0)
+
+
+def draws_counted(what):
+    """The draw kernel's launches since :func:`reset_draws`, checked
+    equal to MAGMA's tells on the card since."""
+    from repro_torch.core.strategies import graphs
+    from repro_torch.kernels import draws
+    drawn = draws.LAUNCHES["draws"]
+    check_draws(drawn, graphs.tells().get("magma", 0) - _DRAWS_FROM[0], what)
+    return drawn
 
 
 def lint_phase():
@@ -552,6 +594,8 @@ def kernel_label(mangled):
     m = re.search(r"makespan_kernelILi(\d+)E", mangled)
     if m:
         return f"groups of {m.group(1)} lanes"
+    if "draws_kernel" in mangled:
+        return "one Philox block a thread"
     m = re.search(r"ssm_scan_kernelI(\w+?)Li(\d+)ELi(\d+)E", mangled)
     if m:
         types = m.group(1)
@@ -561,6 +605,29 @@ def kernel_label(mangled):
                 f"{'f32' if rest == 'f' else 'bf16'}, {m.group(2)} states "
                 f"a lane, {m.group(3)} lanes")
     return None
+
+
+def draws_checks(dev):
+    """MAGMA's draw kernel against its plain version, bitwise, at the
+    sweep's, the stream's and a search's shapes (R, n, G, A)."""
+    import torch
+    from repro_torch.core import magma
+    from repro_torch.kernels import draws
+    for R, n, G, A in DRAW_SHAPES:
+        gen = torch.Generator().manual_seed(R)
+        key = torch.randint(0, 2 ** 32, (R, 2), generator=gen)
+        ctr = torch.randint(0, 2 ** 40, (R,), generator=gen)
+        slots = magma.generation_slots(n, G, A, magma.MagmaConfig())
+        got, got_next = draws.draws(key.to(dev), ctr.to(dev), slots)
+        want, want_next = draws.draws_plain(key, ctr, slots)
+        for s, g, w in zip(slots, got, want):
+            check(torch.equal(g.cpu(), w),
+                  f"draws R={R} n={n} G={G} A={A}: slot {s} differs "
+                  "bitwise from the plain version")
+        check(torch.equal(got_next.cpu(), want_next),
+              f"draws R={R}: the next counter differs")
+        print(f"[check] draws R={R} n={n} G={G} A={A}: 12 slots == plain, "
+              "bitwise")
 
 
 def compare(got, want, what):
@@ -597,6 +664,107 @@ def time_cuda(fn, reps, warmup):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def draws_bound_ms(R, slots):
+    """Least time for one launch of the draw kernel: the bytes it writes
+    (each slot's values, 4 bytes a float or int, 1 a bool; the next
+    counter) and reads (the key and the counter); its Philox rounds are
+    integer multiplies far below the bytes' time."""
+    nbytes = R * (24 + 8)
+    for s in slots:
+        numel = 1
+        for d in s.shape:
+            numel *= d
+        nbytes += R * numel * (1 if s.kind == "bool" else 4)
+    return nbytes / hbm_rate() * 1e3, nbytes
+
+
+def per_row_draws(gens, slots):
+    """A generation's draws as before the draw kernel: one
+    ``torch.rand`` / ``torch.randint`` a row and slot, from the row's
+    generator (``encoding.rand_rows`` / ``randint_rows``)."""
+    from repro_torch.core.encoding import rand_rows, randint_rows
+    out = []
+    for s in slots:
+        if s.kind == "int":
+            out.append(randint_rows(gens, s.lo, s.hi, s.shape))
+        else:
+            u = rand_rows(gens, s.shape)
+            out.append(u < 0.5 if s.kind == "bool" else u)
+    return out
+
+
+def graph_ms_gens(fn, gens, reps, replays=5):
+    """``_variants.graph_ms`` for calls that draw from the generators
+    ``gens``: each registered to the graph, as the generation engine
+    registers a step's."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    for gen in gens:
+        graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * reps)
+
+
+def draws_timing(dev):
+    """The draw kernel at ``DRAW_SHAPES``: device ms a launch (a CUDA
+    graph of 100), host-issued ms, the plain version's ms on card
+    tensors, the byte bound, and ``library_ms``: the per-row
+    ``torch.rand`` / ``torch.randint`` draws it replaced (12 R launches
+    a generation) in a CUDA graph of 10 generations."""
+    import torch
+    from repro_torch.core import magma
+    from repro_torch.core.encoding import row_generators
+    from repro_torch.kernels import draws
+    from repro_torch.kernels._variants import graph_ms
+    out = {}
+    for R, n, G, A in DRAW_SHAPES:
+        gen = torch.Generator().manual_seed(R)
+        key = torch.randint(0, 2 ** 32, (R, 2), generator=gen).to(dev)
+        ctr = torch.zeros((R,), dtype=torch.int64, device=dev)
+        slots = magma.generation_slots(n, G, A, magma.MagmaConfig())
+        gens = row_generators(range(R), dev)
+
+        def kernel():
+            return draws.draws(key, ctr, slots)
+
+        ms = graph_ms(kernel, 100)
+        host_ms = time_cuda(kernel, 100, 10)
+        plain_ms = time_cuda(lambda: draws.draws_plain(key, ctr, slots),
+                             10, 2)
+        library_ms = graph_ms_gens(lambda: per_row_draws(gens, slots), gens,
+                                   10)
+        bound_ms, nbytes = draws_bound_ms(R, slots)
+        out[f"R{R}"] = {"ms": ms, "ms_host_issued": host_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": "bytes", "bytes": nbytes,
+                        "library_ms": library_ms,
+                        "shape": {"R": R, "n": n, "G": G, "A": A}}
+        print(f"[timing] draws R={R} n={n} G={G} A={A}: kernel {ms:.6f} ms "
+              f"on the device ({host_ms:.6f} ms issued from the host), "
+              f"plain {plain_ms:.6f} ms, bound {bound_ms:.6f} ms (bytes, "
+              f"{nbytes} B); per-row torch.rand / torch.randint "
+              f"{library_ms:.6f} ms a generation on the device")
+    return out
 
 
 def makespan_bound_ms(P, A, G):
@@ -2138,6 +2306,7 @@ def launch_phase(dev, mk, ssm, fa, full=True):
         mk.reset_launches()
         ssm.reset_launches()
         fa.reset_launches()
+        reset_draws()
         start = launch_mark(mk)
         t0 = time.perf_counter()
         res = launcher.run(tenants, requests=LAUNCH_REQUESTS, execute=True,
@@ -2150,6 +2319,7 @@ def launch_phase(dev, mk, ssm, fa, full=True):
         counts = {"makespan": mk.LAUNCHES["makespan"],
                   "ssm_scan": ssm.LAUNCHES["ssm_scan"],
                   "flash_attention": fa.LAUNCHES["flash_attention"]}
+        out["draws_launches"] = draws_counted("launch")
     finally:
         MultiTenantEngine.schedule = plain_schedule
         for t in tenants:
@@ -3062,7 +3232,7 @@ def fleet_phase(dev, mk, budget=STREAM_BUDGET, trace_kw=None,
         parent[0] += svc.dispatched_generations
         svc.close()
 
-        worker_launches = 0
+        worker_launches = worker_draws = 0
         for n in workers:
             cfg = FleetConfig(num_workers=n, budget=budget, device="cuda"
                               if dev.type == "cuda" else "cpu",
@@ -3120,7 +3290,12 @@ def fleet_phase(dev, mk, budget=STREAM_BUDGET, trace_kw=None,
                 check(a["recompiles_post_warmup"] == 0,
                       f"fleet: {n}-worker {wid} built or captured "
                       f"{a['post_warmup']} after its warmup")
+                check_draws(a["draws_launches"], a["magma_tells"],
+                            f"fleet: {n}-worker {wid}")
+                check(a["draws_launches"] > 0 or dev.type != "cuda",
+                      f"fleet: {n}-worker {wid} launched no draw kernel")
                 worker_launches += a["makespan_launches"]
+                worker_draws += a["draws_launches"]
                 row["workers"][wid] = {
                     "makespan_launches": a["makespan_launches"],
                     "measured_run_launches": (c["makespan_launches"]
@@ -3156,6 +3331,7 @@ def fleet_phase(dev, mk, budget=STREAM_BUDGET, trace_kw=None,
           f"fleet: this process's generations launched the makespan kernel "
           f"{made} times, want {parent[0]}")
     out["launches_workers"] = worker_launches
+    out["draws_workers"] = worker_draws
     out["launches_parent"] = total
     out["phase_wall_s"] = time.perf_counter() - t_phase
     print(f"[fleet] phase wall {out['phase_wall_s']:.3f} s, makespan "
@@ -3925,10 +4101,13 @@ def main():
         mk.reset_launches()
         ssm.reset_launches()
         fa.reset_launches()
+        reset_draws()
+
+    draw_counts = {}      # the draw kernel's launches by path
 
     # -- 2. build ---------------------------------------------------------
     mark("2. build")
-    names = ("makespan", "ssm_scan", "flash_attention")
+    names = ("makespan", "draws", "ssm_scan", "flash_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(_build.load, names))
@@ -4039,6 +4218,7 @@ def main():
               "from its one-row launch")
     print("[check] per-row bw_sys R=4 rows == four one-row launches, "
           "bitwise")
+    draws_checks(dev)
 
     table = fit.table
     bw_host = float(fit.bw_sys)
@@ -4124,6 +4304,7 @@ def main():
     # token comes last (launch_profile)
     launch_out, probe_prompts = launch_phase(dev, mk, ssm, fa)
     launch_counts = launch_out["counts"]
+    draw_counts["launch"] = launch_out["draws_launches"]
     errs.append(launch_out["makespan_check"])
     print(f"[launch] launch path launches: {launch_counts}")
     free(dev)
@@ -4143,6 +4324,7 @@ def main():
           and want["flash_attention"] == 7,
           f"families launches {family_counts}, want {want} (64 + 38 scan, "
           "7 flash)")
+    draw_counts["families"] = draws_counted("families")
     print(f"[families] families path launches: {family_counts}")
     families_out["timing"] = families_timing(ssm, fa, flash_attention_ref,
                                              ssm_eval, flash_zamba2)
@@ -4161,7 +4343,10 @@ def main():
             "flash_attention": 0}
     check(stream_counts == want and want["makespan"] > 0,
           f"stream launches {stream_counts}, want {want}")
-    print(f"[stream] stream path launches: {stream_counts}")
+    draw_counts["stream"] = draws_counted("stream")
+    check(draw_counts["stream"] > 0, "stream: no draw kernel launch")
+    print(f"[stream] stream path launches: {stream_counts}, draws "
+          f"{draw_counts['stream']}")
     free(dev)
 
     # -- 17. fleet: the scheduling fleet's workers on the one card --------
@@ -4179,8 +4364,12 @@ def main():
     check(fleet_counts == want and fleet_out["launches_workers"] > 0,
           f"fleet launches {fleet_counts}, want {want} (workers' "
           f"{fleet_out['launches_workers']} + this process's)")
+    draw_counts["fleet"] = (fleet_out["draws_workers"]
+                            + draws_counted("fleet: this process"))
     print(f"[fleet] fleet path launches: {fleet_counts} (the workers' "
-          f"{fleet_out['launches_workers']} makespan launches included)")
+          f"{fleet_out['launches_workers']} makespan launches included), "
+          f"draws {draw_counts['fleet']} (the workers' "
+          f"{fleet_out['draws_workers']})")
     free(dev)
 
     # -- 20. graph: the generation engine, captured against loop ----------
@@ -4195,7 +4384,9 @@ def main():
           and graph_counts["flash_attention"] == 0,
           f"graph launches {graph_counts}: want the makespan kernel and no "
           "other")
-    print(f"[graph] graph path launches: {graph_counts}")
+    draw_counts["graph"] = draws_counted("graph")
+    print(f"[graph] graph path launches: {graph_counts}, draws "
+          f"{draw_counts['graph']}")
     free(dev)
 
     # -- 4. main path -----------------------------------------------------
@@ -4209,6 +4400,11 @@ def main():
         before = launch_mark(mk)
         res = m3e.search(group, method="magma", budget=budget, seed=seed)
         launched = launches_since(mk, before, f"seed {seed}")[1]
+        now = launch_mark(mk)
+        drawn, captured = now[3] - before[3], now[1] - before[1]
+        check(drawn == 99 + captured,
+              f"seed {seed}: {drawn} draw kernel launches, want one a tell "
+              f"(99) and one a graph capture ({captured})")
         walls.append(res.wall_time_s)
         print(f"[main] S4/Mix G=100 P=100 budget={budget} seed={seed}: best "
               f"throughput {res.best_fitness:.6e} FLOP/s, wall "
@@ -4231,7 +4427,9 @@ def main():
     check(ssm.LAUNCHES["ssm_scan"] == 0
           and fa.LAUNCHES["flash_attention"] == 0,
           "the M3E searches launched the scan or the flash kernel")
-    print(f"[main] makespan kernel launches over 4 searches: {launches}")
+    draw_counts["m3e_search"] = draws_counted("main path")
+    print(f"[main] makespan kernel launches over 4 searches: {launches}, "
+          f"draw kernel launches {draw_counts['m3e_search']}")
 
     # -- 5. timing --------------------------------------------------------
     mark("5. timing")
@@ -4260,6 +4458,7 @@ def main():
           f"from the host), plain {plain_big:.6f} ms, bound {bound_big:.6f} "
           f"ms ({by_big}); library call: none")
     print(f"[timing] search wall s per seed: {walls}")
+    draws_times = draws_timing(dev)
     per_row = {}
     for R in (4, 3):
         n = R * 100
@@ -4339,10 +4538,11 @@ def main():
                               prompts=prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = (ssm.LAUNCHES["ssm_scan"], mk.LAUNCHES["makespan"])
         # the generations' makespan launches, less one in the warm
         # generation before each graph capture
         made = launches_since(mk, start, what)[1]
+        counts = (ssm.LAUNCHES["ssm_scan"], mk.LAUNCHES["makespan"],
+                  draws_counted(what))
         check(fa.LAUNCHES["flash_attention"] == 0,
               f"{what}: serving launched the flash kernel")
         check(sorted(u for q in out["queues"] for u in q)
@@ -4363,7 +4563,7 @@ def main():
         print(f"[serve] {what}: {len(jobs)} jobs on {len(engine.submeshes)} "
               f"submeshes, schedule+execute wall {wall:.3f} s (search "
               f"{out['result'].wall_time_s:.3f} s), launches ssm_scan "
-              f"{counts[0]} makespan {counts[1]}")
+              f"{counts[0]} makespan {counts[1]} draws {counts[2]}")
         return jobs, out, wall, counts
 
     requests = [(arch, PROMPT, GENERATE) for arch in SERVE_ARCHS
@@ -4530,6 +4730,7 @@ def main():
     want = {"makespan": 0, "ssm_scan": 0, "flash_attention": 40 + 24}
     check(train_eval_counts == want,
           f"train_eval launches {train_eval_counts}, want {want}")
+    draw_counts["train_eval"] = draws_counted("train_eval")
     print(f"[eval] train_eval path launches: {train_eval_counts}")
     del trained
     free(dev)
@@ -4555,6 +4756,7 @@ def main():
                           "flash_attention": 0},
           f"mesh launches {mesh_counts}: want none (training runs the plain "
           "products)")
+    draw_counts["mesh"] = draws_counted("mesh")
     print(f"[mesh] mesh path launches: {mesh_counts}")
 
     # -- the dry-run, in a process of its own on the host's CPU ----------
@@ -4578,7 +4780,9 @@ def main():
               and compare_counts["makespan"] == compared["launches"] > 0,
               f"compare launches {compare_counts}: want the makespan kernel "
               f"{compared['launches']} times (the phase's parts) and no other")
-        print(f"[compare] compare path launches: {compare_counts}")
+        draw_counts["compare"] = draws_counted("compare")
+        print(f"[compare] compare path launches: {compare_counts}, draws "
+              f"{draw_counts['compare']}")
 
         # -- 13. memo: exact replay, memoized sweeps, warm starts, Table V ----
         mark("13. memo")
@@ -4592,7 +4796,9 @@ def main():
               and memo_counts["makespan"] > 0,
               f"memo launches {memo_counts}: want the makespan kernel and no "
               "other")
-        print(f"[memo] memo path launches: {memo_counts}")
+        draw_counts["memo"] = draws_counted("memo")
+        print(f"[memo] memo path launches: {memo_counts}, draws "
+              f"{draw_counts['memo']}")
 
         # the dry-run's cells, joined after phases 12 and 13
         dry_proc.wait(timeout=DRYRUN_TIMEOUT_S)
@@ -4627,6 +4833,8 @@ def main():
 
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
+    draw_counts["serve"] = serve_counts[2]
+    draws_main = draws_times["R48"]
     k_ms, p_ms, b_ms, b_by, shape, kh_ms = ssm_times["falcon"]
     z_ms, zp_ms, zb_ms, _, z_shape, zh_ms = ssm_times["zamba2"]
     gt, dt_ = flash_times["granite"], flash_times["danube"]
@@ -4726,6 +4934,22 @@ def main():
                   "profile": train_profile, "mesh": mesh_out,
                   "dryrun": dryrun_out},
         "eval": evals, "ok": True,
+    }, {
+        "name": "draws", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/draws.cu",
+        "replaces": None,
+        "launches": sum(draw_counts.values()),
+        "launches_by_path": {k: draw_counts[k] for k in (
+            "m3e_search", "serve", "train_eval", "compare", "memo",
+            "launch", "families", "stream", "fleet", "mesh", "graph")},
+        "launches_per_search": draw_counts["m3e_search"] // 4,
+        "bitwise_equal_plain": [list(shape) for shape in DRAW_SHAPES],
+        "ms": draws_main["ms"], "plain_ms": draws_main["plain_ms"],
+        "bound_ms": draws_main["bound_ms"], "bound_by": "bytes",
+        "library_ms": draws_main["library_ms"],
+        "ms_host_issued": draws_main["ms_host_issued"],
+        "shape": draws_main["shape"], "shapes": draws_times,
+        "ptxas": ptxas_json(ptxas["draws"]), "ok": True,
     }]
     mark("end")
     print(f"[device] {smi}")

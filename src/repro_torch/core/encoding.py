@@ -72,9 +72,11 @@ def randn_rows(gens: Sequence[torch.Generator], shape: Tuple[int, ...]
 
 # lint: dispatch
 def randint_rows(gens: Sequence[torch.Generator], low: int, high: int,
-                 shape: Tuple[int, ...]) -> torch.Tensor:
-    """(R, *shape) int32 in [low, high): row r drawn from ``gens[r]``."""
-    out = torch.empty((len(gens),) + tuple(shape), dtype=torch.int32,
+                 shape: Tuple[int, ...], dtype: torch.dtype = torch.int32
+                 ) -> torch.Tensor:
+    """(R, *shape) integers in [low, high) (int32 unless ``dtype``): row r
+    drawn from ``gens[r]``."""
+    out = torch.empty((len(gens),) + tuple(shape), dtype=dtype,
                       device=gens[0].device)
     for r, gen in enumerate(gens):
         torch.randint(low, high, tuple(shape), generator=gen, out=out[r])

@@ -17,13 +17,15 @@ Population = group size (paper default 100); sampling budget 10K points =
 100 generations.
 
 A generation is split in two: :func:`draw_generation` draws every random
-tensor a generation needs from a ``torch.Generator`` (the 12 draws of
+tensor a generation needs (the 12 draws of
 ``repro.core.magma._next_generation_body``, with the same shapes, ranges
 and dtypes), and :func:`next_generation_body` is the deterministic rest.
 A test can therefore feed the body the reference's own random draws.
-Both take a leading row axis: :func:`draw_generation_rows` fills each
-row's slice from that row's generator, and the body runs once over R
-independent populations.  The single-child operators (``_mutate``,
+Both take a leading row axis: :func:`draw_generation_rows` draws
+generation ``ctr[r]`` of row r's counter-based Philox stream, keyed by
+``key[r]`` (``repro_torch.kernels.draws``: every row and draw of a
+generation in one kernel launch on a card), and the body runs once over
+R independent populations.  The single-child operators (``_mutate``,
 ``_crossover_gen``, ``_crossover_rg``, ``_crossover_accel``,
 ``_make_child``) are the executable spec of the batched body, with their
 draws passed in.
@@ -41,14 +43,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple, Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.encoding import (Population, rand_rows, randint_rows,
-                                       take_rows)
+from repro_torch.core.encoding import Population, take_rows
 from repro_torch.core.fitness import FitnessFn, FitnessParams
+from repro_torch.kernels.draws import Slot, draws
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,34 +132,47 @@ class GenerationDraws(NamedTuple):
     mut_prio: torch.Tensor    # (n, G) f32 in [0, 1)
 
 
-# lint: dispatch
-def draw_generation_rows(gens: Sequence[torch.Generator], n_child: int,
-                         G: int, A: int, cfg: MagmaConfig) -> GenerationDraws:
-    """One generation's random tensors for R rows, (R, ...) each: row r
-    drawn from ``gens[r]`` in the order a single row draws them."""
+def generation_slots(n_child: int, G: int, A: int,
+                     cfg: MagmaConfig) -> Tuple[Slot, ...]:
+    """The twelve draws of a generation as the draw kernel's slots, in
+    ``GenerationDraws`` field order: a row's shape, kind and range."""
     n_elite = cfg.n_elite
-    return GenerationDraws(
-        dads=randint_rows(gens, 0, n_elite, (n_child,)),
-        moms=randint_rows(gens, 0, n_elite, (n_child,)),
-        u_op=rand_rows(gens, (n_child,)),
-        which=rand_rows(gens, (n_child, 1)) < 0.5,
-        pivot=randint_rows(gens, 1, max(G, 2), (n_child, 1)),
-        ra=randint_rows(gens, 0, G, (n_child, 1)),
-        rb=randint_rows(gens, 0, G, (n_child, 1)),
-        a_sel=randint_rows(gens, 0, A, (n_child, 1)),
-        rebalance=randint_rows(gens, 0, A, (n_child, G)),
-        u_mut=rand_rows(gens, (n_child, G)),
-        mut_accel=randint_rows(gens, 0, A, (n_child, G)),
-        mut_prio=rand_rows(gens, (n_child, G)),
-    )
+    return (Slot((n_child,), "int", 0, n_elite),          # dads
+            Slot((n_child,), "int", 0, n_elite),          # moms
+            Slot((n_child,), "float"),                    # u_op
+            Slot((n_child, 1), "bool"),                   # which
+            Slot((n_child, 1), "int", 1, max(G, 2)),      # pivot
+            Slot((n_child, 1), "int", 0, G),              # ra
+            Slot((n_child, 1), "int", 0, G),              # rb
+            Slot((n_child, 1), "int", 0, A),              # a_sel
+            Slot((n_child, G), "int", 0, A),              # rebalance
+            Slot((n_child, G), "float"),                  # u_mut
+            Slot((n_child, G), "int", 0, A),              # mut_accel
+            Slot((n_child, G), "float"))                  # mut_prio
 
 
-def draw_generation(gen: torch.Generator, n_child: int, G: int, A: int,
-                    cfg: MagmaConfig) -> GenerationDraws:
-    """Draw one generation's random tensors from ``gen`` on its device
-    (the one-row case of :func:`draw_generation_rows`)."""
-    return GenerationDraws(*(d[0] for d in draw_generation_rows(
-        (gen,), n_child, G, A, cfg)))
+# lint: dispatch
+def draw_generation_rows(key: torch.Tensor, ctr: torch.Tensor, n_child: int,
+                         G: int, A: int, cfg: MagmaConfig
+                         ) -> Tuple[GenerationDraws, torch.Tensor]:
+    """One generation's random tensors for R rows, (R, ...) each, and the
+    next counter ``ctr + 1``: row r's are generation ``ctr[r]`` of the
+    counter-based stream keyed by ``key[r]`` (``repro_torch.kernels.
+    draws``), a pure function of the two, so a row draws the same
+    whatever the other rows are.  One kernel launch on a card, the plain
+    version on the CPU."""
+    out, ctr_next = draws(key, ctr, generation_slots(n_child, G, A, cfg))
+    return GenerationDraws(*out), ctr_next
+
+
+def draw_generation(key: torch.Tensor, ctr: torch.Tensor, n_child: int,
+                    G: int, A: int, cfg: MagmaConfig) -> GenerationDraws:
+    """Generation ``ctr`` (a 0-d int64 tensor) of the stream keyed by
+    ``key`` ((2,) int64), on their device: the one-row case of
+    :func:`draw_generation_rows`."""
+    rows, _ = draw_generation_rows(key[None], ctr.reshape(1), n_child, G,
+                                   A, cfg)
+    return GenerationDraws(*(d[0] for d in rows))
 
 
 @functools.lru_cache(maxsize=None)

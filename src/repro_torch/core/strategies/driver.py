@@ -159,6 +159,7 @@ def _run_loop(strategy: SearchStrategy, state, eval_fn, generations: int,
         hist.append(bf)
         if g + 1 < generations or evolve_last or mo:
             state = strategy.tell(state, fit)
+            graphs.count_tells(strategy.name, accel.device, 1)
     return bf, ba, bp, np.asarray(hist), state
 
 

@@ -25,33 +25,37 @@ every operation of every generation:
   (:func:`plan_spans`), or spans of K generations and a remainder where
   a strategy sets ``graph_span = K``; K = 1 is one graph a generation.
 * On a card a span is captured before its first replay: a warm
-  generation runs eagerly on the loaded state (the makespan library is
-  built and loaded, the operator CDF copied to the card once, the
+  generation runs eagerly on the loaded state (the kernels' libraries
+  are built and loaded, the operator CDF copied to the card once, the
   allocator's first blocks made), its kernel launches counted in
-  ``makespan.LAUNCHES`` like any other; the state is loaded again and
-  the span captured on a side stream (``capture_error_mode=
-  "thread_local"``: the stream's and the fleet's other threads may use
-  the card meanwhile).  The loop itself is not run eagerly first.  A
-  step's spans share one memory pool: each writes only into the static
-  carry and its own history, so any may run after any other.  On the
-  CPU, and on a card through ``driver._search(capture=False)``, the same
-  span runs eagerly: the plain version.  Nothing falls back: a capture
+  ``makespan.LAUNCHES`` (and MAGMA's ``draws.LAUNCHES``) like any
+  other; the state is loaded again and the span captured on a side
+  stream (``capture_error_mode="thread_local"``: the stream's and the
+  fleet's other threads may use the card meanwhile).  The loop itself
+  is not run eagerly first.  A step's spans share one memory pool: each
+  writes only into the static carry and its own history, so any may run
+  after any other.  On the CPU, and on a card through
+  ``driver._search(capture=False)``, the same span runs eagerly: the
+  plain version.  Nothing falls back: a capture
   that fails raises.
 * A graph reads every tensor it was captured with by its address, so
   each must live as long as the step: the step owns its carry, tables,
   histories and generators, and a constant the body takes from a cache
   (MAGMA's operator CDF, ``magma._operator_cdf``) comes from one that
   never evicts.
-* Each row draws from its own ``torch.Generator``.  A step owns R
-  generators, registered to its graphs; a search copies its rows'
-  generator states into them before its first span and back after its
-  last, so a graph captured under one search's seeds serves any
-  other's.  Under capture a random kernel reads its seed and base offset
-  from device memory that each replay first fills from the generator's
-  state (two small fills a row), and the replay advances the generator
-  by the sum of the increments the captured calls made: the same
-  increments the eager calls make, so a replay draws bitwise what the
-  eager generations draw.
+* MAGMA draws a generation from its state's key and counter in one
+  kernel launch that reads both from device memory
+  (``repro_torch.kernels.draws``): the carry holds them like any other
+  state tensor.  The other strategies draw each row from its own
+  ``torch.Generator``.  A step owns R generators, registered to its
+  graphs; a search copies its rows' generator states into them before
+  its first span and back after its last, so a graph captured under
+  one search's seeds serves any other's.  Under capture a random kernel
+  reads its seed and base offset from device memory that each replay
+  first fills from the generator's state (two small fills a row), and
+  the replay advances the generator by the sum of the increments the
+  captured calls made: the same increments the eager calls make, so a
+  replay draws bitwise what the eager generations draw.
 * Steps are cached by :class:`StepKey`: the strategy (by value: equal
   configurations share a step), R, P, G, A, the objective, whether it
   is multi-objective, the device and the tables' and state's shapes; a
@@ -66,12 +70,15 @@ every operation of every generation:
 * A capture is the port's compile event: it is reported as
   ``"cuda graph <key label> gens=<n>"`` through
   ``repro_torch.kernels._build.notify_compile``, which
-  ``RecompileGuard`` counts.  The makespan kernel's launches inside a
-  capture go to the graph's own count (``makespan.counted_into``), which
-  each replay adds to ``makespan.LAUNCHES``: one launch a generation, as
-  eagerly.  :func:`totals` counts the captures, the warm generations'
-  launches and the spans run, so a check can hold ``makespan.LAUNCHES``
-  to its generations plus one warm generation a capture.
+  ``RecompileGuard`` counts.  The kernels' launches inside a capture go
+  to the graph's own count (``_build.counted_into``), which each replay
+  adds to their counts (``makespan.LAUNCHES``, ``draws.LAUNCHES``): one
+  launch a generation each, as eagerly.  :func:`totals` counts the
+  captures, the warm generations' launches and the spans run, so a
+  check can hold ``makespan.LAUNCHES`` to its generations plus one warm
+  generation a capture; :func:`tells` counts each strategy's tells that
+  ran (spans, warm generations and ``driver``'s host-stepped loop), so a
+  check can hold ``draws.LAUNCHES`` to MAGMA's.
 """
 from __future__ import annotations
 
@@ -85,11 +92,10 @@ from repro_torch.core.encoding import take_rows
 from repro_torch.core.fitness import (FitnessParams, ObjectiveSpec,
                                       evaluate_objectives, evaluate_params)
 from repro_torch.kernels import _build
-from repro_torch.kernels import makespan as _makespan
 
 __all__ = ["StepKey", "GenerationStep", "row_eval_fn", "step_key",
            "plan_spans", "checkout", "checkin", "steps_info", "totals",
-           "clear"]
+           "tells", "count_tells", "clear"]
 
 #: (n, tell_last): n generations, the last telling only when tell_last
 Span = Tuple[int, bool]
@@ -315,9 +321,12 @@ class GenerationStep:
             if span in self.graphs:
                 continue
             warm: Dict[str, int] = {}
-            with _makespan.counted_into(warm):      # the warm generation
-                self.body(span[0] > 1 or span[1])
-            _makespan.add_launches(warm)
+            tell = span[0] > 1 or span[1]
+            with _build.counted_into(warm):      # the warm generation
+                self.body(tell)
+            _build.add_launches(warm)
+            count_tells(self.key.strategy.name, self.device,
+                        1 if tell else 0)
             self.load(state, params)
             self._capture(span, warm)
 
@@ -333,7 +342,7 @@ class GenerationStep:
             side.wait_stream(torch.cuda.current_stream(dev))
             reserved = torch.cuda.memory_reserved(dev)
             t0 = time.perf_counter()
-            with torch.cuda.stream(side), _makespan.counted_into(launches):
+            with torch.cuda.stream(side), _build.counted_into(launches):
                 graph.capture_begin(pool=self.pool,
                                     capture_error_mode="thread_local")
                 try:
@@ -373,11 +382,15 @@ class GenerationStep:
         if capture:
             graph, launches = self.graphs[span]
             graph.replay()
-            _makespan.add_launches(launches)
+            _build.add_launches(launches)
         else:
             self.span_body(span)
         with _LOCK:
             _TOTALS["runs"] += 1
+        n, tell_last = span
+        # lint: disable=L002(a span is a host tuple)
+        told = n if tell_last else n - 1
+        count_tells(self.key.strategy.name, self.device, told)
         return self.hists[span]
 
     # lint: dispatch
@@ -414,6 +427,7 @@ _LOCK = threading.Lock()
 _CAPTURE_LOCK = threading.Lock()
 _STEPS: Dict[StepKey, List[GenerationStep]] = {}        # @locked:_LOCK
 _TOTALS = {"captures": 0, "warm_launches": 0, "runs": 0}  # @locked:_LOCK
+_TELLS: Dict[Tuple[str, str], int] = {}                   # @locked:_LOCK
 
 
 def checkout(strategy, params: FitnessParams, state,
@@ -458,6 +472,26 @@ def totals() -> Dict[str, int]:
     elsewhere)."""
     with _LOCK:
         return dict(_TOTALS)
+
+
+def count_tells(strategy_name: str, device: torch.device, n: int) -> None:
+    """``n`` tells of the strategy named ``strategy_name`` ran on
+    ``device``."""
+    if n:
+        key = (strategy_name, torch.device(device).type)
+        with _LOCK:
+            _TELLS[key] = _TELLS.get(key, 0) + n
+
+
+def tells(device_type: str = "cuda") -> Dict[str, int]:
+    """Over the process's life, by strategy name: the tells that ran on
+    devices of ``device_type``, in spans (eager or replayed), in the warm
+    generation before each capture and in ``driver``'s host-stepped
+    loop.  On a card MAGMA's draw kernel launches once a tell that has
+    children to draw for (``draws.LAUNCHES``)."""
+    with _LOCK:
+        return {name: n for (name, dt), n in _TELLS.items()
+                if dt == device_type}
 
 
 def clear() -> None:

@@ -207,11 +207,12 @@ class Fleet:
         cards: List[str] = []
         if cfg.device == "cuda":
             cards = _visible_cards()
-            # build the makespan kernel once here, so N workers do not
-            # each run nvcc on the same source (they load the library
-            # the build left, keyed on the source's hash)
+            # build the generation loop's kernels once here, so N
+            # workers do not each run nvcc on the same sources (they load
+            # the libraries the builds left, keyed on the sources' hash)
             from repro_torch.kernels import _build
-            _build.load("makespan")
+            for name in ("makespan", "draws"):
+                _build.load(name)
         group = (f"tcp://127.0.0.1:{_free_port()}" if cfg.distributed
                  else None)
         try:
@@ -342,7 +343,8 @@ class Fleet:
         worker; unlike the router's per-run deltas these are the
         process-lifetime counters, including ``makespan_launches``, which
         equals ``dispatched_generations`` plus ``warm_launches`` (one a
-        ``graph_captures``), and, with the guard armed, ``compiles`` /
+        ``graph_captures``), ``draws_launches``, which equals
+        ``magma_tells`` on a card, and, with the guard armed, ``compiles`` /
         ``compile_names`` / ``recompiles_post_warmup`` /
         ``post_warmup``)."""
         for w in self.workers:

@@ -301,11 +301,12 @@ class _Worker:
 
     def stats(self) -> Dict:
         from repro_torch.core.strategies import graphs
+        from repro_torch.kernels import draws
         from repro_torch.kernels.makespan import LAUNCHES
         memo = (self.memo.stats.summary() if self.memo is not None else {})
-        # this process's makespan kernel launches (the warm generation's
-        # before each graph capture among them): the parent's counter
-        # cannot see a worker's launches
+        # this process's makespan and draw kernel launches (the warm
+        # generation's before each graph capture among them) and MAGMA's
+        # tells: the parent's counters cannot see a worker's
         totals = graphs.totals()
         d = {"worker": self.worker_id, "chunks": self.chunks,
              "scenarios": self.scenarios, "run_wall_s": self.run_wall_s,
@@ -313,6 +314,8 @@ class _Worker:
              "early_flushes": self.early_flushes,
              "refinements": self.refinements, "memo": memo,
              "makespan_launches": LAUNCHES["makespan"],
+             "draws_launches": draws.LAUNCHES["draws"],
+             "magma_tells": graphs.tells().get("magma", 0),
              "dispatched_generations": self.svc.dispatched_generations,
              "graph_captures": totals["captures"],
              "warm_launches": totals["warm_launches"],

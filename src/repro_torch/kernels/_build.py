@@ -13,9 +13,17 @@ a CUDA graph (``repro_torch.core.strategies.graphs``, reported through
 ``fn(name, seconds)``, called once for each library a process loads and
 each graph it captures (``repro_torch.lint.runtime.RecompileGuard``
 counts them).
+
+The kernels of the generation loop count their launches here
+(:func:`launch_counter`, :func:`count_launch`): each eager launch adds
+one to its kernel's plain-integer count, and inside :func:`counted_into`
+a thread's launches go to the dict it names instead, for the caller to
+add with :func:`add_launches` -- a CUDA graph's capture, whose count each
+replay adds, and the warm generation before it, added at once.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -26,7 +34,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 from repro_torch.obs.registry import get_registry
 
@@ -77,6 +85,53 @@ def notify_compile(name: str, seconds: float) -> None:
         listeners = list(_listeners)
     for fn in listeners:
         fn(name, seconds)
+
+
+# kernel name -> (its {name: launches} dict, the registry counter that
+# counts the same or None, that counter's help text)
+_launch_counts: Dict[str, Tuple[Dict[str, int], Optional[str], str]] = {}
+_into = threading.local()
+
+
+def launch_counter(name: str, metric: Optional[str] = None,
+                   help_text: str = "") -> Dict[str, int]:
+    """``{name: 0}``: the count of kernel ``name``'s launches on the path,
+    a plain integer its wrapper exposes; with ``metric`` the process
+    registry's counter of that name counts them too."""
+    counts = {name: 0}
+    _launch_counts[name] = (counts, metric, help_text)
+    return counts
+
+
+@contextlib.contextmanager
+def counted_into(counts: Dict[str, int]) -> Iterator[Dict[str, int]]:
+    """Count this thread's launches into ``counts`` for the scope, not
+    into the kernels' counts."""
+    outer = getattr(_into, "counts", None)
+    _into.counts = counts
+    try:
+        yield counts
+    finally:
+        _into.counts = outer
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (a graph's captured launches, at its replay) to the
+    kernels' counts."""
+    for name, n in counts.items():
+        total, metric, help_text = _launch_counts[name]
+        total[name] += n
+        if metric is not None and n:
+            get_registry().counter(metric, help_text).inc(n)
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``, counted where the thread counts."""
+    counts = getattr(_into, "counts", None)
+    if counts is None:
+        add_launches({name: 1})
+    else:
+        counts[name] = counts.get(name, 0) + 1
 
 
 def _nvcc() -> str:

@@ -19,17 +19,15 @@ from one to the other: a CUDA call builds and launches the kernel or
 raises.  ``LAUNCHES["makespan"]`` counts the kernel's launches on the path:
 each eager launch (the warm generation's before a capture among them),
 and at each replay of a CUDA graph the launches captured into it
-(``repro_torch.core.strategies.graphs``).  Inside :func:`counted_into` a
-thread's launches go to the dict it names instead, for the caller to add
-with :func:`add_launches`: a capture's, which each replay adds, and the
-warm generation's, added at once and recorded beside the capture.
+(``repro_torch.core.strategies.graphs``).  Inside
+``_build.counted_into`` a thread's launches go to the dict it names
+instead, for the caller to add with ``_build.add_launches``: a
+capture's, which each replay adds, and the warm generation's, added at
+once and recorded beside the capture.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import threading
-from typing import Dict, Iterator
 
 import torch
 
@@ -37,42 +35,12 @@ from repro_torch.core.bw_allocator import simulate_tables
 from repro_torch.kernels import _build
 
 MAX_ACCELS = 32        # one lane per sub-accelerator
-LAUNCHES = {"makespan": 0}
-
-
-_into = threading.local()
+LAUNCHES = _build.launch_counter("makespan")
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-@contextlib.contextmanager
-def counted_into(counts: Dict[str, int]) -> Iterator[Dict[str, int]]:
-    """Count this thread's launches into ``counts`` for the scope, not
-    into ``LAUNCHES``."""
-    outer = getattr(_into, "counts", None)
-    _into.counts = counts
-    try:
-        yield counts
-    finally:
-        _into.counts = outer
-
-
-def add_launches(counts: Dict[str, int]) -> None:
-    """Add ``counts`` (a graph's captured launches, at its replay) to
-    ``LAUNCHES``."""
-    for name, n in counts.items():
-        LAUNCHES[name] += n
-
-
-def _count(name: str) -> None:
-    counts = getattr(_into, "counts", None)
-    if counts is None:
-        LAUNCHES[name] += 1
-    else:
-        counts[name] = counts.get(name, 0) + 1
 
 
 def _library() -> ctypes.CDLL:
@@ -151,7 +119,7 @@ def makespan_cuda(qlat: torch.Tensor, qbw: torch.Tensor, count: torch.Tensor,
     if err != 0:
         raise RuntimeError("makespan kernel launch failed: "
                            + lib.makespan_error_string(err).decode())
-    _count("makespan")
+    _build.count_launch("makespan")
     return out
 
 

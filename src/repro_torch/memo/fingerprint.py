@@ -51,8 +51,12 @@ from repro_torch.core.fitness import FitnessParams, objective_token
 def strategy_signature(strategy) -> str:
     """Stable identity of a bound strategy: frozen dataclasses repr as
     ``Name(field=value, ...)``, so equal configs produce equal signatures
-    and any hyper-parameter change produces a new one."""
-    return repr(strategy)
+    and any hyper-parameter change produces a new one.  A strategy that
+    draws its generations from a stream of its own (``draw_stream``:
+    MAGMA's counter-based Philox4x32-10, ``repro_torch.kernels.draws``)
+    names it too, so a record of an earlier stream never exact-hits."""
+    stream = getattr(strategy, "draw_stream", None)
+    return repr(strategy) + (f"|draws={stream}" if stream else "")
 
 
 def _table_bytes(params: FitnessParams) -> bytes:

@@ -55,8 +55,10 @@ from repro_torch.core.strategies.driver import (run_interleaved,  # noqa: E402
 from repro_torch.core.encoding import row_generators  # noqa: E402
 from repro_torch.core.sweep import SweepConfig, run_rows, run_sweep  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import draws as draws_kernel  # noqa: E402
 from repro_torch.kernels import makespan as mk  # noqa: E402
 from repro_torch.lint.runtime import RecompileError, RecompileGuard  # noqa: E402
+from repro_torch.obs import get_registry  # noqa: E402
 
 STRATEGIES = ("magma", "random", "stdga", "de", "pso", "nsga2")
 P = 8
@@ -424,15 +426,18 @@ def test_a_state_field_the_step_cannot_carry_raises():
 
 
 def test_launches_inside_counted_into_go_to_its_dict():
-    before = mk.LAUNCHES["makespan"]
-    with mk.counted_into({}) as captured:
-        mk._count("makespan")
-        mk._count("makespan")
-    assert captured == {"makespan": 2}
-    assert mk.LAUNCHES["makespan"] == before
-    mk.add_launches(captured)
+    metric = get_registry().counter("repro_draws_launches_total")
+    before, drawn = mk.LAUNCHES["makespan"], metric.value()
+    with _build.counted_into({}) as captured:
+        _build.count_launch("makespan")
+        _build.count_launch("makespan")
+        _build.count_launch("draws")
+    assert captured == {"makespan": 2, "draws": 1}
+    assert mk.LAUNCHES["makespan"] == before and metric.value() == drawn
+    _build.add_launches(captured)
     assert mk.LAUNCHES["makespan"] == before + 2
-    mk._count("makespan")
+    assert metric.value() == drawn + 1 and draws_kernel.LAUNCHES["draws"] >= 1
+    _build.count_launch("makespan")
     assert mk.LAUNCHES["makespan"] == before + 3
 
 

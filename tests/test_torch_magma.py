@@ -5,7 +5,7 @@ The reference draws a generation's random numbers from a JAX key inside
 those twelve draws from the same key, hands them to the port's
 deterministic ``next_generation_body``, and requires the next population
 to be bitwise the reference's.  ``draw_generation`` must give the same
-shapes, ranges and dtypes from a ``torch.Generator``.
+shapes, ranges and dtypes from a row's key and generation counter.
 """
 import numpy as np
 import pytest
@@ -93,9 +93,8 @@ def test_draws_shapes_ranges_dtypes_match_reference(cfg):
     G, A = 17, 6
     n_child = cfg.population - cfg.n_elite
     ref = _reference_draws(jax.random.PRNGKey(0), n_child, G, A, cfg.n_elite)
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(0)
-    got = magma.draw_generation(gen, n_child, G, A, cfg)
+    got = magma.draw_generation(torch.tensor([0, 2 ** 32 - 1]),
+                                torch.tensor(5), n_child, G, A, cfg)
     highs = dict(dads=cfg.n_elite, moms=cfg.n_elite, pivot=G, ra=G, rb=G,
                  a_sel=A, rebalance=A, mut_accel=A)
     for name, r, g in zip(magma.GenerationDraws._fields, ref, got):

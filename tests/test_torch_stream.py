@@ -68,9 +68,14 @@ QUICK = dict(group_size=12, bw_ladder_gb=(1.0, 16.0), settings=("S1", "S2"),
 STAGES = ("analyze", "admit", "queue_wait", "dispatch", "device", "route")
 # the whole-slice trace (the reference's tests/test_stream.py fixture)
 SLICE = dict(num_scenarios=8, seed=3, **QUICK)
-# best-fitness geomean, port over reference, on the SLICE trace at BUDGET:
-# 0.9718-1.0124 over trace seeds 0-9 (seed 3: 1.0124), measured on the CPU
-# by running this file as a script; the limit is ~1.8x the widest
+# best-fitness geomean, port over reference, on the SLICE trace at BUDGET,
+# measured on the CPU by running this file as a script: with MAGMA's
+# counter-based draws 0.9440-1.0086 over trace seeds 0-9 (seed 3: 1.0086)
+# and 0.9440-1.0614 over seeds 0-29; with the per-row generator draws
+# before them 0.9718-1.0124 over seeds 0-9 (seed 3: 1.0124) and
+# 0.9718-1.0547 over seeds 0-29.  One 8-scenario trace at 300 samples
+# (3 generations) reads up to ~6% off at a few seeds in either stream;
+# the limit holds the test's seed
 RATIO_TOL = 0.05
 
 

@@ -14,15 +14,18 @@ random streams, so the test compares the seed means of the Trf-0-ep
 fraction of the full search and of gain0 (Trf-0-ep over Raw).  Measured
 on the CPU by running this file as a script, over four disjoint sets of
 six group seeds, the port-minus-reference difference of the mean
-Trf-0-ep fraction lay within [+0.0016, +0.0375] and the port/reference
-ratio of the mean gain0 within [0.9316, 1.0151]; the tolerances are
-twice the widest: FRAC_TOL 0.075 and GAIN_RTOL 0.14.  Both packages
+Trf-0-ep fraction lay within [-0.0364, +0.0497] and the port/reference
+ratio of the mean gain0 within [0.9279, 1.0274] with MAGMA's
+counter-based draws ([+0.0016, +0.0375] and [0.9316, 1.0151] with the
+per-row generator draws before them, when the tolerances were set at
+twice the widest): FRAC_TOL 0.075 and GAIN_RTOL 0.14.  Both packages
 must also meet the reference script's own assertion, gain0 > 1.1 and
 full_frac > 0.75, at every seed.  The protocol seeds the searches and
 the random individuals the same way whatever the groups, so those sets
 share each package's draws; with the draws moved with the group seed
-(the script's second reading) the difference lay within [-0.0715,
-+0.0076] and the gain0 ratio within [0.9399, 0.9915].
+(the script's second reading) the difference lay within [-0.0694,
++0.0129] and the gain0 ratio within [0.9450, 0.9872] ([-0.0715, +0.0076]
+and [0.9399, 0.9915] before).
 """
 import numpy as np
 import pytest
